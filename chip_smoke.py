@@ -19,8 +19,7 @@ Phases, each of which raises on a failed check:
    EMA law, and timing the last 3 steps.
 
 The last three lines of standard output are the nvidia-smi line, one JSON
-object {"kernels": [...]}, and {"ok": true, "device": {...}}. A longer record
-goes to chiprun_out/chip_smoke.json.
+object {"kernels": [...]}, and {"ok": true, "device": {...}}.
 """
 import copy
 import json
@@ -29,7 +28,6 @@ import statistics
 import subprocess
 import sys
 import time
-from pathlib import Path
 
 import torch
 import torch.nn.functional as fn
@@ -140,7 +138,7 @@ def time_site(C, F, vol, gen):
     return ms, plain, lib
 
 
-def kernel_phase(gen, record):
+def kernel_phase(gen):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     max_abs, max_rel = 0.0, 0.0
@@ -171,11 +169,9 @@ def kernel_phase(gen, record):
     for (C, F, vol), (ms, plain, lib) in timed.items():
         flop_ms, byte_ms = bound_ms(C, F, vol)
         tflops = 2 * BATCH * math.prod(vol) * 27 * C * F / ms / 1e9
-        row = dict(C=C, F=F, vol=list(vol), ms=ms, plain_ms=plain, library_ms=lib,
-                   bound_ms=max(flop_ms, byte_ms), tflops=tflops, sites=shapes[(C, F, vol)])
-        record["conv_shapes"].append(row)
         print(f"[kernel] B=4 {C:>3}->{F:<3} @{vol}: {ms:.3f} ms ({tflops:.1f} TFLOP/s), "
-              f"bound {row['bound_ms']:.3f} ms, plain {plain:.3f} ms, F.conv3d {lib:.3f} ms")
+              f"bound {max(flop_ms, byte_ms):.3f} ms, plain {plain:.3f} ms, "
+              f"F.conv3d {lib:.3f} ms")
     return max_abs, max_rel, totals
 
 
@@ -198,7 +194,7 @@ def reference_phase():
     return err
 
 
-def slice_phase(record):
+def slice_phase():
     cfg = PretrainConfig()
     student = build_spark_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
     teacher = make_teacher(student)
@@ -247,9 +243,6 @@ def slice_phase(record):
     launches = conv3d_3x3.launches
     step_ms = statistics.median(times[WARMUP:])
     peak = torch.cuda.max_memory_allocated()
-    record["slice"] = dict(losses=losses, step_ms_all=times, step_ms=step_ms,
-                           patches_per_s=BATCH / step_ms * 1e3, peak_bytes=peak,
-                           launches=launches, parameters=n_params)
     print(f"[slice] step {step_ms:.1f} ms (median of {STEPS - WARMUP}), "
           f"{BATCH / step_ms * 1e3:.3f} patches/s, peak memory {peak / 2**30:.2f} GiB, "
           f"{launches} kernel launches in {STEPS} steps")
@@ -263,7 +256,6 @@ def main():
     smi = gpu_line()
     print(f"[device] {smi} | {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
           f"| CUDA {torch.version.cuda} | devices {torch.cuda.device_count()}")
-    record = dict(gpu=smi, torch=torch.__version__, cuda=torch.version.cuda, conv_shapes=[])
 
     t0 = time.perf_counter()
     _build.load("conv3x3")
@@ -273,15 +265,14 @@ def main():
     for line in log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
-    record["build_s"] = build_s
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    max_abs, max_rel, totals = kernel_phase(gen, record)
+    max_abs, max_rel, totals = kernel_phase(gen)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    record["tiny_rec_rel_err"] = reference_phase()
+    reference_phase()
     torch.cuda.empty_cache()
-    launches = slice_phase(record)
+    launches = slice_phase()
 
     kernel = dict(
         name="conv3d_3x3", route="cuda", source="anatomask_torch/csrc/conv3x3.cu",
@@ -291,10 +282,6 @@ def main():
         bound_by="operations" if totals["flop_ms"] >= totals["byte_ms"] else "bytes",
         library_ms=totals["library_ms"],
         per="the 50 launches of one step at B = 4 (sums over call sites)")
-    record["kernels"] = [kernel]
-    out = Path("chiprun_out")
-    out.mkdir(exist_ok=True)
-    (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(smi)
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
