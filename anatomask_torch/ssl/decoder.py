@@ -64,10 +64,9 @@ class LightDecoder(nn.Module):
         self.proj = ConvND(channels[-1], out_channels, 1, bias=True, dtype=dtype,
                            init="trunc", generator=generator)
 
-    def forward(self, to_dec: List[Optional[torch.Tensor]]) -> torch.Tensor:
-        x = None
-        for i, block in enumerate(self.dec):
-            if i < len(to_dec) and to_dec[i] is not None:
-                x = to_dec[i] if x is None else x + to_dec[i]
-            x = block(x)
+    def forward(self, to_dec: List[torch.Tensor]) -> torch.Tensor:
+        """to_dec: one skip per block, coarsest first."""
+        x = 0
+        for block, skip in zip(self.dec, to_dec, strict=True):
+            x = block(x + skip)
         return self.proj(x)

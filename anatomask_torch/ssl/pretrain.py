@@ -40,7 +40,6 @@ class PretrainConfig:
     weight_decay: float = 1e-5
     compute_dtype: str = "bfloat16"
     encoder_dims: Optional[Tuple[int, ...]] = None
-    encoder_depth: Optional[Tuple[int, ...]] = None
 
 
 def _device(device) -> torch.device:
@@ -62,8 +61,7 @@ def build_spark_model(cfg: PretrainConfig, in_channels: int = 1, device="cuda",
     size = cfg.model_size.upper()
     dims = (list(cfg.encoder_dims) if cfg.encoder_dims
             else [_STUNET_WIDTHS[size] * m for m in (1, 2, 4, 8, 16)])
-    depth = (list(cfg.encoder_depth) if cfg.encoder_depth
-             else [_STUNET_DEPTHS[size]] * len(dims))
+    depth = [_STUNET_DEPTHS[size]] * len(dims)
     enc = SparseSTUNetEncoder(in_channels, dims, depth, batch_pooled=cfg.norm_batch_pooled,
                               dtype=dtype, generator=generator)
     dec = LightDecoder(enc.get_downsample_ratio(), cfg.decoder_width or dims[-1],

@@ -13,7 +13,8 @@ import torch.nn as nn
 
 from anatomask_torch.models.layers import ConvND
 from anatomask_torch.ssl.decoder import LightDecoder
-from anatomask_torch.ssl.sparse import SparseInstanceNorm, SparseSTUNetEncoder, upsample_mask
+from anatomask_torch.ssl.sparse import (SparseInstanceNorm, SparseSTUNetEncoder,
+                                        mask_to_resolution, upsample_mask)
 
 
 def patchify(x: torch.Tensor, fmap: Sequence[int], p: Sequence[int]) -> torch.Tensor:
@@ -113,8 +114,7 @@ class SparK(nn.Module):
         to_dec = []
         for i, bcff in enumerate(feats[:n_used]):
             bcff = self.densify_norms[i](bcff, cur_active)
-            m_here = upsample_mask(
-                cur_active, [s // g for s, g in zip(bcff.shape[2:5], cur_active.shape[2:5])])
+            m_here = mask_to_resolution(cur_active, bcff.shape[2:5])
             bcff = torch.where(m_here, bcff, self.mask_tokens[i].to(bcff.dtype))
             to_dec.append(self.densify_projs[i](bcff))
             cur_active = upsample_mask(cur_active, (2, 2, 2))

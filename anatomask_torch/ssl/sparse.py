@@ -89,12 +89,11 @@ class SparseBasicResBlock(nn.Module):
         self.conv3 = ConvND(cin, cout, 1, stride, **dd) if use_1x1conv else None
 
     def forward(self, x: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
-        y = self.conv1(x)
-        m_out = mask_to_resolution(active, y.shape[2:5]).to(self.dtype)
-        y = leaky_relu(self.norm1(y, active))
+        y = leaky_relu(self.norm1(self.conv1(x), active))
         y = self.norm2(self.conv2(y), active)
         if self.conv3 is not None:
-            x = self.conv3(x) * m_out
+            x = self.conv3(x)
+            x = x * mask_to_resolution(active, x.shape[2:5]).to(self.dtype)
         return leaky_relu(y + x)
 
 

@@ -9,9 +9,10 @@ Phases, each of which raises on a failed check:
 2. build: compile csrc/conv3x3.cu for sm_90a from the checkout's sources;
 3. kernel: at every main-path call site of the stride-1 3x3x3 conv, the kernel
    against its plain PyTorch version on the card, forward and dx (bf16 at
-   B = 1, relative max error <= 1e-2; fp32 without TF32 on a few shapes,
-   <= 1e-5), and at B = 4 its time beside the bound, the plain version's time
-   and F.conv3d's (a yardstick only; the port never calls it for this conv);
+   B = 1 through the autograd Function and at the main path's B = 4,
+   relative max error <= 1e-2; fp32 without TF32 on a few shapes, <= 1e-5),
+   and at B = 4 its time beside the bound, the plain version's time and
+   F.conv3d's (a yardstick only; the port never calls it for this conv);
 4. slice: a tiny SparK in fp32 on the card against the same model on the CPU,
    then the AnatoMask pretraining step at full STUNet-B width (patch
    112x112x128, batch 4, mask ratio 0.6, bf16, decoder width 512) for 5 steps,
@@ -128,14 +129,22 @@ def check_site(C, F, vol, dtype, gen, tol):
 
 
 def time_site(C, F, vol, gen):
-    """ms of the kernel, the plain version and F.conv3d at B = 4 in bf16."""
+    """At the main path's B = 4 in bf16: the kernel against the plain version
+    (relative max error <= 1e-2), then the ms of the kernel, the plain version
+    and F.conv3d. Returns (ms, plain ms, F.conv3d ms), (max abs err, rel err)."""
     x, w = conv_inputs(C, F, vol, BATCH, torch.bfloat16, gen)
+    y_k, y_p = conv3d_3x3_forward(x, w), conv3d_3x3_plain(x, w)
+    err = rel_err(y_k, y_p)
+    check(math.isfinite(err) and err <= 1e-2,
+          f"kernel vs plain {C}->{F} @{vol} B={BATCH}: rel error {err} > 1e-2")
+    abs_err = (y_k.float() - y_p.float()).abs().max().item()
+    del y_k, y_p
     xc = x.permute(0, 4, 1, 2, 3)  # NCDHW view, channels_last_3d memory
     wc = w.permute(4, 3, 0, 1, 2).contiguous()
     ms = time_ms(lambda: conv3d_3x3_forward(x, w), 3)
     plain = time_ms(lambda: conv3d_3x3_plain(x, w), 1)
     lib = time_ms(lambda: fn.conv3d(xc, wc, None, 1, 1), 3)
-    return ms, plain, lib
+    return (ms, plain, lib), (abs_err, err)
 
 
 def kernel_phase(gen):
@@ -154,7 +163,11 @@ def kernel_phase(gen):
                       (256, 128, (28, 28, 32))]:
         _, r = check_site(C, F, vol, torch.float32, gen, 1e-5)
         print(f"[kernel] fp32 {C:>3}->{F:<3} @{vol}: fwd+dx rel err {r:.3e}")
-    timed = {key: time_site(*key, gen) for key in shapes}
+    timed = {}
+    for key in shapes:
+        timed[key], (a, r) = time_site(*key, gen)
+        max_abs, max_rel = max(max_abs, a), max(max_rel, r)
+        print(f"[kernel] bf16 {key[0]:>3}->{key[1]:<3} @{key[2]} B={BATCH}: fwd rel err {r:.3e}")
     torch.cuda.empty_cache()
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flop_ms=0.0, byte_ms=0.0, bound_ms=0.0)
     for name, C, F, vol in SITES:
