@@ -23,23 +23,21 @@ from anatomask_torch.ssl.ema import ema_update
 from anatomask_torch.ssl.spark import SparK, random_keep_mask, spark_loss
 from anatomask_torch.ssl.sparse import SparseSTUNetEncoder
 
-_STUNET_WIDTHS = {"S": 16, "B": 32, "L": 64, "H": 96}
-_STUNET_DEPTHS = {"S": 1, "B": 1, "L": 2, "H": 3}
+STUNET_B_DIMS = (32, 64, 128, 256, 512)
+# bench.py's optimizer and teacher constants
+LR, WEIGHT_DECAY = 1e-4, 1e-5
+GRAD_CLIP = 12.0
+EMA_DECAY = 0.999
 
 
 @dataclass(frozen=True)
 class PretrainConfig:
-    """The fields of anatomask_tpu's PretrainConfig that building the model and
-    its optimizer read. Densify and decoder norms are "in", the only law ported."""
-    model_size: str = "B"
+    """The fields of anatomask_tpu's PretrainConfig that building the model
+    reads. The encoder is STUNet-B (one block a stage); the decoder is as wide
+    as the encoder's top stage; densify and decoder norms are "in"."""
     patch_size: Tuple[int, int, int] = (112, 112, 128)
-    mask_ratio: float = 0.6
-    decoder_width: Optional[int] = None  # default: the encoder's top width
-    norm_batch_pooled: bool = False
-    lr: float = 1e-4
-    weight_decay: float = 1e-5
     compute_dtype: str = "bfloat16"
-    encoder_dims: Optional[Tuple[int, ...]] = None
+    encoder_dims: Tuple[int, ...] = STUNET_B_DIMS
 
 
 def _device(device) -> torch.device:
@@ -58,16 +56,10 @@ def build_spark_model(cfg: PretrainConfig, in_channels: int = 1, device="cuda",
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-    size = cfg.model_size.upper()
-    dims = (list(cfg.encoder_dims) if cfg.encoder_dims
-            else [_STUNET_WIDTHS[size] * m for m in (1, 2, 4, 8, 16)])
-    depth = [_STUNET_DEPTHS[size]] * len(dims)
-    enc = SparseSTUNetEncoder(in_channels, dims, depth, batch_pooled=cfg.norm_batch_pooled,
-                              dtype=dtype, generator=generator)
-    dec = LightDecoder(enc.get_downsample_ratio(), cfg.decoder_width or dims[-1],
-                       in_channels, dtype, generator)
-    model = SparK(enc, dec, cfg.patch_size, cfg.mask_ratio, cfg.norm_batch_pooled, dtype,
-                  generator)
+    enc = SparseSTUNetEncoder(in_channels, cfg.encoder_dims, dtype, generator)
+    dec = LightDecoder(enc.get_downsample_ratio(), cfg.encoder_dims[-1], in_channels, dtype,
+                       generator)
+    model = SparK(enc, dec, cfg.patch_size, dtype, generator)
     return model.to(device)
 
 
@@ -83,16 +75,16 @@ def no_decay_mask(model: nn.Module) -> Dict[str, bool]:
             for name, p in model.named_parameters()}
 
 
-def make_optimizer(model: nn.Module, cfg: PretrainConfig = PretrainConfig()
-                   ) -> torch.optim.AdamW:
-    """AdamW(lr, wd, betas 0.9/0.999, eps 1e-8) with decay where no_decay_mask says."""
+def make_optimizer(model: nn.Module) -> torch.optim.AdamW:
+    """AdamW(1e-4, wd 1e-5, betas 0.9/0.999, eps 1e-8) with decay where
+    no_decay_mask says."""
     decay = no_decay_mask(model)
     params = dict(model.named_parameters())
     groups = [
-        {"params": [p for n, p in params.items() if decay[n]], "weight_decay": cfg.weight_decay},
+        {"params": [p for n, p in params.items() if decay[n]], "weight_decay": WEIGHT_DECAY},
         {"params": [p for n, p in params.items() if not decay[n]], "weight_decay": 0.0},
     ]
-    return torch.optim.AdamW(groups, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+    return torch.optim.AdamW(groups, lr=LR, betas=(0.9, 0.999), eps=1e-8)
 
 
 @torch.no_grad()
@@ -110,13 +102,11 @@ def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float) -> torc
 def anatomask_train_step(student: SparK, teacher: SparK, optimizer: torch.optim.Optimizer,
                          x: torch.Tensor, len_loss: int,
                          generator: Optional[torch.Generator] = None, *,
-                         grad_clip: float = 12.0, ema_decay: float = 0.999,
                          noise: Optional[torch.Tensor] = None):
     """One AnatoMask step on x (B, C, H, W, D). The two (B, L) uniform draws
     (random teacher mask, guided-mask noise) come from `generator`, or from
-    `noise` (2, B, L) where a test supplies them. grad_clip and ema_decay
-    default to bench.py's constants. Returns (student loss, hard mask,
-    teacher per-patch loss map)."""
+    `noise` (2, B, L) where a test supplies them. Returns (student loss, hard
+    mask, teacher per-patch loss map)."""
     B = x.shape[0]
     L = math.prod(student.fmap)
     if noise is None:
@@ -136,7 +126,7 @@ def anatomask_train_step(student: SparK, teacher: SparK, optimizer: torch.optim.
     for p in params:  # unread parameters get zero gradients, as in JAX
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    clip_by_global_norm_([p.grad for p in params], grad_clip)
+    clip_by_global_norm_([p.grad for p in params], GRAD_CLIP)
     optimizer.step()
-    ema_update(teacher, student, ema_decay)
+    ema_update(teacher, student, EMA_DECAY)
     return loss.detach(), hard, loss_map

@@ -16,6 +16,8 @@ from anatomask_torch.ssl.decoder import LightDecoder
 from anatomask_torch.ssl.sparse import (SparseInstanceNorm, SparseSTUNetEncoder,
                                         mask_to_resolution, upsample_mask)
 
+MASK_RATIO = 0.6  # share of patches masked (bench.py's pretraining step)
+
 
 def patchify(x: torch.Tensor, fmap: Sequence[int], p: Sequence[int]) -> torch.Tensor:
     """(B, C, H, W, D) -> (B, L = f1*f2*f3, p1*p2*p3*C), channel fastest within
@@ -64,30 +66,28 @@ class SparseEncoder(nn.Module):
 
 
 class SparK(nn.Module):
-    """Sparse encoder + densify layers (norm "in", eps 1e-6) + LightDecoder.
+    """Sparse encoder + densify layers (norm "in", eps 1e-6) + LightDecoder;
+    len_keep = round(L * (1 - MASK_RATIO)) patches stay visible.
     forward(x, active) -> (patchified input, patchified reconstruction)."""
 
     def __init__(self, encoder: SparseSTUNetEncoder, decoder: LightDecoder,
-                 input_size: Tuple[int, int, int], mask_ratio: float = 0.6,
-                 batch_pooled: bool = False, dtype: torch.dtype = torch.float32,
+                 input_size: Tuple[int, int, int], dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.sparse_encoder = SparseEncoder(encoder)
         self.dense_decoder = decoder
         self.input_size = tuple(input_size)
-        self.mask_ratio = mask_ratio
         self.dtype = dtype
         r = encoder.get_downsample_ratio()
         self.patch = (r, r, r)
         self.fmap = tuple(s // r for s in self.input_size)
-        self.len_keep = round(self.fmap[0] * self.fmap[1] * self.fmap[2] * (1 - mask_ratio))
+        self.len_keep = round(self.fmap[0] * self.fmap[1] * self.fmap[2] * (1 - MASK_RATIO))
 
         e_widths = encoder.dims[::-1]
         d_width = decoder.width
         norms, projs, tokens = [], [], []
         for i, e_width in enumerate(e_widths):
-            norms.append(SparseInstanceNorm(e_width, eps=1e-6, batch_pooled=batch_pooled,
-                                            dtype=dtype))
+            norms.append(SparseInstanceNorm(e_width, eps=1e-6, dtype=dtype))
             token = torch.empty(1, e_width, 1, 1, 1)
             nn.init.trunc_normal_(token, 0.0, 0.02, -0.02, 0.02, generator=generator)
             tokens.append(nn.Parameter(token))

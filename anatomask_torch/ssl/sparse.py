@@ -77,15 +77,15 @@ class SparseBasicResBlock(nn.Module):
     zero their output, so only the 1x1 skip needs an explicit re-mask."""
 
     def __init__(self, cin: int, cout: int, stride: int = 1, use_1x1conv: bool = False,
-                 batch_pooled: bool = False, dtype: torch.dtype = torch.float32,
+                 dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         dd = dict(dtype=dtype, generator=generator)
         self.dtype = dtype
         self.conv1 = ConvND(cin, cout, 3, stride, **dd)
-        self.norm1 = SparseInstanceNorm(cout, batch_pooled=batch_pooled, dtype=dtype)
+        self.norm1 = SparseInstanceNorm(cout, dtype=dtype)
         self.conv2 = ConvND(cout, cout, 3, 1, **dd)
-        self.norm2 = SparseInstanceNorm(cout, batch_pooled=batch_pooled, dtype=dtype)
+        self.norm2 = SparseInstanceNorm(cout, dtype=dtype)
         self.conv3 = ConvND(cin, cout, 1, stride, **dd) if use_1x1conv else None
 
     def forward(self, x: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
@@ -98,28 +98,23 @@ class SparseBasicResBlock(nn.Module):
 
 
 class _SparseResStage(nn.ModuleList):
-    """`depth` blocks; the first one strides and projects the skip."""
+    """One stage of STUNet-B: a single block that strides and projects the
+    skip. A list, so that parameter names keep the reference's block index."""
 
-    def __init__(self, cin: int, cout: int, depth: int, stride: int,
-                 batch_pooled: bool, dtype: torch.dtype,
+    def __init__(self, cin: int, cout: int, stride: int, dtype: torch.dtype,
                  generator: Optional[torch.Generator]):
-        dd = dict(batch_pooled=batch_pooled, dtype=dtype, generator=generator)
-        super().__init__(
-            [SparseBasicResBlock(cin, cout, stride, use_1x1conv=True, **dd)]
-            + [SparseBasicResBlock(cout, cout, 1, **dd) for _ in range(1, depth)])
+        super().__init__([SparseBasicResBlock(cin, cout, stride, use_1x1conv=True,
+                                              dtype=dtype, generator=generator)])
 
     def forward(self, x: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
-        for block in self:
-            x = block(x, active)
-        return x
+        return self[0](x, active)
 
 
 class SparseSTUNetEncoder(nn.Module):
-    """Masked STUNet encoder; forward(x, active) -> features, finest first.
-    Stage 0 has stride 1, every later stage stride 2."""
+    """Masked STUNet encoder, one block a stage; forward(x, active) ->
+    features, finest first. Stage 0 has stride 1, every later stage stride 2."""
 
     def __init__(self, in_channels: int = 1, dims: Sequence[int] = (32, 64, 128, 256, 512),
-                 depth: Sequence[int] = (1, 1, 1, 1, 1), batch_pooled: bool = False,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -127,8 +122,8 @@ class SparseSTUNetEncoder(nn.Module):
         self.strides = [1] + [2] * (len(dims) - 1)
         cins = [in_channels] + self.dims[:-1]
         self.conv_blocks_context = nn.ModuleList(
-            _SparseResStage(ci, co, d, s, batch_pooled, dtype, generator)
-            for ci, co, d, s in zip(cins, self.dims, depth, self.strides))
+            _SparseResStage(ci, co, s, dtype, generator)
+            for ci, co, s in zip(cins, self.dims, self.strides))
 
     def get_downsample_ratio(self) -> int:
         return 2 ** (len(self.dims) - 1)

@@ -182,8 +182,9 @@ def kernel_phase(gen):
     for (C, F, vol), (ms, plain, lib) in timed.items():
         flop_ms, byte_ms = bound_ms(C, F, vol)
         tflops = 2 * BATCH * math.prod(vol) * 27 * C * F / ms / 1e9
+        by = "operations" if flop_ms >= byte_ms else "bytes"
         print(f"[kernel] B=4 {C:>3}->{F:<3} @{vol}: {ms:.3f} ms ({tflops:.1f} TFLOP/s), "
-              f"bound {max(flop_ms, byte_ms):.3f} ms, plain {plain:.3f} ms, "
+              f"bound {max(flop_ms, byte_ms):.3f} ms ({by}), plain {plain:.3f} ms, "
               f"F.conv3d {lib:.3f} ms")
     return max_abs, max_rel, totals
 
@@ -191,7 +192,7 @@ def kernel_phase(gen):
 def reference_phase():
     """A tiny SparK in fp32: the card (kernel) against the CPU (plain)."""
     cfg = PretrainConfig(patch_size=(32, 32, 32), encoder_dims=(4, 8, 16, 32, 64),
-                         decoder_width=64, compute_dtype="float32")
+                         compute_dtype="float32")
     cpu = build_spark_model(cfg, device="cpu", generator=torch.Generator().manual_seed(5))
     gpu = copy.deepcopy(cpu).to("cuda")
     gen = torch.Generator().manual_seed(6)
@@ -211,7 +212,7 @@ def slice_phase():
     cfg = PretrainConfig()
     student = build_spark_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
     teacher = make_teacher(student)
-    optimizer = make_optimizer(student, cfg)
+    optimizer = make_optimizer(student)
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.rand((BATCH, 1, *cfg.patch_size), generator=gen, device="cuda")
     x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
@@ -233,7 +234,7 @@ def slice_phase():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss, hard, loss_map = anatomask_train_step(student, teacher, optimizer, x,
-                                                    len_loss, gen, ema_decay=0.999)
+                                                    len_loss, gen)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss.item())

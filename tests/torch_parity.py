@@ -14,14 +14,14 @@ from anatomask_torch.ssl.pretrain import PretrainConfig, build_spark_model
 
 DIMS = (4, 8, 16, 32, 64)
 PATCH = (32, 32, 32)
-DEC_WIDTH = 64
 BATCH = 2
 
 
-def tiny_configs(dims=DIMS, dec_width=DEC_WIDTH):
-    kw = dict(patch_size=PATCH, mask_ratio=0.6, compute_dtype="float32",
-              encoder_dims=dims, decoder_width=dec_width)
-    return (JaxPretrainConfig(method="anatomask", model_size="B", batch_size=BATCH, **kw),
+def tiny_configs(dims=DIMS, patch=PATCH):
+    """The JAX and the port's config; the decoder is as wide as dims[-1]."""
+    kw = dict(patch_size=patch, compute_dtype="float32", encoder_dims=dims)
+    return (JaxPretrainConfig(method="anatomask", model_size="B", batch_size=BATCH,
+                              mask_ratio=0.6, **kw),
             PretrainConfig(**kw))
 
 
@@ -29,7 +29,7 @@ def jax_params(model, seed: int):
     """Flax init, then every leaf moved by seeded noise so that biases, norm
     affines and mask tokens carry signal too."""
     key = jax.random.PRNGKey(seed)
-    x0 = jnp.zeros((1, *PATCH, 1), jnp.float32)
+    x0 = jnp.zeros((1, *model.input_size, 1), jnp.float32)
     params = model.init(key, x0, model.mask(key, 1))["params"]
     rs = np.random.RandomState(seed)
     return jax.tree_util.tree_map(
