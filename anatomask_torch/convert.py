@@ -1,8 +1,9 @@
-"""JAX SparK parameters -> the port's state_dict.
+"""JAX parameters -> the port's state_dicts.
 
-The input is the JAX package's SparK param tree as nested dicts of numpy
-arrays; the output uses the reference torch SparK's names, so the JAX
-package's `convert_torch_spark_state_dict` is this function's inverse.
+The input is a JAX package param tree as nested dicts of numpy arrays; the
+output uses the reference torch models' names, so the JAX package's
+`convert_torch_spark_state_dict` and `convert_torch_stunet_state_dict` are
+the inverses of `spark_state_dict_from_jax` and `stunet_state_dict_from_jax`.
 
 - conv kernels DHWIO -> OIDHW: transpose(4, 3, 0, 1, 2);
 - ConvTranspose kernels (k, k, k, I, O), correlated un-flipped by
@@ -32,18 +33,48 @@ def _norm(prefix: str, node: Mapping, out: Dict[str, np.ndarray]) -> None:
     out[f"{prefix}.bias"] = np.asarray(node["bias"])
 
 
+def _tensors(out: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.tensor(np.ascontiguousarray(v, np.float32)) for k, v in out.items()}
+
+
+def _res_stage(prefix: str, stage: Mapping, out: Dict[str, np.ndarray]) -> None:
+    """One STUNet stage: block{b}/conv{1,2,3}/conv/{kernel,bias} and
+    block{b}/norm{1,2}/{scale,bias} -> {prefix}.{b}.conv1.weight, ..."""
+    for block_name, block in stage.items():
+        pre = f"{prefix}.{block_name[len('block'):]}"
+        for layer, node in block.items():
+            if layer.startswith("conv"):
+                out[f"{pre}.{layer}.weight"] = _conv(node["conv"]["kernel"])
+                out[f"{pre}.{layer}.bias"] = np.asarray(node["conv"]["bias"])
+            else:
+                _norm(f"{pre}.{layer}", node, out)
+
+
+def stunet_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX STUNet's params (conv_blocks_context_{d}, upsample_layers_{u},
+    conv_blocks_localization_{u}, seg_outputs_{u}) -> the port's STUNet
+    state_dict."""
+    out: Dict[str, np.ndarray] = {}
+    for name, node in params.items():
+        kind, i = name.rsplit("_", 1)
+        if kind in ("conv_blocks_context", "conv_blocks_localization"):
+            _res_stage(f"{kind}.{i}", node, out)
+        elif kind == "upsample_layers":
+            out[f"upsample_layers.{i}.conv.weight"] = _conv(node["conv"]["conv"]["kernel"])
+            out[f"upsample_layers.{i}.conv.bias"] = np.asarray(node["conv"]["conv"]["bias"])
+        elif kind == "seg_outputs":
+            out[f"seg_outputs.{i}.weight"] = _conv(node["conv"]["kernel"])
+            out[f"seg_outputs.{i}.bias"] = np.asarray(node["conv"]["bias"])
+        else:
+            raise ValueError(f"not a STUNet parameter: {name}")
+    return _tensors(out)
+
+
 def spark_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     out: Dict[str, np.ndarray] = {}
     for stage_name, stage in params["sparse_encoder"].items():
         d = stage_name.rsplit("_", 1)[1]
-        for block_name, block in stage.items():
-            prefix = f"sparse_encoder.sp_cnn.conv_blocks_context.{d}.{block_name[len('block'):]}"
-            for layer, node in block.items():
-                if layer.startswith("conv"):
-                    out[f"{prefix}.{layer}.weight"] = _conv(node["conv"]["kernel"])
-                    out[f"{prefix}.{layer}.bias"] = np.asarray(node["conv"]["bias"])
-                else:
-                    _norm(f"{prefix}.{layer}", node, out)
+        _res_stage(f"sparse_encoder.sp_cnn.conv_blocks_context.{d}", stage, out)
     for name, node in params.items():
         m = re.fullmatch(r"(densify_norm|densify_proj|mask_token)(\d+)", name)
         if m is None:
@@ -68,4 +99,4 @@ def spark_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         for j in (0, 1):
             out[f"{prefix}.conv.{3 * j}.weight"] = _conv(node[f"conv{j}"]["kernel"])
             _norm(f"{prefix}.conv.{3 * j + 1}", node[f"norm{j}"], out)
-    return {k: torch.tensor(np.ascontiguousarray(v, np.float32)) for k, v in out.items()}
+    return _tensors(out)

@@ -1,1 +1,1 @@
-"""Shared network layers."""
+"""Networks (STUNet, built from plans) and their layers."""

@@ -17,6 +17,7 @@ from typing import Dict, Iterable, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from anatomask_torch.device import resolve_device
 from anatomask_torch.ssl.anatomask import generate_guided_mask
 from anatomask_torch.ssl.decoder import LightDecoder
 from anatomask_torch.ssl.ema import ema_update
@@ -40,19 +41,11 @@ class PretrainConfig:
     encoder_dims: Tuple[int, ...] = STUNET_B_DIMS
 
 
-def _device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("anatomask_torch runs on CUDA by default and no CUDA device "
-                           "is available; pass device='cpu' to run the plain versions")
-    return device
-
-
 def build_spark_model(cfg: PretrainConfig, in_channels: int = 1, device="cuda",
                       generator: Optional[torch.Generator] = None) -> SparK:
     """STUNet sparse encoder + LightDecoder SparK, initialised on the CPU from
     `generator` (default: seed 0), then moved to `device`."""
-    device = _device(device)
+    device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32

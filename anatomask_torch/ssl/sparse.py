@@ -14,7 +14,8 @@ from typing import List, Optional, Sequence
 import torch
 import torch.nn as nn
 
-from anatomask_torch.models.layers import ConvND, leaky_relu
+from anatomask_torch.models.layers import CL3D, ConvND, leaky_relu
+from anatomask_torch.ops.moments import row_moments
 
 
 def upsample_mask(mask: torch.Tensor, factors: Sequence[int]) -> torch.Tensor:
@@ -35,13 +36,19 @@ def mask_to_resolution(mask: torch.Tensor, spatial_shape: Sequence[int]) -> torc
     return upsample_mask(mask, factors)
 
 
-def _masked_moments(x: torch.Tensor, m: torch.Tensor, dims):
-    """fp32 mean/var over `dims` restricted to m == 1 (count clamped >= 1)."""
-    cnt = m.sum(dims, keepdim=True, dtype=torch.float32).clamp_min(1.0)
-    mx = m.to(x.dtype)
-    mean = (x * mx).sum(dims, keepdim=True, dtype=torch.float32) / cnt
-    mean_sq = (x.square() * mx).sum(dims, keepdim=True, dtype=torch.float32) / cnt
-    return mean, (mean_sq - mean.square()).clamp_min(0.0)
+def _masked_moments(x: torch.Tensor, m: torch.Tensor, batch_pooled: bool):
+    """fp32 mean/var per (sample, channel) over the visible voxels (m == 1),
+    (B, C, 1, 1, 1); pooled over the batch as (1, C, 1, 1, 1). The sums come
+    from the moments kernel; counts are clamped >= 1."""
+    x = x.contiguous(memory_format=CL3D)
+    s, ss = row_moments(x.permute(0, 2, 3, 4, 1), m[:, 0])
+    cnt = m.sum((1, 2, 3, 4), dtype=torch.float32)[:, None]
+    if batch_pooled:
+        s, ss, cnt = s.sum(0, keepdim=True), ss.sum(0, keepdim=True), cnt.sum(0, keepdim=True)
+    cnt = cnt.clamp_min(1.0)
+    mean = s / cnt
+    var = (ss / cnt - mean.square()).clamp_min(0.0)
+    return mean[:, :, None, None, None], var[:, :, None, None, None]
 
 
 class SparseInstanceNorm(nn.Module):
@@ -58,8 +65,7 @@ class SparseInstanceNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
         m = mask_to_resolution(active, x.shape[2:5])
-        dims = (0, 2, 3, 4) if self.batch_pooled else (2, 3, 4)
-        mean, var = _masked_moments(x, m, dims)
+        mean, var = _masked_moments(x, m, self.batch_pooled)
         scale = self.weight.view(1, -1, 1, 1, 1)
         a = torch.rsqrt(var + self.eps)
         b = -mean * a * scale + self.bias.view(1, -1, 1, 1, 1)

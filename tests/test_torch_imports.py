@@ -37,8 +37,11 @@ def test_every_module_imports_without_jax():
 
 def test_package_has_the_mirrored_modules():
     names = set(_modules())
-    for mod in ("models.layers", "ops.conv3x3", "ops._build", "convert", "ssl.sparse",
-                "ssl.decoder", "ssl.spark", "ssl.anatomask", "ssl.ema", "ssl.pretrain"):
+    for mod in ("models.layers", "models.stunet", "models.build", "ops.conv3x3",
+                "ops.moments", "ops._build", "convert", "device", "ssl.sparse",
+                "ssl.decoder", "ssl.spark", "ssl.anatomask", "ssl.ema", "ssl.pretrain",
+                "plans.plans_handler", "plans.label_handling", "training.checkpoint",
+                "inference.gaussian", "inference.sliding_window", "inference.predictor"):
         assert f"anatomask_torch.{mod}" in names
 
 

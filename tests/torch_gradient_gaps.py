@@ -1,13 +1,23 @@
-"""How far the step test's gradients move when only the summation order of the
-3x3x3 convs changes. At the hard mask of tests/test_torch_step.py, prints the
+"""How far the step test's gradients move when only the summation order
+changes. Runs on the CPU in float32.
+
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_gradient_gaps.py          # ~4 min
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_gradient_gaps.py threads  # ~5 min
+
+The default mode, at the hard mask of tests/test_torch_step.py, prints the
 three leaves with the largest max|dg| / max|g| for four pairs of gradients:
 JAX with its `lax` conv lowering against its default one, the port with
 F.conv3d in place of its plain im2col conv against the port as it is, and
-each port variant against JAX. Runs on the CPU in float32 (about 4 minutes):
+each port variant against JAX.
 
-    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_gradient_gaps.py
+`threads` runs the step test's own step (its fixture's two halves) with
+torch pinned to 1, 2, 4 and 8 intra-op threads, and prints for each count the
+gap of every leaf that test_gradients_match holds to the JAX gradient
+(largest first, in the test's measure max|g - r| / max|r|), then the largest
+gap over all counts.
 """
 import os
+import sys
 
 import numpy as np
 import jax
@@ -22,6 +32,23 @@ from anatomask_torch.convert import spark_state_dict_from_jax
 from anatomask_torch.ssl.spark import spark_loss
 from torch_parity import (BATCH, DIMS, jax_build_spark_model, jax_params, mask_nd, mask_port,
                           port_model, tiny_configs, to_ncdhw)
+
+
+def thread_gaps(counts=(1, 2, 4, 8)):
+    ref, params, ema_params, x, len_loss = step_test.jax_reference()
+    worst = {}
+    for n in counts:
+        got = step_test.port_step(params, ema_params, x, len_loss, ref["noise"], threads=n)
+        gaps = sorted(((float(np.abs(g - r).max() / np.abs(r).max()), name)
+                       for name, g, r in step_test._pairs(ref["grads"], got["student"], "grad")
+                       if np.abs(r).max() > 0 and not step_test._CANCELLED.fullmatch(name)),
+                      reverse=True)
+        print(f"threads {n}: loss {got['loss']!r}")
+        for gap, name in gaps:
+            print(f"  {gap:.4e} {name}")
+            worst[name] = max(worst.get(name, 0.0), gap)
+    name = max(worst, key=worst.get)
+    print(f"largest gap over {counts} threads: {worst[name]:.4e} ({name})")
 
 
 def main():
@@ -70,4 +97,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    thread_gaps() if sys.argv[1:] == ["threads"] else main()

@@ -66,3 +66,21 @@ def random_keep(rs: np.random.RandomState, batch: int, fmap, len_keep: int) -> n
         keep[b, rs.permutation(L)[:len_keep]] = True
     return keep.reshape(batch, *fmap)
 
+
+
+def jax_random_params(module, input_shape, seed: int, *init_args):
+    """Parameters of a flax module drawn with numpy from a seed, without
+    running flax's (slow, eager) initialisation: kernels He-normal, norm
+    scales 1 + noise, biases noise."""
+    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0),
+                                                jnp.zeros(input_shape), *init_args))["params"]
+    rs = np.random.RandomState(seed)
+
+    def leaf(path, v):
+        name = path[-1].key
+        noise = rs.standard_normal(v.shape).astype(np.float32)
+        if name == "kernel":
+            return noise * np.float32(np.sqrt(2.0 / np.prod(v.shape[:-1])))
+        return (1.0 + 0.1 * noise) if name == "scale" else 0.1 * noise
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
