@@ -118,6 +118,17 @@ def flip_weight(w: torch.Tensor) -> torch.Tensor:
     return torch.flip(w, (0, 1, 2)).transpose(3, 4)
 
 
+def weight_grad(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dw (3, 3, 3, C, F) of the 'same' conv from the output gradient g and
+    the input x (both NDHWC): torch's convolution backward, the counterpart of
+    the XLA correlation that the TPU kernels' VJPs leave outside them."""
+    dw = torch.ops.aten.convolution_backward(
+        g.permute(0, 4, 1, 2, 3), x.permute(0, 4, 1, 2, 3),
+        w.permute(4, 3, 0, 1, 2), None, [1, 1, 1], [1, 1, 1], [1, 1, 1],
+        False, [0, 0, 0], 1, [False, True, False])[1]
+    return dw.permute(2, 3, 4, 1, 0).to(w.dtype)
+
+
 class Conv3x3Function(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
@@ -132,13 +143,7 @@ class Conv3x3Function(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = conv3d_3x3_forward(g, flip_weight(w).to(g.dtype))
         if ctx.needs_input_grad[1]:
-            # weight gradient: torch's convolution backward, the counterpart of
-            # the XLA correlation that the TPU kernel's VJP leaves outside it
-            dw = torch.ops.aten.convolution_backward(
-                g.permute(0, 4, 1, 2, 3), x.permute(0, 4, 1, 2, 3),
-                w.permute(4, 3, 0, 1, 2), None, [1, 1, 1], [1, 1, 1], [1, 1, 1],
-                False, [0, 0, 0], 1, [False, True, False])[1]
-            dw = dw.permute(2, 3, 4, 1, 0).to(w.dtype)
+            dw = weight_grad(g, x, w)
         return dx, dw
 
 

@@ -1,43 +1,90 @@
-"""AnatoMask teacher-student pretraining step. Counterpart of the step that
-anatomask_tpu/ssl/pretrain.py builds and bench.py times (one microbatch):
+"""MIM pretraining: the AnatoMask teacher-student step, the SparK random-mask
+step, and the trainer that runs them the way users run pretraining.
+Counterpart of anatomask_tpu/ssl/pretrain.py.
+
+`anatomask_train_step` is the step that the JAX package builds and bench.py
+times (one microbatch):
 
 1. the EMA teacher reconstructs under a random mask (no_grad);
 2. its per-patch loss picks the hard mask (`generate_guided_mask`);
 3. the student runs forward and backward under the hard mask;
-4. global-norm clip, then AdamW on the student;
-5. EMA update of the teacher.
+4. global-norm clip, then AdamW on the student at the step's LR;
+5. EMA update of the teacher at the epoch's decay.
+
+`PretrainTrainer.run_pretraining` wraps it as `atk_pretrain` does: the case
+split, the foreground-oversampling patch sampler, the GPU-resident case cache
+(or the host pipeline), on-device spatial augmentation from an enlarged
+initial patch, the warmup-cosine LR, the per-epoch EMA decay and easy-to-hard
+keep ratio, validation, the non-finite-loss abort, and checkpoints with
+resume. JAX's chunked `lax.scan` over steps is a plain Python loop here.
 """
 from __future__ import annotations
 
 import copy
+import json
 import math
-from dataclasses import dataclass
-from typing import Dict, Iterable, Optional, Tuple
+import os
+import threading
+import time
+from dataclasses import asdict, dataclass
+from typing import Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
+from anatomask_torch.configuration import get_allowed_n_proc_DA
+from anatomask_torch.data.augment import (AugmentConfig, IntensityAugmentConfig,
+                                          SpatialAugmentConfig, make_train_augment_fn,
+                                          rotation_ranges_and_initial_patch_size)
+from anatomask_torch.data.dataset import CaseDataset, unpack_dataset
+from anatomask_torch.data.device_cache import DeviceCaseCache
+from anatomask_torch.data.pipeline import PrefetchPipeline
+from anatomask_torch.data.sampler import PatchSampler
 from anatomask_torch.device import resolve_device
-from anatomask_torch.ssl.anatomask import generate_guided_mask
+from anatomask_torch.paths import require
+from anatomask_torch.plans.plans_handler import PlansManager, load_json, save_json
+from anatomask_torch.ssl.anatomask import generate_guided_mask, guided_keep_ratio
 from anatomask_torch.ssl.decoder import LightDecoder
-from anatomask_torch.ssl.ema import ema_update
+from anatomask_torch.ssl.ema import ema_decay_schedule, ema_update
 from anatomask_torch.ssl.spark import SparK, random_keep_mask, spark_loss
 from anatomask_torch.ssl.sparse import SparseSTUNetEncoder
+from anatomask_torch.training import checkpoint as ckpt_lib
+from anatomask_torch.training.schedules import linear_warmup_cosine_schedule
+from anatomask_torch.training.trainer import generate_crossval_split
 
 STUNET_B_DIMS = (32, 64, 128, 256, 512)
-# bench.py's optimizer and teacher constants
+MODEL_SIZE = "B"  # the encoder head the port builds (names the output folder)
+# bench.py's optimizer constants, and the teacher's EMA decay ramp
 LR, WEIGHT_DECAY = 1e-4, 1e-5
 GRAD_CLIP = 12.0
-EMA_DECAY = 0.999
+EMA_DECAY, EMA_DECAY_END = 0.999, 0.9999
 
 
 @dataclass(frozen=True)
 class PretrainConfig:
     """The fields of anatomask_tpu's PretrainConfig that building the model
-    reads. The encoder is STUNet-B (one block a stage); the decoder is as wide
-    as the encoder's top stage; densify and decoder norms are "in"."""
+    and the PretrainTrainer read, with the JAX package's defaults. The encoder is
+    STUNet-B (one block a stage; `encoder_dims` narrows it for tests); the
+    decoder is as wide as the encoder's top stage; densify and decoder norms
+    are "in". LR, weight decay, clip and the EMA bounds are the module
+    constants above."""
+    method: str = "anatomask"            # "spark" (random mask) | "anatomask"
     patch_size: Tuple[int, int, int] = (112, 112, 128)
+    batch_size: int = 4
+    num_epochs: int = 1000
+    iters_per_epoch: Optional[int] = None  # default floor(n_train / batch)
+    warmup_epochs: int = 20
+    oversample_foreground_percent: float = 0.33
+    val_fraction: float = 0.15
+    guide: bool = True                   # easy-to-hard curriculum
     compute_dtype: str = "bfloat16"
+    num_workers: Optional[int] = None
+    seed: int = 42
+    save_every: int = 1
+    # GPU-resident case cache; None = on unless ATK_DEVICE_CACHE=0
+    device_cache: Optional[bool] = None
+    device_cache_mb: int = 1024
     encoder_dims: Tuple[int, ...] = STUNET_B_DIMS
 
 
@@ -92,10 +139,25 @@ def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float) -> torc
     return norm
 
 
+def _update(student: SparK, optimizer: torch.optim.Optimizer, loss: torch.Tensor,
+            lr: float) -> None:
+    """Backward, optax's clip, then AdamW at `lr` (set on every group)."""
+    loss.backward()
+    params = list(student.parameters())
+    for p in params:  # unread parameters get zero gradients, as in JAX
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    clip_by_global_norm_([p.grad for p in params], GRAD_CLIP)
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    optimizer.step()
+
+
 def anatomask_train_step(student: SparK, teacher: SparK, optimizer: torch.optim.Optimizer,
                          x: torch.Tensor, len_loss: int,
                          generator: Optional[torch.Generator] = None, *,
-                         noise: Optional[torch.Tensor] = None):
+                         noise: Optional[torch.Tensor] = None,
+                         ema_decay: float = EMA_DECAY, lr: float = LR):
     """One AnatoMask step on x (B, C, H, W, D). The two (B, L) uniform draws
     (random teacher mask, guided-mask noise) come from `generator`, or from
     `noise` (2, B, L) where a test supplies them. Returns (student loss, hard
@@ -114,12 +176,453 @@ def anatomask_train_step(student: SparK, teacher: SparK, optimizer: torch.optim.
     optimizer.zero_grad(set_to_none=False)
     inp, rec = student(x, hard)
     loss = spark_loss(inp, rec, hard)[0]
-    loss.backward()
-    params = list(student.parameters())
-    for p in params:  # unread parameters get zero gradients, as in JAX
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    clip_by_global_norm_([p.grad for p in params], GRAD_CLIP)
-    optimizer.step()
-    ema_update(teacher, student, EMA_DECAY)
+    _update(student, optimizer, loss, lr)
+    ema_update(teacher, student, ema_decay)
     return loss.detach(), hard, loss_map
+
+
+def spark_train_step(student: SparK, optimizer: torch.optim.Optimizer, x: torch.Tensor,
+                     generator: Optional[torch.Generator] = None, *,
+                     noise: Optional[torch.Tensor] = None, lr: float = LR) -> torch.Tensor:
+    """One SparK step on x (B, C, H, W, D): a uniformly random mask (from
+    `generator`, or the (B, L) uniforms `noise`), forward, backward, clip,
+    AdamW. No teacher. Returns the loss."""
+    active = random_keep_mask(x.shape[0], student.fmap, student.len_keep, generator,
+                              device=x.device, noise=noise)
+    optimizer.zero_grad(set_to_none=False)
+    inp, rec = student(x, active)
+    loss = spark_loss(inp, rec, active)[0]
+    _update(student, optimizer, loss, lr)
+    return loss.detach()
+
+
+@torch.no_grad()
+def val_step(model: SparK, x: torch.Tensor, generator: Optional[torch.Generator] = None, *,
+             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Reconstruction loss of x under a fresh random mask, no gradient."""
+    active = random_keep_mask(x.shape[0], model.fmap, model.len_keep, generator,
+                              device=x.device, noise=noise)
+    inp, rec = model(x, active)
+    return spark_loss(inp, rec, active)[0]
+
+
+def _host_copy(obj):
+    """The same structure with every tensor copied to the host. The optimizer
+    and the EMA update write in place, so a checkpoint writer thread must be
+    handed copies taken before it starts."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(v) for v in obj)
+    return obj
+
+
+class PretrainTrainer:
+    """The pretraining loop on one GPU (`device="cpu"` runs every kernel's
+    plain version instead)."""
+
+    def __init__(
+        self,
+        dataset_name_or_id,
+        config: PretrainConfig = PretrainConfig(),
+        plans_identifier: str = "ATKPlans",
+        configuration: str = "3d_fullres",
+        fold: int = 0,
+        output_folder: Optional[str] = None,
+        device="cuda",
+    ):
+        from anatomask_torch.utils.helpers import maybe_convert_to_dataset_name
+        self.cfg = config
+        self.device = resolve_device(device)
+        self.dataset_name = maybe_convert_to_dataset_name(dataset_name_or_id)
+        pp_base = os.path.join(require("preprocessed"), self.dataset_name)
+        self.plans_manager = PlansManager(os.path.join(pp_base, plans_identifier + ".json"))
+        self.configuration_manager = self.plans_manager.get_configuration(configuration)
+        self.dataset_json = load_json(os.path.join(pp_base, "dataset.json"))
+        self.preprocessed_folder = os.path.join(pp_base,
+                                                self.configuration_manager.data_identifier)
+        self.fold = fold
+        self.output_folder = output_folder or os.path.join(
+            require("results"), self.dataset_name, f"pretrain_{config.method}_{MODEL_SIZE}")
+        os.makedirs(self.output_folder, exist_ok=True)
+        self.label_manager = self.plans_manager.get_label_manager(self.dataset_json)
+        self.num_input_channels = len(
+            self.dataset_json.get("channel_names", self.dataset_json.get("modality")))
+        self.model = build_spark_model(config, self.num_input_channels, self.device,
+                                       torch.Generator().manual_seed(config.seed))
+        self.dtype = self.model.dtype
+        self.current_epoch = 0
+        self.epoch_timings: List[dict] = []  # seconds per epoch, as the log line prints
+        self._ckpt_thread: Optional[threading.Thread] = None
+        self._ckpt_error: Optional[BaseException] = None
+
+    def print_to_log_file(self, *args):
+        line = " ".join(str(a) for a in args)
+        print(line, flush=True)
+        with open(os.path.join(self.output_folder, "pretrain_log.txt"), "a") as f:
+            f.write(line + "\n")
+
+    # --- data -----------------------------------------------------------------
+    def _split_keys(self) -> Tuple[List[str], List[str]]:
+        """Fold train keys, then an internal train/val split of them (nnU-Net
+        pretraining's train_test_split(test_size=0.15, random_state=42))."""
+        all_keys = sorted(CaseDataset(self.preprocessed_folder).keys())
+        splits_file = os.path.join(os.path.dirname(self.preprocessed_folder),
+                                   "splits_final.json")
+        if os.path.isfile(splits_file):
+            splits = load_json(splits_file)
+        else:
+            splits = generate_crossval_split(all_keys, 5, seed=12345)
+            save_json(splits, splits_file)
+        tr_keys = splits[self.fold]["train"] if self.fold < len(splits) else all_keys
+        rng = np.random.RandomState(self.cfg.seed)
+        idx = rng.permutation(len(tr_keys))
+        n_val = max(1, int(round(len(tr_keys) * self.cfg.val_fraction)))
+        val = [tr_keys[i] for i in idx[:n_val]]
+        train = [tr_keys[i] for i in idx[n_val:]]
+        return train, val
+
+    def get_dataloaders(self):
+        cfg = self.cfg
+        train_keys, val_keys = self._split_keys()
+        ds_tr = CaseDataset(self.preprocessed_folder, train_keys)
+        ds_val = CaseDataset(self.preprocessed_folder, val_keys)
+        patch = tuple(cfg.patch_size)
+        # spatial-only augmentation (rotation +-30deg, scaling .7-1.4,
+        # mirroring; intensity transforms off)
+        rot, dummy_2d, initial_patch, mirror_axes = rotation_ranges_and_initial_patch_size(patch)
+        initial_patch = tuple(int(i) for i in initial_patch)
+        self.aug_config = AugmentConfig(
+            spatial=SpatialAugmentConfig(
+                patch_size=patch, rotation_x=tuple(rot["x"]), rotation_y=tuple(rot["y"]),
+                rotation_z=tuple(rot["z"]), dummy_2d=dummy_2d),
+            intensity=IntensityAugmentConfig(
+                p_noise=0, p_blur=0, p_brightness=0, p_contrast=0, p_lowres=0,
+                p_gamma=0, p_gamma_invert=0),
+            mirror_axes=mirror_axes,
+            ds_scales=(),
+        )
+        annotated_key = tuple(self.label_manager.all_labels)
+        has_ignore = self.label_manager.has_ignore_label
+        bs, os_pct = cfg.batch_size, cfg.oversample_foreground_percent
+        self.sampler_train = PatchSampler(
+            ds_tr, bs, initial_patch, final_patch_size=patch,
+            oversample_foreground_percent=os_pct, annotated_classes_key=annotated_key,
+            has_ignore=has_ignore, seed=cfg.seed,
+            load_seg=False)  # labels only steer oversampling
+        self.sampler_val = PatchSampler(
+            ds_val, bs, patch, final_patch_size=patch,
+            oversample_foreground_percent=os_pct, annotated_classes_key=annotated_key,
+            has_ignore=has_ignore, seed=cfg.seed + 1, load_seg=False)
+        n_workers = (cfg.num_workers if cfg.num_workers is not None
+                     else min(4, get_allowed_n_proc_DA()))
+        cache_dtype = self.dtype
+        use_cache = cfg.device_cache
+        if use_cache is None:
+            use_cache = os.environ.get("ATK_DEVICE_CACHE", "1") == "1"
+        self.device_cache = self.device_cache_val = None
+        if use_cache:
+            self.device_cache = DeviceCaseCache(
+                ds_tr, initial_patch=initial_patch, final_patch=patch,
+                capacity_mb=cfg.device_cache_mb, oversample_foreground_percent=os_pct,
+                annotated_classes_key=annotated_key, has_ignore=has_ignore,
+                batch_size=bs, dtype=cache_dtype, seed=cfg.seed + 77,
+                whole_dataset_mode=True, device=self.device)
+            if self.device_cache.whole_dataset_resident:
+                self.print_to_log_file("[device-cache] whole training set resident; refills off")
+            else:
+                # turnover target: each slot refreshed about once per epoch
+                iters_hint = cfg.iters_per_epoch or 250
+                self.device_cache.start_refill(
+                    steps_per_slot=max(1, iters_hint // self.device_cache.num_slots))
+            self.print_to_log_file(
+                f"[device-cache] {self.device_cache.num_slots} slots of "
+                f"{self.device_cache.slot_shape} on {self.device} "
+                f"(~{cfg.device_cache_mb} MB budget); host sends only "
+                f"(slot, origin) pairs per step")
+            # validation patches come out of device memory too
+            self.device_cache_val = DeviceCaseCache(
+                ds_val, initial_patch=patch, final_patch=patch,
+                capacity_mb=max(128, cfg.device_cache_mb // 4),
+                oversample_foreground_percent=os_pct, annotated_classes_key=annotated_key,
+                has_ignore=has_ignore, batch_size=bs, dtype=cache_dtype,
+                seed=cfg.seed + 78, whole_dataset_mode=True, device=self.device)
+            if not self.device_cache_val.whole_dataset_resident:
+                # best-checkpoint selection then scores a rotating window of
+                # the val cases, not the whole split
+                self.print_to_log_file(
+                    "[device-cache] WARNING: val cache holds "
+                    f"{self.device_cache_val.num_slots} of {len(ds_val)} val cases - val "
+                    "loss samples a rotating window, not the full split; raise "
+                    "device_cache_mb to make best-checkpoint selection window-independent")
+                self.device_cache_val.start_refill(steps_per_slot=max(
+                    1, max(1, (cfg.iters_per_epoch or 250) // 5)
+                    // self.device_cache_val.num_slots))
+        transfer_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+        self.loader_train = PrefetchPipeline(
+            self.sampler_train,
+            num_workers=1 if self.device_cache is not None else n_workers,
+            device=self.device, transfer_dtype=transfer_dtype, drop_keys=("seg",))
+        self.loader_val = PrefetchPipeline(self.sampler_val, num_workers=1,
+                                           device=self.device, drop_keys=("seg",))
+        self.n_train = len(train_keys)
+        return self.loader_train, self.loader_val
+
+    # --- initialization -------------------------------------------------------
+    def initialize(self):
+        cfg = self.cfg
+        self.teacher = self.model if cfg.method == "spark" else make_teacher(self.model)
+        self.optimizer = make_optimizer(self.model)
+        iters = cfg.iters_per_epoch or max(1, getattr(self, "n_train", 100) // cfg.batch_size)
+        self.iters_per_epoch = iters
+        self.lr_schedule = linear_warmup_cosine_schedule(
+            LR, warmup_steps=cfg.warmup_epochs * iters, total_steps=cfg.num_epochs * iters,
+            warmup_start_lr=1e-6)
+        self.augment = make_train_augment_fn(self.aug_config)
+        # augmentation parameters are drawn on the host, masks on the device
+        self.aug_generator = torch.Generator().manual_seed(cfg.seed + 999)
+        self.mask_generator = torch.Generator(self.device).manual_seed(cfg.seed + 999)
+        self.step_counter = 0
+
+    def epoch_settings(self, epoch: int) -> Tuple[float, float, int]:
+        """(teacher EMA decay, guided keep ratio, len_loss) of an epoch:
+        the decay ramps 0.999 -> 0.9999 over the first quarter of the epochs,
+        and the len_loss hardest patches of the masked ones are forced."""
+        cfg = self.cfg
+        ema_decay = ema_decay_schedule(epoch, cfg.num_epochs, EMA_DECAY, EMA_DECAY_END)
+        keep_ratio = guided_keep_ratio(epoch, cfg.num_epochs, cfg.guide)
+        L = math.prod(self.model.fmap)
+        return ema_decay, keep_ratio, int((L - self.model.len_keep) * keep_ratio)
+
+    def _optimizer_count(self) -> int:
+        """AdamW's step count, optax's `count`: the LR of a step is the
+        schedule at the count before its update."""
+        state = self.optimizer.state.get(self.optimizer.param_groups[0]["params"][0])
+        return int(state["step"]) if state else 0
+
+    def _to_model(self, data: torch.Tensor) -> torch.Tensor:
+        """(B, x, y, z, C) -> the model's (B, C, x, y, z) in the compute dtype,
+        channels_last_3d memory."""
+        return data.to(self.dtype).permute(0, 4, 1, 2, 3).contiguous(
+            memory_format=torch.channels_last_3d)
+
+    def _prep(self, data: torch.Tensor) -> torch.Tensor:
+        if (self.aug_config.spatial.p_rotation > 0
+                or tuple(data.shape[1:4]) != tuple(self.cfg.patch_size)):
+            data, _ = self.augment(self.aug_generator, data)
+        return self._to_model(data)
+
+    # --- checkpointing --------------------------------------------------------
+    def _snapshot_state(self) -> dict:
+        """One host copy of the training state (student, teacher, AdamW)."""
+        net = _host_copy(self.model.state_dict())
+        return {
+            "network_weights": net,
+            "ema_weights": net if self.teacher is self.model
+            else _host_copy(self.teacher.state_dict()),
+            "optimizer_state": _host_copy(self.optimizer.state_dict()),
+        }
+
+    def _checkpoint_meta(self, extra_meta: Optional[dict] = None) -> dict:
+        meta = {
+            "method": self.cfg.method,
+            "model_size": MODEL_SIZE,
+            "current_epoch": self.current_epoch + 1,
+            "spark_config": self.model.get_config(),
+            "pretrain_config": {k: (list(v) if isinstance(v, tuple) else v)
+                                for k, v in asdict(self.cfg).items()},
+        }
+        meta.update(extra_meta or {})
+        return meta
+
+    def _join_ckpt_writer(self):
+        if self._ckpt_thread is not None:
+            self._ckpt_thread.join()
+            self._ckpt_thread = None
+            err, self._ckpt_error = self._ckpt_error, None
+            if err is not None:
+                raise RuntimeError("background checkpoint write failed") from err
+
+    def _write_checkpoints_async(self, jobs):
+        """jobs: [(filename, state, meta)] written on a background thread so
+        that serialisation overlaps the next epoch's steps. `state` holds host
+        copies taken before the thread starts. At most one writer is
+        outstanding; a failed write is re-raised at the next join."""
+        self._join_ckpt_writer()
+
+        def write():
+            try:
+                for filename, state, meta in jobs:
+                    ckpt_lib.save_trainer_checkpoint(
+                        os.path.join(self.output_folder, filename), state, meta)
+            except BaseException as e:  # re-raised in _join_ckpt_writer
+                self._ckpt_error = e
+                self.print_to_log_file(f"CHECKPOINT WRITE FAILED: {e!r}")
+
+        self._ckpt_thread = threading.Thread(target=write, daemon=True)
+        self._ckpt_thread.start()
+
+    def save_checkpoint(self, filename: str, extra_meta: Optional[dict] = None,
+                        state: Optional[dict] = None):
+        self._join_ckpt_writer()
+        if state is None:
+            state = self._snapshot_state()
+        ckpt_lib.save_trainer_checkpoint(os.path.join(self.output_folder, filename), state,
+                                         self._checkpoint_meta(extra_meta))
+
+    def load_checkpoint(self, filename: str):
+        self._join_ckpt_writer()
+        path = filename if os.path.isabs(filename) else os.path.join(self.output_folder,
+                                                                     filename)
+        state, meta = ckpt_lib.load_trainer_checkpoint(path)
+        # the architecture must match (the reference SparK.load_state_dict check)
+        saved_cfg = meta.get("spark_config", {})
+        for k, v in self.model.get_config().items():
+            if k in saved_cfg and saved_cfg[k] != v:
+                raise AttributeError(
+                    f"SparK config mismatch on load: this.{k}={v} ckpt.{k}={saved_cfg[k]}")
+        self.model.load_state_dict(state["network_weights"])
+        if "ema_weights" in state and self.teacher is not self.model:
+            self.teacher.load_state_dict(state["ema_weights"])
+        if "optimizer_state" in state:
+            self.optimizer.load_state_dict(state["optimizer_state"])
+        self.current_epoch = meta.get("current_epoch", 0)
+
+    # --- training loop --------------------------------------------------------
+    def _train_batch(self, train_iter) -> torch.Tensor:
+        if self.device_cache is not None:
+            # GPU-resident path: the host draws (slot, origin) pairs, the batch
+            # never crosses the host link; one staged refill between steps
+            self.device_cache.maybe_refill()
+            slots, origins = self.device_cache.sample_batch()
+            return self.device_cache.extract(slots, origins)
+        return next(train_iter)["data"]
+
+    def _val_losses(self, n_val: int, val_iter) -> List[torch.Tensor]:
+        if self.device_cache_val is None:
+            return [val_step(self.model, self._to_model(next(val_iter)["data"]),
+                             self.mask_generator) for _ in range(n_val)]
+        slots, origins = self.device_cache_val.sample_chunk(n_val)
+        losses = [val_step(self.model, self._to_model(self.device_cache_val.extract(s, o)),
+                           self.mask_generator) for s, o in zip(slots, origins)]
+        self.device_cache_val.maybe_refill(n_val)
+        return losses
+
+    def run_pretraining(self, continue_training: bool = False):
+        unpack_dataset(self.preprocessed_folder, num_processes=min(4, get_allowed_n_proc_DA()))
+        self.get_dataloaders()
+        self.initialize()
+        if continue_training:
+            latest = os.path.join(self.output_folder, "checkpoint_latest.pt")
+            if os.path.isfile(latest):
+                self.load_checkpoint(latest)
+                self.print_to_log_file(f"resumed at epoch {self.current_epoch}")
+
+        cfg = self.cfg
+        train_iter = iter(self.loader_train) if self.device_cache is None else None
+        val_iter = iter(self.loader_val) if self.device_cache_val is None else None
+        history = {"train_loss": [], "val_loss": [], "ema_loss": []}
+        best_val = np.inf
+        ema_loss = None
+
+        try:
+            for epoch in range(self.current_epoch, cfg.num_epochs):
+                self.current_epoch = epoch
+                t0 = time.time()
+                ema_decay, keep_ratio, len_loss = self.epoch_settings(epoch)
+
+                losses = []
+                t_fetch = 0.0
+                for _ in range(self.iters_per_epoch):
+                    f0 = time.time()
+                    data = self._train_batch(train_iter)
+                    t_fetch += time.time() - f0
+                    x = self._prep(data)
+                    lr = self.lr_schedule(self._optimizer_count())
+                    if cfg.method == "spark":
+                        loss = spark_train_step(self.model, self.optimizer, x,
+                                                self.mask_generator, lr=lr)
+                    else:
+                        loss, _, _ = anatomask_train_step(
+                            self.model, self.teacher, self.optimizer, x, len_loss,
+                            self.mask_generator, ema_decay=ema_decay, lr=lr)
+                    self.step_counter += 1
+                    losses.append(loss)
+                train_loss = torch.stack(losses).float().mean().item()
+                t_train = time.time() - t0
+                if not np.isfinite(train_loss):
+                    raise RuntimeError(f"Non-finite pretrain loss at epoch {epoch}: {train_loss}")
+                # epoch EMA loss, alpha 0.9
+                ema_loss = train_loss if ema_loss is None else 0.9 * ema_loss + 0.1 * train_loss
+
+                # validation loss under a fresh random mask
+                tv0 = time.time()
+                n_val = max(1, self.iters_per_epoch // 5)
+                val_loss = torch.stack(self._val_losses(n_val, val_iter)).float().mean().item()
+                t_val = time.time() - tv0
+
+                history["train_loss"].append(train_loss)
+                history["val_loss"].append(val_loss)
+                history["ema_loss"].append(ema_loss)
+
+                # one host snapshot per epoch; the writes (latest + head +
+                # best) run on a thread that overlaps the next epoch's steps
+                tc0 = time.time()
+                need_latest = (epoch + 1) % cfg.save_every == 0
+                is_best = val_loss < best_val
+                if is_best:
+                    best_val = val_loss
+                if need_latest or is_best:
+                    snap = self._snapshot_state()
+                    jobs = []
+                    if need_latest:
+                        jobs.append(("checkpoint_latest.pt", snap, self._checkpoint_meta()))
+                        jobs.append((f"{MODEL_SIZE}_head_latest.pt", snap,
+                                     self._checkpoint_meta()))
+                    if is_best:
+                        jobs.append(("checkpoint_best.pt", snap,
+                                     self._checkpoint_meta({"val_loss": val_loss})))
+                    self._write_checkpoints_async(jobs)
+                t_ckpt = time.time() - tc0
+                self._plot_progress(history)
+                t_epoch = time.time() - t0
+                self.epoch_timings.append(dict(epoch=epoch, total=t_epoch, train=t_train,
+                                               fetch_wait=t_fetch, val=t_val, ckpt=t_ckpt))
+                self.print_to_log_file(
+                    f"epoch {epoch}: train {train_loss:.4f} val {val_loss:.4f} "
+                    f"ema {ema_loss:.4f} keep_ratio {keep_ratio:.3f} "
+                    f"time {t_epoch:.1f}s "
+                    f"(train {t_train:.1f}s [fetch-wait {t_fetch:.1f}s] "
+                    f"val {t_val:.1f}s ckpt {t_ckpt:.1f}s)")
+        finally:
+            self._join_ckpt_writer()
+            self.loader_train.stop()
+            self.loader_val.stop()
+            if self.device_cache is not None:
+                self.device_cache.stop()
+            if self.device_cache_val is not None:
+                self.device_cache_val.stop()
+        self.save_checkpoint("checkpoint_final.pt")
+        with open(os.path.join(self.output_folder, "history.json"), "w") as f:
+            json.dump(history, f)
+        return history
+
+    def _plot_progress(self, history):
+        """progress.png of the three loss curves; skipped without matplotlib."""
+        try:
+            import matplotlib
+        except ImportError:
+            return
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        fig, ax = plt.subplots(figsize=(8, 5))
+        ax.plot(history["train_loss"], label="train")
+        ax.plot(history["val_loss"], label="val")
+        ax.plot(history["ema_loss"], label="train (EMA)")
+        ax.set_xlabel("epoch")
+        ax.set_ylabel("recon loss")
+        ax.legend()
+        fig.savefig(os.path.join(self.output_folder, "progress.png"))
+        plt.close(fig)

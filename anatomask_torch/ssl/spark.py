@@ -102,6 +102,17 @@ class SparK(nn.Module):
         self.densify_projs = nn.ModuleList(projs)
         self.mask_tokens = nn.ParameterList(tokens)
 
+    def get_config(self) -> dict:
+        """The architecture keys a checkpoint is checked against on load (the
+        JAX package's SparK.get_config)."""
+        return {
+            "mask_ratio": MASK_RATIO,
+            "densify_norm_str": "in",
+            "hierarchy": len(self.densify_norms),
+            "sparse_encoder.input_size": list(self.input_size),
+            "dense_decoder.width": self.dense_decoder.width,
+        }
+
     def forward(self, inp: torch.Tensor, active: torch.Tensor):
         """inp (B, C, H, W, D); active (B, 1, f1, f2, f3) bool."""
         masked = inp * upsample_mask(active, self.patch).to(inp.dtype)

@@ -1,15 +1,21 @@
-"""Reading the JAX package's checkpoints. Counterpart of
-anatomask_tpu/training/checkpoint.py (`unflatten_tree`, `load_checkpoint`).
+"""Checkpoints. Counterpart of anatomask_tpu/training/checkpoint.py.
 
-Format: one .npz holding the flattened pytree ('a/b/c' keys, '#i' for list
-items) plus a JSON metadata entry; numpy only, no pickle.
+- `load_checkpoint` reads the JAX package's files: one .npz holding the
+  flattened pytree ('a/b/c' keys, '#i' for list items) plus a JSON metadata
+  entry; numpy only, no pickle.
+- `save_trainer_checkpoint` / `load_trainer_checkpoint` are the port's own
+  format for the PretrainTrainer's state (student, teacher, optimizer,
+  metadata with the epoch, the SparK and Pretrain configs), written with
+  `torch.save` and read back with `weights_only=True`.
 """
 from __future__ import annotations
 
 import json
+import os
 from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
 SEP = "/"
 
@@ -39,3 +45,19 @@ def load_checkpoint(path: str) -> Tuple[dict, dict]:
         flat = {k: z[k] for k in z.files if k != "__metadata__"}
         meta = json.loads(bytes(z["__metadata__"]).decode()) if "__metadata__" in z.files else {}
     return unflatten_tree(flat), meta
+
+
+def save_trainer_checkpoint(path: str, state: dict, metadata: dict) -> None:
+    """state: {'network_weights': state_dict, 'ema_weights': state_dict,
+    'optimizer_state': optimizer state_dict}, every tensor already on the
+    host; metadata: a JSON-serialisable dict. Written to a temporary file and
+    renamed, so a reader never sees half a checkpoint."""
+    tmp = path + ".tmp"
+    torch.save({"state": state, "metadata": json.dumps(metadata)}, tmp)
+    os.replace(tmp, path)
+
+
+def load_trainer_checkpoint(path: str, map_location="cpu") -> Tuple[dict, dict]:
+    """Returns (state, metadata dict) of a file written by save_trainer_checkpoint."""
+    blob = torch.load(path, map_location=map_location, weights_only=True)
+    return blob["state"], json.loads(blob["metadata"])

@@ -6,8 +6,8 @@
 Phases, each of which raises on a failed check:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: compile csrc/conv3x3.cu and csrc/moments.cu for sm_90a from the
-   checkout's sources, one nvcc each, both at once;
+2. build: compile csrc/conv3x3.cu, csrc/moments.cu and csrc/zslab_conv.cu
+   for sm_90a from the checkout's sources, one nvcc each, all at once;
 3. conv kernel: at every call site of the stride-1 3x3x3 conv on both main
    paths, the kernel against its plain PyTorch version on the card. For the
    pretraining step: forward and dx (bf16 at B = 1 through the autograd
@@ -22,22 +22,41 @@ Phases, each of which raises on a failed check:
    channel), and in bf16 its time beside the bound, the plain version's and
    one torch.var_mean call's (a yardstick only); then the same check on four
    shapes off the main paths that take the kernel's other code paths;
-5. references: a tiny SparK and a tiny STUNet (through both sliding-window
+5. zslab kernel (TPU kernel #2), at the shapes of probes/probe_pallas_v4.py
+   (dec3: C = F = 64, enc0: C = F = 32, 112x112x128, B = 4, bf16): forward
+   and dx through the autograd Function against the plain version (rel. max
+   error <= 1e-2), and three fp32 shapes off the probe's without TF32
+   (H % 8 != 0, C = 1, C != F; <= 1e-5). At both probe shapes: forward and
+   forward + dx times, TFLOP/s and the bound, the plain version's time,
+   F.conv3d's (a yardstick only), kernel #1's at the same shape, and
+   max|kernel #2 - kernel #1| / max|kernel #1| in bf16. The probe's timed
+   calls are this kernel's path: its count is set to 0 just before them;
+6. references: a tiny SparK and a tiny STUNet (through both sliding-window
    paths) in fp32 on the card against the same models on the CPU, rel.
    error <= 1e-4;
-6. pretraining: the AnatoMask pretraining step at full STUNet-B width (patch
+7. pretraining step: the AnatoMask pretraining step at full STUNet-B width (patch
    112x112x128, batch 4, mask ratio 0.6, bf16, decoder width 512) for 5
    steps, checking finite losses, the hard masks, 50 conv and 44 moments
    launches a step and the EMA law, and timing the last 3 steps;
-7. inference: bench_inference.py's configuration at full width through the
+8. inference: bench_inference.py's configuration at full width through the
    Predictor: STUNet-B (6 stages, 1 input channel, 3 classes), a
    240x240x155 volume, patch 128^3, step 0.5, 18 tiles, 8-flip mirror TTA,
    tile batch 1, bf16; 3 volumes, the first a warm-up, checking finite
    logits of shape (3, 240, 240, 155) and 17 x 18 conv and 22 x 18 moments
-   launches a volume.
+   launches a volume;
+9. pretraining loop (PretrainTrainer): a synthetic preprocessed dataset
+   (8 cases of 1 x 160^3) written with the port's own code into a temporary
+   folder, then PretrainTrainer.run_pretraining at full STUNet-B width (patch
+   112x112x128 from a 189x179x196 initial patch, batch 4, bf16, AnatoMask)
+   for 2 epochs x 5 iterations with the GPU case cache, and a resume from
+   checkpoint_latest for 1 epoch x 2 iterations through the host pipeline;
+   checking finite losses, 50 conv and 44 moments launches a training step
+   (17 and 22 a validation step), the checkpoint files and the resumed
+   epoch, and printing seconds an epoch, fetch-wait, validation and
+   checkpoint seconds, patches/s and the step time beside the bare step's.
 
-Each main path (6, 7) runs with the launch counts set to 0 just before it
-and read just after, and every launch it makes must be at a shape that
+Each main path (7, 8, 9) runs with the launch counts set to 0 just before
+it and read just after, and every launch it makes must be at a shape that
 phases 3 and 4 held against the plain version. The last three lines of
 standard output are the nvidia-smi line, one JSON object {"kernels": [...]},
 and {"ok": true, "device": {...}}.
@@ -45,11 +64,14 @@ and {"ok": true, "device": {...}}.
 import copy
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -68,8 +90,11 @@ from anatomask_torch.ops import moments as moments_mod
 from anatomask_torch.ops.conv3x3 import (conv3d_3x3, conv3d_3x3_forward, conv3d_3x3_plain,
                                          flip_weight)
 from anatomask_torch.ops.moments import row_moments, row_moments_forward, row_moments_plain
-from anatomask_torch.plans.plans_handler import PlansManager
-from anatomask_torch.ssl.pretrain import (PretrainConfig, anatomask_train_step,
+from anatomask_torch.ops.zslab_conv import (conv3d_zslab, conv3d_zslab_forward,
+                                            conv3d_zslab_plain)
+from anatomask_torch.plans.plans_handler import PlansManager, save_json
+from anatomask_torch.preprocessing.preprocessor import save_properties
+from anatomask_torch.ssl.pretrain import (PretrainConfig, PretrainTrainer, anatomask_train_step,
                                           build_spark_model, make_optimizer, make_teacher)
 from anatomask_torch.ssl.sparse import mask_to_resolution
 from anatomask_torch.ssl.spark import random_keep_mask
@@ -144,6 +169,14 @@ INFER_NORMS = [(f"{part}{d}.norm{i}", (r, r, r), c, False)
                                     ("dec", [(8, 512), (16, 256), (32, 128), (64, 64),
                                              (128, 32)]))
                for d, (r, c) in enumerate(levels) for i in (1, 2)]
+# probes/probe_pallas_v4.py's shapes for TPU kernel #2 (B = 4, bf16, C = F)
+PROBE_SHAPES = (("dec3", 64, (112, 112, 128)), ("enc0", 32, (112, 112, 128)))
+# fp32 shapes off the probe's: H % 8 != 0; C = 1; C != F with F over one N tile
+ZSLAB_FP32_SHAPES = (((2, 12, 13, 17, 32), 32), ((2, 16, 16, 16, 1), 32),
+                     ((1, 10, 12, 14, 48), 80))
+# the PretrainTrainer phase: its synthetic dataset and run length
+TRAINER_DATASET, TRAINER_CASES, TRAINER_CASE_SHAPE = "Dataset950_ChipSmoke", 8, (160, 160, 160)
+TRAINER_EPOCHS, TRAINER_ITERS = 2, 5
 STEPS, WARMUP = 5, 2
 FMAP, LEN_KEEP = (7, 7, 8), 157  # the step's patch grid and visible patches
 # bench_inference.py's configuration
@@ -292,6 +325,82 @@ def conv_phase(gen):
     checked = ({(BATCH, *vol, C, F) for C, F, vol in timed}
                | {(TTA_BATCH, *vol, C, F) for C, F, vol in infer})
     return max_abs, max_rel, step, volume, checked
+
+
+def zslab_errs(x, w, g):
+    """Kernel #2 forward and dx (through its autograd Function) against its
+    plain version: (max abs err, max rel err)."""
+    y_k = conv3d_zslab_forward(x, w)
+    xg = x.clone().requires_grad_(True)
+    dx_k, = torch.autograd.grad(conv3d_zslab(xg, w), xg, g)
+    y_p, dx_p = conv3d_zslab_plain(x, w), conv3d_zslab_plain(g, flip_weight(w))
+    torch.cuda.synchronize()
+    abs_err = max((y_k.float() - y_p.float()).abs().max().item(),
+                  (dx_k.float() - dx_p.float()).abs().max().item())
+    return abs_err, max(rel_err(y_k, y_p), rel_err(dx_k, dx_p))
+
+
+def zslab_phase(gen):
+    """TPU kernel #2 at the shapes of probes/probe_pallas_v4.py (B = 4, bf16),
+    then at three fp32 shapes off them. Returns max abs err, max rel err, the
+    totals of the probe path (one forward + dx at each probe shape) and its
+    kernel launches."""
+    max_abs, max_rel = 0.0, 0.0
+    for shape, F in ZSLAB_FP32_SHAPES:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        w = torch.randn((3, 3, 3, shape[-1], F), generator=gen, device="cuda") / math.sqrt(
+            27 * shape[-1])
+        g = torch.randn((*shape[:-1], F), generator=gen, device="cuda")
+        a, r = zslab_errs(x, w, g)
+        check(math.isfinite(r) and r <= 1e-5, f"zslab fp32 {shape}->{F}: rel error {r} > 1e-5")
+        max_abs, max_rel = max(max_abs, a), max(max_rel, r)
+        print(f"[zslab] fp32 {shape}->{F}: fwd+dx rel err {r:.3e}")
+    inputs = {}
+    for name, C, vol in PROBE_SHAPES:
+        x, w = conv_inputs(C, C, vol, BATCH, torch.bfloat16, gen)
+        g = torch.randn((BATCH, *vol, C), generator=gen, device="cuda").to(torch.bfloat16)
+        a, r = zslab_errs(x, w, g)
+        check(math.isfinite(r) and r <= 1e-2, f"zslab {name} bf16: rel error {r} > 1e-2")
+        max_abs, max_rel = max(max_abs, a), max(max_rel, r)
+        # how far the one-rounding conv (kernel #1) sits from the per-tap rounding
+        gap = rel_err(conv3d_zslab_forward(x, w), conv3d_3x3_forward(x, w))
+        print(f"[zslab] {name} bf16 B={BATCH} {C}->{C} @{vol}: fwd+dx rel err {r:.3e}; "
+              f"max|zslab - conv3x3| / max|conv3x3| = {gap:.3e}")
+        inputs[name] = (x, w, g)
+        torch.cuda.empty_cache()
+
+    def fwd_dx(conv, x, w, g):
+        xg = x.detach().requires_grad_(True)
+        return lambda: torch.autograd.grad(conv(xg, w), xg, g)
+
+    totals = dict.fromkeys(TOTAL_KEYS, 0.0)
+    # the probe path: counts from here on are its launches
+    conv3d_zslab.launches = 0
+    for name, C, vol in PROBE_SHAPES:
+        x, w, g = inputs.pop(name)
+        wf = flip_weight(w)
+        ms = time_ms(lambda: conv3d_zslab_forward(x, w), 5)
+        ms_dx = time_ms(fwd_dx(conv3d_zslab, x, w, g), 5)
+        k1 = time_ms(lambda: conv3d_3x3_forward(x, w), 5)
+        k1_dx = time_ms(fwd_dx(conv3d_3x3, x, w, g), 5)
+        plain = (time_ms(lambda: conv3d_zslab_plain(x, w), 1)
+                 + time_ms(lambda: conv3d_zslab_plain(g, wf), 1))
+        xc, gc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+        wc, wfc = w.permute(4, 3, 0, 1, 2).contiguous(), wf.permute(4, 3, 0, 1, 2).contiguous()
+        lib = (time_ms(lambda: fn.conv3d(xc, wc, None, 1, 1), 5)
+               + time_ms(lambda: fn.conv3d(gc, wfc, None, 1, 1), 5))
+        flop_ms, byte_ms = bound_ms(C, C, vol)
+        add_totals(totals, 1, ms_dx, plain, lib, 2 * flop_ms, 2 * byte_ms)  # two convs
+        tflops = 2 * BATCH * math.prod(vol) * 27 * C * C / 1e9
+        print(f"[zslab] {name} B={BATCH} {C}->{C} @{vol}: fwd {ms:.3f} ms "
+              f"({tflops / ms:.1f} TFLOP/s), fwd+dx {ms_dx:.3f} ms "
+              f"({2 * tflops / ms_dx:.1f} TFLOP/s); bound fwd {max(flop_ms, byte_ms):.3f} ms "
+              f"({'operations' if flop_ms >= byte_ms else 'bytes'}); plain fwd+dx "
+              f"{plain:.3f} ms; F.conv3d fwd+dx {lib:.3f} ms; kernel #1 fwd {k1:.3f} ms, "
+              f"fwd+dx {k1_dx:.3f} ms")
+        del x, w, g, wf, xc, gc
+        torch.cuda.empty_cache()
+    return max_abs, max_rel, totals, conv3d_zslab.launches
 
 
 def moments_bound_ms(batch, vol, C, masked, visible, itemsize=2):
@@ -483,7 +592,7 @@ def slice_phase():
     print(f"[slice] step {step_ms:.1f} ms (median of {STEPS - WARMUP}), "
           f"{BATCH / step_ms * 1e3:.3f} patches/s, peak memory {peak / 2**30:.2f} GiB, "
           f"{launches[0]} conv and {launches[1]} moments launches in {STEPS} steps")
-    return launches
+    return launches, step_ms
 
 
 def inference_reference_phase():
@@ -566,19 +675,118 @@ def inference_phase():
     return launches
 
 
-def kernel_record(name, source, replaces, launches, max_abs, max_rel, step, volume, per):
-    paths = {"pretrain_step": step, "inference_volume": volume}
-    both = {k: step[k] + volume[k] for k in TOTAL_KEYS}
+def write_trainer_dataset(root):
+    """A preprocessed dataset as the preprocessor leaves it, written with the
+    port's own code: TRAINER_CASES cases of 1 x 160^3 fp32 (noise with one
+    brighter sphere, labelled 1) as <key>.npz, their properties with
+    class_locations, dataset.json and ATKPlans.json."""
+    base = os.path.join(root, "preprocessed", TRAINER_DATASET)
+    folder = os.path.join(base, "ATKPlans_3d_fullres")
+    os.makedirs(folder)
+    rs = np.random.default_rng(0)
+    axes = np.ogrid[tuple(slice(0, s) for s in TRAINER_CASE_SHAPE)]
+    for i in range(TRAINER_CASES):
+        data = rs.standard_normal((1, *TRAINER_CASE_SHAPE), dtype=np.float32)
+        c, r = rs.integers(40, 120, 3), rs.integers(10, 25)
+        blob = sum((a - ci) ** 2 for a, ci in zip(axes, c)) < r ** 2
+        data[0][blob] += 2.0
+        seg = blob[None].astype(np.int8)
+        key = os.path.join(folder, f"case_{i:03d}")
+        np.savez(key + ".npz", data=data, seg=seg)
+        locs = np.argwhere(seg == 1)
+        locs = locs[rs.choice(len(locs), min(len(locs), 10000), replace=False)]
+        save_properties({"spacing": [1.0, 1.0, 1.0], "class_locations": {1: locs}}, key)
+    save_json({"channel_names": {"0": "CT"}, "labels": {"background": 0, "sphere": 1},
+               "numTraining": TRAINER_CASES, "file_ending": ".nii.gz"},
+              os.path.join(base, "dataset.json"))
+    save_json({"dataset_name": TRAINER_DATASET, "plans_name": "ATKPlans",
+               "configurations": {"3d_fullres": {
+                   "data_identifier": "ATKPlans_3d_fullres",
+                   "patch_size": list(PretrainConfig().patch_size), "spacing": [1.0] * 3}}},
+              os.path.join(base, "ATKPlans.json"))
+
+
+def trainer_run(cfg, continue_training=False, output_folder=None):
+    """One run_pretraining with the counts at 0; returns the trainer, its
+    history, the conv and moments launches and the peak memory."""
+    trainer = PretrainTrainer(TRAINER_DATASET, cfg, device="cuda", output_folder=output_folder)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    conv3d_3x3.launches = row_moments.launches = conv3d_zslab.launches = 0
+    history = trainer.run_pretraining(continue_training=continue_training)
+    launches = conv3d_3x3.launches, row_moments.launches
+    check(conv3d_zslab.launches == 0, "the trainer launched the zslab kernel")
+    check(all(math.isfinite(v) for k in history for v in history[k]),
+          f"non-finite losses {history}")
+    epochs = len(history["train_loss"])
+    iters = trainer.iters_per_epoch
+    n_val = epochs * max(1, iters // 5)
+    # a training step launches 50 conv (two forwards and the student's dx) and
+    # 44 moments kernels (two forwards), a val step 17 and 22 (one forward)
+    want = (epochs * iters * 50 + n_val * 17, epochs * iters * 44 + n_val * 22)
+    check(launches == want, f"trainer launches (conv, moments) {launches}, expected {want}")
+    return trainer, history, launches, torch.cuda.max_memory_allocated()
+
+
+def trainer_phase(bare_step_ms):
+    """PretrainTrainer.run_pretraining at full STUNet-B width: 2 epochs x 5
+    iterations with the GPU case cache, then a resume from checkpoint_latest
+    for 1 epoch x 2 iterations through the host pipeline. Returns the conv
+    and moments launches of the two runs."""
+    with tempfile.TemporaryDirectory() as root:
+        write_trainer_dataset(root)
+        for which in ("preprocessed", "results"):
+            os.environ[f"ATK_{which}"] = os.path.join(root, which)
+        cfg = PretrainConfig(method="anatomask", batch_size=BATCH, num_epochs=TRAINER_EPOCHS,
+                             iters_per_epoch=TRAINER_ITERS, device_cache=True)
+        t, history, launches, peak = trainer_run(cfg)
+        check(t.device_cache is not None and t.device_cache.whole_dataset_resident,
+              "the training cases are not all resident in the case cache")
+        print(f"[trainer] STUNet-B, patch {cfg.patch_size} from initial patch "
+              f"{tuple(int(v) for v in t.device_cache.initial_patch)}, batch {BATCH}, bf16, "
+              f"{t.n_train} training cases in {t.device_cache.num_slots} cache slots of "
+              f"{t.device_cache.slot_shape}; losses {history}")
+        for e in t.epoch_timings:
+            print(f"[trainer] epoch {e['epoch']}: {e['total']:.3f} s (train {e['train']:.3f} s, "
+                  f"fetch-wait {e['fetch_wait']:.3f} s, val {e['val']:.3f} s, "
+                  f"checkpoint {e['ckpt']:.3f} s)")
+        last = t.epoch_timings[-1]
+        step_ms = last["train"] / TRAINER_ITERS * 1e3
+        print(f"[trainer] epoch {last['epoch']} training loop: {BATCH * TRAINER_ITERS / last['train']:.3f} "
+              f"patches/s, {step_ms:.1f} ms a step through the trainer (bare step "
+              f"{bare_step_ms:.1f} ms); peak memory {peak / 2**30:.2f} GiB ({peak} bytes); "
+              f"launches conv {launches[0]}, moments {launches[1]}")
+        for f in ("checkpoint_latest.pt", "B_head_latest.pt", "checkpoint_best.pt",
+                  "checkpoint_final.pt", "history.json"):
+            check(os.path.isfile(os.path.join(t.output_folder, f)), f"no {f}")
+
+        resume = replace(cfg, num_epochs=TRAINER_EPOCHS + 1, iters_per_epoch=2,
+                         device_cache=False)
+        t2, history2, launches2, peak2 = trainer_run(resume, True, t.output_folder)
+        check(t2.current_epoch == TRAINER_EPOCHS and len(history2["train_loss"]) == 1,
+              f"resume ran epochs {t2.current_epoch}, history {history2}")
+        e = t2.epoch_timings[-1]
+        print(f"[trainer] resumed at epoch {e['epoch']} from checkpoint_latest, host pipeline: "
+              f"{e['total']:.3f} s (train {e['train']:.3f} s, fetch-wait {e['fetch_wait']:.3f} s, "
+              f"val {e['val']:.3f} s); losses {history2}; peak memory {peak2 / 2**30:.2f} GiB; "
+              f"launches conv {launches2[0]}, moments {launches2[1]}")
+    return tuple(a + b for a, b in zip(launches, launches2))
+
+
+def kernel_record(name, source, replaces, launches_by_path, max_abs, max_rel, totals_by_path,
+                  per):
+    """totals_by_path: {path: TOTAL_KEYS totals}; launches_by_path: {path:
+    launches in that path's run}."""
+    both = {k: sum(t[k] for t in totals_by_path.values()) for k in TOTAL_KEYS}
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
-        launches=launches[0] + launches[1],
-        launches_by_path={"pretrain": launches[0], "inference": launches[1]},
+        launches=sum(launches_by_path.values()), launches_by_path=launches_by_path,
         max_abs_err=max_abs, max_rel_err=max_rel, checked=True,
         ms=both["ms"], plain_ms=both["plain_ms"], bound_ms=both["bound_ms"],
         bound_by="operations" if both["flop_ms"] >= both["byte_ms"] else "bytes",
         library_ms=both["library_ms"],
         per=per, by_path={p: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
-                          for p, t in paths.items()})
+                          for p, t in totals_by_path.items()})
 
 
 def main():
@@ -590,7 +798,7 @@ def main():
           f"| CUDA {torch.version.cuda} | devices {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    names = ("conv3x3", "moments")
+    names = ("conv3x3", "moments", "zslab_conv")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc a source, all at once
         for lib in pool.map(_build.build, names):
             print(f"[build] {lib.name}")
@@ -608,14 +816,18 @@ def main():
     conv_err, conv_rel, conv_step, conv_volume, conv_checked = conv_phase(gen)
     mom_err, mom_rel, mom_step, mom_volume, mom_checked = moments_phase(gen)
     torch.cuda.empty_cache()
+    zs_err, zs_rel, zs_probe, zs_launches = zslab_phase(gen)
+    torch.cuda.empty_cache()
 
     reference_phase()
     inference_reference_phase()
     torch.cuda.empty_cache()
     shapes = LaunchShapes()  # from here on, only the main paths launch kernels
-    pretrain = slice_phase()
+    pretrain, bare_step_ms = slice_phase()
     torch.cuda.empty_cache()
     inference = inference_phase()
+    torch.cuda.empty_cache()
+    trainer = trainer_phase(bare_step_ms)
     check(shapes.conv <= conv_checked,
           f"conv launches at unchecked shapes: {sorted(shapes.conv - conv_checked)}")
     check(shapes.moments <= mom_checked,
@@ -624,14 +836,25 @@ def main():
           f"{len(shapes.moments)} moments shapes")
 
     per = ("one pretraining step (B = 4) plus one inference volume (18 tiles at B = 8); "
-           "by_path splits them")
+           "by_path splits them; launches_by_path also counts the PretrainTrainer runs")
     kernels = [
         kernel_record("conv3d_3x3", "anatomask_torch/csrc/conv3x3.cu",
-                      "anatomask_tpu/ops/pallas_conv.py:108", (pretrain[0], inference[0]),
-                      conv_err, conv_rel, conv_step, conv_volume, per),
+                      "anatomask_tpu/ops/pallas_conv.py:108",
+                      {"pretrain": pretrain[0], "inference": inference[0],
+                       "pretrain_trainer": trainer[0]},
+                      conv_err, conv_rel,
+                      {"pretrain_step": conv_step, "inference_volume": conv_volume}, per),
         kernel_record("row_moments", "anatomask_torch/csrc/moments.cu",
-                      "probes/probe_rowstats.py:53", (pretrain[1], inference[1]),
-                      mom_err, mom_rel, mom_step, mom_volume, per),
+                      "probes/probe_rowstats.py:53",
+                      {"pretrain": pretrain[1], "inference": inference[1],
+                       "pretrain_trainer": trainer[1]},
+                      mom_err, mom_rel,
+                      {"pretrain_step": mom_step, "inference_volume": mom_volume}, per),
+        kernel_record("conv3d_zslab", "anatomask_torch/csrc/zslab_conv.cu",
+                      "anatomask_tpu/ops/pallas_zslab_conv.py:142", {"probe": zs_launches},
+                      zs_err, zs_rel, {"probe": zs_probe},
+                      "one forward + dx (through the autograd Function) at each shape of "
+                      "probes/probe_pallas_v4.py: dec3 and enc0, B = 4, bf16"),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

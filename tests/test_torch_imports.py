@@ -41,7 +41,11 @@ def test_package_has_the_mirrored_modules():
                 "ops.moments", "ops._build", "convert", "device", "ssl.sparse",
                 "ssl.decoder", "ssl.spark", "ssl.anatomask", "ssl.ema", "ssl.pretrain",
                 "plans.plans_handler", "plans.label_handling", "training.checkpoint",
-                "inference.gaussian", "inference.sliding_window", "inference.predictor"):
+                "inference.gaussian", "inference.sliding_window", "inference.predictor",
+                "ops.zslab_conv", "paths", "configuration", "utils.helpers",
+                "preprocessing.preprocessor", "data.dataset", "data.sampler",
+                "data.pipeline", "data.device_cache", "data.augment",
+                "training.schedules", "training.trainer"):
         assert f"anatomask_torch.{mod}" in names
 
 
