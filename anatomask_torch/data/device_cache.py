@@ -126,6 +126,7 @@ class DeviceCaseCache:
             self.cache[s] = torch.from_numpy(arr).to(self.device, dtype)
             self.meta[s] = meta
         self._refill_cursor = 0
+        self.slots_refilled = 0  # staged slots applied by maybe_refill so far
 
     # --- host-side slot preparation ------------------------------------------
     def _next_key(self) -> str:
@@ -277,6 +278,7 @@ class DeviceCaseCache:
             self.cache[idx].copy_(dev)
             self.meta[idx] = meta
             applied += 1
+        self.slots_refilled += applied
         return applied
 
     def stop(self):

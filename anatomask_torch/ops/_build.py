@@ -2,8 +2,8 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface. It is compiled by `nvcc`
 for Hopper (`sm_90a`) into `build/kernels/<name>-<hash>.so` at the root of the
-checkout; the hash covers the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. Nothing is compiled when a
+checkout; the hash covers the source, the shared `csrc/*.cuh` headers and the
+flags, so an edited source is rebuilt and an unchanged one is loaded as it is. Nothing is compiled when a
 module is imported: the first kernel launch builds.
 """
 from __future__ import annotations
@@ -36,8 +36,10 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # a source may include any of them
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -15,6 +15,9 @@ NDHWC, weights DHWIO.
   slices of the zero-padded input times the (27*C, F) weight, fp32
   accumulation, one rounding). A CPU tensor goes through it; a CUDA tensor
   always launches the kernel, and anything the kernel does not take raises.
+- `check_args` and `launch_igemm`: the input checks and the ctypes launch
+  shared with `ops/zslab_conv.py`, whose kernel is the same implicit GEMM
+  (`csrc/conv3x3_igemm.cuh`) with per-tap rounding.
 
 Bound on the H100: the main path's convs (C, F >= 32, volumes of 7x7x8 up to
 112x112x128) do at least 2*27*32 FLOP per byte moved, so the bf16 tensor-core
@@ -37,19 +40,20 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PLAIN_CHUNK_BYTES = 1 << 28  # fp32 im2col slab per matmul in the plain version
 
 
-def _check(x: torch.Tensor, w: torch.Tensor) -> None:
+def check_args(x: torch.Tensor, w: torch.Tensor, name: str = "conv3d_3x3") -> None:
+    """Raise ValueError for what the kernels of csrc/conv3x3_igemm.cuh do not take."""
     if x.dim() != 5:
-        raise ValueError(f"conv3d_3x3 expects NDHWC input, got shape {tuple(x.shape)}")
+        raise ValueError(f"{name} expects NDHWC input, got shape {tuple(x.shape)}")
     if w.dim() != 5 or tuple(w.shape[:3]) != (3, 3, 3) or w.shape[3] != x.shape[4]:
-        raise ValueError(f"conv3d_3x3 expects a (3, 3, 3, {x.shape[4]}, F) weight, "
+        raise ValueError(f"{name} expects a (3, 3, 3, {x.shape[4]}, F) weight, "
                          f"got {tuple(w.shape)}")
     if x.dtype != w.dtype or x.dtype not in _DTYPE_CODES:
-        raise ValueError(f"conv3d_3x3 takes float32 or bfloat16 of one dtype, got "
+        raise ValueError(f"{name} takes float32 or bfloat16 of one dtype, got "
                          f"{x.dtype} and {w.dtype}")
     if x.device != w.device:
         raise ValueError(f"x on {x.device}, w on {w.device}")
     if not x.is_contiguous():
-        raise ValueError("conv3d_3x3 expects a contiguous NDHWC input")
+        raise ValueError(f"{name} expects a contiguous NDHWC input")
 
 
 def conv3d_3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -71,16 +75,18 @@ def conv3d_3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    lib = _build.load("conv3x3")
-    lib.conv3x3_forward.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
-                                    + [ctypes.c_void_p])
-    lib.conv3x3_forward.restype = ctypes.c_int
-    return lib.conv3x3_forward
+def _entry(library: str, symbol: str):
+    """The C launcher `symbol` of csrc/<library>.cu, built and loaded at
+    first use."""
+    f = getattr(_build.load(library), symbol)
+    f.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    return f
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """One kernel launch on the current stream of x's device."""
+def launch_igemm(x: torch.Tensor, w: torch.Tensor, library: str, symbol: str) -> torch.Tensor:
+    """One launch of a kernel of csrc/conv3x3_igemm.cuh through its C launcher,
+    on the current stream of x's device. Counting is the caller's."""
     B, X, Y, Z, C = x.shape
     F = w.shape[-1]
     w2 = w.reshape(27 * C, F).contiguous()
@@ -92,11 +98,17 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     vec_b = F % vec == 0 and w2.data_ptr() % 16 == 0
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel()(x.data_ptr(), w2.data_ptr(), y.data_ptr(), B, X, Y, Z, C, F,
-                        _DTYPE_CODES[x.dtype], int(vec_a), int(vec_b), stream)
+        err = _entry(library, symbol)(x.data_ptr(), w2.data_ptr(), y.data_ptr(), B, X, Y, Z,
+                                      C, F, _DTYPE_CODES[x.dtype], int(vec_a), int(vec_b),
+                                      stream)
     if err != 0:
-        raise RuntimeError(f"conv3x3 kernel launch failed with CUDA error {err} "
+        raise RuntimeError(f"{symbol} kernel launch failed with CUDA error {err} "
                            f"(x {tuple(x.shape)}, F {F}, {x.dtype})")
+    return y
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    y = launch_igemm(x, w, "conv3x3", "conv3x3_forward")
     conv3d_3x3.launches += 1
     return y
 
@@ -104,7 +116,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def conv3d_3x3_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Forward only: the kernel for a CUDA tensor, the plain version for a CPU
     tensor, an error for anything else."""
-    _check(x, w)
+    check_args(x, w)
     if x.device.type == "cuda":
         return _launch(x, w)
     if x.device.type == "cpu":

@@ -13,7 +13,8 @@ the JAX package's default bf16 conv lowering (three 2D convs summed in bf16);
 `conv3d_3x3` rounds once from fp32.
 
 - `conv3d_zslab(x, w)`: differentiable. The forward is the kernel
-  (`csrc/zslab_conv.cu`); dx is the same kernel on the output gradient, cast
+  (`csrc/zslab_conv.cu`: the implicit GEMM of `csrc/conv3x3_igemm.cuh` that
+  `conv3d_3x3` also runs, with its per-tap rounding switched on); dx is the same kernel on the output gradient, cast
   to x's dtype, with the weight flipped on its three spatial axes and C/F
   swapped, as `_bwd_vjp` does. dw is torch's weight-gradient convolution, as
   the TPU kernel leaves dw to XLA.
@@ -27,32 +28,12 @@ the design: the note at the top of `csrc/zslab_conv.cu`.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 import torch.nn.functional as fn
 
-from anatomask_torch.ops import _build
-from anatomask_torch.ops.conv3x3 import flip_weight, weight_grad
+from anatomask_torch.ops.conv3x3 import check_args, flip_weight, launch_igemm, weight_grad
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PLAIN_CHUNK_BYTES = 1 << 28  # fp32 im2col slab per matmul in the plain version
-
-
-def _check(x: torch.Tensor, w: torch.Tensor) -> None:
-    if x.dim() != 5:
-        raise ValueError(f"conv3d_zslab expects NDHWC input, got shape {tuple(x.shape)}")
-    if w.dim() != 5 or tuple(w.shape[:3]) != (3, 3, 3) or w.shape[3] != x.shape[4]:
-        raise ValueError(f"conv3d_zslab expects a (3, 3, 3, {x.shape[4]}, F) weight, "
-                         f"got {tuple(w.shape)}")
-    if x.dtype != w.dtype or x.dtype not in _DTYPE_CODES:
-        raise ValueError(f"conv3d_zslab takes float32 or bfloat16 of one dtype, got "
-                         f"{x.dtype} and {w.dtype}")
-    if x.device != w.device:
-        raise ValueError(f"x on {x.device}, w on {w.device}")
-    if not x.is_contiguous():
-        raise ValueError("conv3d_zslab expects a contiguous NDHWC input")
 
 
 def conv3d_zslab_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -79,33 +60,8 @@ def conv3d_zslab_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    lib = _build.load("zslab_conv")
-    lib.zslab_forward.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
-                                  + [ctypes.c_void_p])
-    lib.zslab_forward.restype = ctypes.c_int
-    return lib.zslab_forward
-
-
 def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """One kernel launch on the current stream of x's device."""
-    B, D, H, W, C = x.shape
-    F = w.shape[-1]
-    w2 = w.reshape(27 * C, F).contiguous()
-    y = torch.empty((B, D, H, W, F), dtype=x.dtype, device=x.device)
-    if y.numel() == 0:
-        return y
-    vec = 16 // x.element_size()
-    vec_a = C % vec == 0 and x.data_ptr() % 16 == 0
-    vec_b = F % vec == 0 and w2.data_ptr() % 16 == 0
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel()(x.data_ptr(), w2.data_ptr(), y.data_ptr(), B, D, H, W, C, F,
-                        _DTYPE_CODES[x.dtype], int(vec_a), int(vec_b), stream)
-    if err != 0:
-        raise RuntimeError(f"zslab_conv kernel launch failed with CUDA error {err} "
-                           f"(x {tuple(x.shape)}, F {F}, {x.dtype})")
+    y = launch_igemm(x, w, "zslab_conv", "zslab_forward")
     conv3d_zslab.launches += 1
     return y
 
@@ -113,7 +69,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def conv3d_zslab_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Forward only: the kernel for a CUDA tensor, the plain version for a CPU
     tensor, an error for anything else."""
-    _check(x, w)
+    check_args(x, w, "conv3d_zslab")
     if x.device.type == "cuda":
         return _launch(x, w)
     if x.device.type == "cpu":

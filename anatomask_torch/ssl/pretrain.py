@@ -82,8 +82,7 @@ class PretrainConfig:
     num_workers: Optional[int] = None
     seed: int = 42
     save_every: int = 1
-    # GPU-resident case cache; None = on unless ATK_DEVICE_CACHE=0
-    device_cache: Optional[bool] = None
+    device_cache: bool = True            # GPU-resident case cache; False = host pipeline
     device_cache_mb: int = 1024
     encoder_dims: Tuple[int, ...] = STUNET_B_DIMS
 
@@ -319,11 +318,8 @@ class PretrainTrainer:
         n_workers = (cfg.num_workers if cfg.num_workers is not None
                      else min(4, get_allowed_n_proc_DA()))
         cache_dtype = self.dtype
-        use_cache = cfg.device_cache
-        if use_cache is None:
-            use_cache = os.environ.get("ATK_DEVICE_CACHE", "1") == "1"
         self.device_cache = self.device_cache_val = None
-        if use_cache:
+        if cfg.device_cache:
             self.device_cache = DeviceCaseCache(
                 ds_tr, initial_patch=initial_patch, final_patch=patch,
                 capacity_mb=cfg.device_cache_mb, oversample_foreground_percent=os_pct,

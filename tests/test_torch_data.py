@@ -125,6 +125,7 @@ def test_device_cache_refill_matches_jax(folder):
             while c._refill_queue.empty() and time.time() < deadline:
                 time.sleep(0.05)
             assert c.maybe_refill() == 1
+        assert ours.slots_refilled == 1
         assert [m.key for m in ours.meta] == [m.key for m in theirs.meta]
         np.testing.assert_array_equal(_as_f32(ours.cache), _as_f32(theirs.cache))
     finally:
