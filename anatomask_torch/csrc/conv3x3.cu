@@ -11,15 +11,24 @@
 //
 // Bound on the H100: at the main-path shapes (C, F >= 32) the conv does 2*27*C
 // FLOP per input byte or more, far above the card's ~295 FLOP/byte ridge, so the
-// floor is the bf16 tensor-core rate. This first kernel is simple and right: one
-// shared-memory stage, no cp.async/TMA pipeline, wmma rather than wgmma, so it
-// runs well under that floor. The measured gap is recorded in PERF.md.
+// floor is the bf16 tensor-core rate (989 TFLOP/s), which only wgmma reaches.
+// Every bf16 conv with C and F multiples of 32 runs the hopper variant of
+// conv3x3_igemm.cuh (a cp.async ring feeding wgmma, 128 x BN tiles); fp32 and
+// the C = 1 stem run its simple variant. The measured gap is recorded in PERF.md.
 
 #include "conv3x3_igemm.cuh"
 
-// See conv3x3_igemm::launch for the arguments.
+// The simple variant; see conv3x3_igemm::launch for the arguments.
 extern "C" int conv3x3_forward(const void* x, const void* w, void* y, int B, int X, int Y,
                                int Z, int C, int F, int dtype, int vec_a, int vec_b,
                                void* stream) {
   return conv3x3_igemm::launch<false>(x, w, y, B, X, Y, Z, C, F, dtype, vec_a, vec_b, stream);
+}
+
+// The hopper variant (bf16, wt = the (F, 27*C) K-major weight); see
+// conv3x3_igemm::hopper::launch for the arguments.
+extern "C" int conv3x3_forward_hopper(const void* x, const void* wt, void* y, int B, int X,
+                                      int Y, int Z, int C, int F, int bk, int bn,
+                                      void* stream) {
+  return conv3x3_igemm::hopper::launch<false>(x, wt, y, B, X, Y, Z, C, F, bk, bn, stream);
 }

@@ -1,23 +1,48 @@
 // The implicit-GEMM stride-1 "same" 3x3x3 convolution for Hopper (sm_90a),
-// NDHWC x (27*C, F), shared by csrc/conv3x3.cu (one rounding) and
+// NDHWC x DHWIO, shared by csrc/conv3x3.cu (one rounding) and
 // csrc/zslab_conv.cu (each first-axis tap rounded to the output type).
 //
 // Form: M = B*X*Y*Z output voxels (z fastest), N = F, K = 27*C ordered
-// (tap, c), so the weight is the DHWIO tensor reshaped to (27*C, F). A block
-// computes a BM x BN output tile; it walks K in BK steps, gathering the input
-// tile (with the zero halo and the ragged edges masked in the load, never
-// padded in device memory) and the weight slice into shared memory. bf16
-// multiplies on the tensor cores through nvcuda::wmma 16x16x16 fragments; fp32
-// (the exactness check) uses plain FMA. Every term accumulates in fp32.
+// (tap = dx*9 + dy*3 + dz, c), so the first-axis taps are the K ranges
+// [0, 9C), [9C, 18C), [18C, 27C). The input tile is gathered on the fly (the
+// zero halo and the ragged edges are masked in the load, never padded in
+// device memory). Every term accumulates in fp32.
 //
-// PER_TAP = false: one K loop over all 27*C terms, rounded once to the output
-// type. PER_TAP = true (bf16): the K loop is cut at the three first-axis tap
-// boundaries, 9*C terms each. At the end of a tap the fp32 accumulators go
-// through shared memory, each thread rounds its elements to bf16 and adds them
-// to their running sum, held in bf16 in shared memory (an fp32 add of two bf16
-// values rounded once is the bf16 add), and the accumulators restart at zero. In fp32 rounding a
-// tap's sum to the output type changes nothing, so both flags run the one loop.
-// The output is written once, at the end.
+// Bound on the H100: the paths' convs (C, F >= 32) do at least 2*27*32 FLOP
+// per byte moved, far above the card's ~295 FLOP/byte ridge, so they are bound
+// by operations: 989 TFLOP/s bf16 on the tensor cores, reachable only through
+// wgmma. Two variants; ops/conv3x3.py `igemm_variant` picks one from dtype,
+// shape and alignment alone:
+//
+// hopper (namespace hopper): bf16 with C % 32 == 0, F % 32 == 0 and 16-byte
+//   aligned pointers, the weight repacked K-major to (F, 27*C). A 256-thread
+//   block (two warpgroups) owns a 128 x BN output tile, BN the largest of 128,
+//   64, 32 dividing F (so F = 32 fills its tile), and walks K in BK steps
+//   (BK = 64 where C % 64 == 0, else 32; BK divides C, so a step lies in one
+//   tap). Every thread issues 16-byte cp.async copies of the A (im2col) and B
+//   tiles into a 4-stage ring in dynamic shared memory, swizzled as wgmma's
+//   128-byte (BK = 64) or 64-byte (BK = 32) K-major layout; a halo or ragged
+//   row copies with src-size 0, which zero-fills. Each warpgroup multiplies its
+//   64 rows with wgmma.m64nBNk16 (inline PTX, shared-memory descriptors), one
+//   commit group a K step, one group kept in flight while the next stages
+//   land. The address math is hoisted: each row's voxel and its 27-bit mask of
+//   in-volume taps are computed once a block; a K step costs one tap offset.
+//   PER_TAP rounds in registers: once a tap's last products retire (waited
+//   for after the next step's copies are issued), the accumulators are
+//   rounded to bf16 and added, in fp32 then rounded, to a running sum held as
+//   packed bf16x2; the next tap's first product starts with scale-d = 0. The
+//   epilogue stores bf16x2 straight from the registers, masked at ragged M.
+//
+// simple (the kernel below): fp32 (the exactness check), the C = 1 stem and
+//   every other shape. A 128-thread block owns a 64 x 64 tile and walks K in
+//   32-wide steps through one shared-memory stage: bf16 on nvcuda::wmma
+//   16x16x16 fragments, fp32 by plain FMA. PER_TAP (bf16) sends the fp32
+//   accumulators through shared memory at each tap's end (wmma's fragment
+//   layout is opaque), rounds them and adds them to a running bf16 sum kept in
+//   shared memory. In fp32 rounding a tap's sum changes nothing, so both flags
+//   run the one loop.
+//
+// In both, the output is written once, at the end.
 
 #pragma once
 
@@ -275,5 +300,358 @@ int launch(const void* x, const void* w, void* y, int B, int X, int Y, int Z, in
   }
   return (int)cudaGetLastError();
 }
+
+namespace hopper {
+
+constexpr int BM = 128;       // output voxels per block, 64 per warpgroup
+constexpr int THREADS = 256;  // two warpgroups; all of them copy and multiply
+constexpr int STAGES = 4;     // shared-memory ring depth
+
+// (BK, BN) tiles built; ops/conv3x3.py `igemm_tile` picks among these
+#define CONV3X3_HOPPER_TILES(TILE) \
+  TILE(32, 32) TILE(32, 64) TILE(32, 128) TILE(64, 32) TILE(64, 64) TILE(64, 128)
+
+template <int BK, int BN>
+struct Tile {
+  static constexpr int ROWB = BK * 2;                  // bytes of one tile row (a voxel or an f)
+  static constexpr int CPR = BK / 8;                   // 16-byte chunks a row
+  static constexpr int A_BYTES = BM * ROWB;
+  static constexpr int STAGE_BYTES = (BM + BN) * ROWB;  // a multiple of 1024
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;  // + slack to align the ring
+  static constexpr int A_ITERS = BM * CPR / THREADS;   // A chunks a thread copies a step
+  static constexpr int B_ITERS = (BN * CPR + THREADS - 1) / THREADS;
+  static constexpr uint64_t SWIZZLE = BK == 64 ? 1 : 2;  // descriptor mode: 128-, 64-byte
+  static constexpr int NACC = BN / 2;                  // fp32 accumulators a thread
+};
+
+// byte offset of chunk j of row r in a swizzled tile: the 16-byte chunk index
+// (address bits 4..6) XOR the address bits 7..9 (128-byte swizzle; bits 7..8
+// for the 64-byte one), as wgmma reads it from a tile aligned to 1024 bytes
+template <int BK>
+__device__ __forceinline__ uint32_t swizzle(int r, int j) {
+  const uint32_t off = r * (BK * 2) + j * 16;
+  return off ^ (((off >> 7) & (BK / 8 - 1)) << 4);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy to shared memory; src_bytes = 0 reads nothing and
+// zero-fills. L1 keeps the gathered input rows (.ca), which the block's
+// neighbouring taps read again; the weight goes through L2 only (.cg).
+template <bool L1>
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  if constexpr (L1)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(src_bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// shared-memory writes of the generic proxy (cp.async) made visible to the
+// async proxy, through which wgmma reads its operands
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across an
+// asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void fence_operand(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// K-major operand descriptor: start address >> 4, leading byte offset 1
+// (unused by the swizzled K-major layouts), stride byte offset = 8 rows >> 4,
+// swizzle mode in bits 62..63. Advancing K by 16 elements adds 32 >> 4.
+template <int BK>
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
+  using T = Tile<BK, 32>;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)((8 * T::ROWB) >> 4) << 32) | (T::SWIZZLE << 62);
+}
+
+#define CONV3X3_R8(i)                                                                 \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),        \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// D (64 x BN, fp32 in registers) = A (64 x 16) * B (16 x BN) + (scale_d ? D : 0),
+// A and B bf16 K-major in shared memory
+template <int BN>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  __device__ __forceinline__ static void mma(float (&d)[16], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : CONV3X3_R8(0), CONV3X3_R8(8)
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : CONV3X3_R8(0), CONV3X3_R8(8), CONV3X3_R8(16), CONV3X3_R8(24)
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  __device__ __forceinline__ static void mma(float (&d)[64], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : CONV3X3_R8(0), CONV3X3_R8(8), CONV3X3_R8(16), CONV3X3_R8(24), CONV3X3_R8(32),
+          CONV3X3_R8(40), CONV3X3_R8(48), CONV3X3_R8(56)
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+#undef CONV3X3_R8
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16x2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// x: (M voxels, C) bf16; wt: (F, 27*C) bf16, K contiguous; y: (M, F) bf16.
+// Grid (ceil(M / 128), F / BN).
+template <int BK, int BN, bool PER_TAP>
+__global__ void __launch_bounds__(THREADS, 1)
+conv3x3_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ wt, bf16* __restrict__ y,
+              int M, int X, int Y, int Z, int C, int F) {
+  using T = Tile<BK, BN>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ long long tap_off[27];  // element offset of each tap's input voxel
+
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int K = 27 * C;
+  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
+
+  if (tid < 27) {
+    const int dx = tid / 9, dy = tid / 3 % 3, dz = tid % 3;
+    tap_off[tid] = (long long)(((dx - 1) * Y + (dy - 1)) * Z + (dz - 1)) * C;
+  }
+  // A: this thread copies chunk `ja` of rows ra + i * (THREADS / CPR)
+  const int ja = tid % T::CPR;
+  const bf16* a_src[T::A_ITERS];
+  uint32_t a_taps[T::A_ITERS];  // bit t: tap t of the row lies inside the volume
+  uint32_t a_dst[T::A_ITERS];
+#pragma unroll
+  for (int i = 0; i < T::A_ITERS; ++i) {
+    const int r = tid / T::CPR + i * (THREADS / T::CPR);
+    const int m = m0 + r;
+    a_dst[i] = swizzle<BK>(r, ja);
+    a_taps[i] = 0;
+    a_src[i] = x;
+    if (m < M) {
+      int t = m;
+      const int vz = t % Z; t /= Z;
+      const int vy = t % Y; t /= Y;
+      const int vx = t % X;
+      // bit d: coordinate + d - 1 lies inside [0, extent)
+      const uint32_t mx = (vx > 0) | 2u | ((vx < X - 1) << 2);
+      const uint32_t my = (vy > 0) | 2u | ((vy < Y - 1) << 2);
+      const uint32_t mz = (vz > 0) | 2u | ((vz < Z - 1) << 2);
+#pragma unroll
+      for (int tap = 0; tap < 27; ++tap)
+        a_taps[i] |= ((mx >> (tap / 9)) & (my >> (tap / 3 % 3)) & (mz >> (tap % 3)) & 1u) << tap;
+      a_src[i] = x + (long long)m * C + ja * 8;
+    }
+  }
+  // B: chunk idx = tid + i * THREADS of the BN x CPR chunks
+  const bf16* b_src[T::B_ITERS];
+  uint32_t b_dst[T::B_ITERS];
+#pragma unroll
+  for (int i = 0; i < T::B_ITERS; ++i) {
+    const int idx = tid + i * THREADS;
+    const int n = idx / T::CPR, j = idx % T::CPR;
+    b_src[i] = wt + (long long)(n0 + n) * K + j * 8;
+    b_dst[i] = T::A_BYTES + swizzle<BK>(n, j);
+  }
+  __syncthreads();  // tap_off
+
+  const int KT = K / BK;
+  auto load = [&](int step) {
+    const uint32_t stage = ring + (step % STAGES) * T::STAGE_BYTES;
+    const int k0 = step * BK;
+    const int tap = k0 / C;  // BK divides C: one tap a step
+    const long long koff = tap_off[tap] + (k0 - tap * C);
+#pragma unroll
+    for (int i = 0; i < T::A_ITERS; ++i) {
+      const bool in = (a_taps[i] >> tap) & 1u;
+      cp_async16<true>(stage + a_dst[i], in ? a_src[i] + koff : x, in ? 16 : 0);
+    }
+#pragma unroll
+    for (int i = 0; i < T::B_ITERS; ++i)
+      if (T::B_ITERS * THREADS == BN * T::CPR || tid + i * THREADS < BN * T::CPR)
+        cp_async16<false>(stage + b_dst[i], b_src[i] + k0, 16);
+  };
+
+  float acc[T::NACC];
+#pragma unroll
+  for (int i = 0; i < T::NACC; ++i) acc[i] = 0.f;
+  uint32_t run[PER_TAP ? T::NACC / 2 : 1];  // the running bf16x2 sum of the rounded taps
+  // a tap's sum (all of its products retired): rounded, then added to the running sum
+  auto add_tap = [&](bool first) {
+#pragma unroll
+    for (int i = 0; i < T::NACC; i += 2) {
+      const float t0 = round_bf16(acc[i]), t1 = round_bf16(acc[i + 1]);
+      if (first) {
+        run[i / 2] = pack_bf16x2(t0, t1);
+      } else {
+        const float2 s = unpack_bf16x2(run[i / 2]);
+        run[i / 2] = pack_bf16x2(s.x + t0, s.y + t1);
+      }
+    }
+  };
+  const int seg = PER_TAP ? KT / 3 : KT;  // K steps a segment: a tap, or all of K
+  const uint32_t a_rows = (tid / 128) * 64 * T::ROWB;  // this warpgroup's 64 rows
+
+#pragma unroll 1
+  for (int s = 0; s < STAGES - 2; ++s) {
+    load(s);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int kt = 0; kt < KT; ++kt) {
+    // step kt has landed (for this thread), then for every thread; the
+    // barrier also follows every warpgroup's retirement of step kt - 2, whose
+    // stage the copies below refill
+    cp_async_wait<STAGES - 3>();
+    fence_proxy_async();
+    __syncthreads();
+    if (kt + STAGES - 2 < KT) load(kt + STAGES - 2);
+    cp_async_commit();
+    if constexpr (PER_TAP) {
+      if (kt > 0 && kt % seg == 0) {  // the previous tap ended with step kt - 1
+        wgmma_wait<0>();
+        fence_operand(acc);
+        add_tap(kt == seg);
+      }
+    }
+
+    const uint32_t stage = ring + (kt % STAGES) * T::STAGE_BYTES;
+    const uint64_t da = make_desc<BK>(stage + a_rows);
+    const uint64_t db = make_desc<BK>(stage + T::A_BYTES);
+    const int keep = kt % seg != 0;  // scale-d: a segment's first product starts at 0
+    fence_operand(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      Wgmma<BN>::mma(acc, da + 2 * kk, db + 2 * kk, kk > 0 || keep);
+    wgmma_commit();
+    wgmma_wait<1>();  // step kt - 1 retired: its stage may be refilled
+    fence_operand(acc);
+  }
+  wgmma_wait<0>();
+  fence_operand(acc);
+  if constexpr (PER_TAP) add_tap(false);  // the last of the three taps
+
+  // accumulator (i, i + 1) of thread t: row 16 * warp + lane / 4 + 8 * (i / 2 % 2),
+  // columns 8 * (i / 4) + 2 * (lane % 4) + {0, 1} of the warpgroup's 64 x BN tile
+  const int lane = tid % 32, warp = tid % 128 / 32;
+  const int row0 = m0 + (tid / 128) * 64 + warp * 16 + lane / 4;
+  const int col0 = n0 + (lane % 4) * 2;
+#pragma unroll
+  for (int i = 0; i < T::NACC; i += 2) {
+    const int m = row0 + 8 * (i / 2 % 2);
+    if (m < M) {
+      uint32_t v;
+      if constexpr (PER_TAP) v = run[i / 2];
+      else v = pack_bf16x2(acc[i], acc[i + 1]);
+      *reinterpret_cast<uint32_t*>(y + (long long)m * F + col0 + 8 * (i / 4)) = v;
+    }
+  }
+}
+
+template <int BK, int BN, bool PER_TAP>
+int launch_tile(const void* x, const void* wt, void* y, int M, int X, int Y, int Z, int C, int F,
+                cudaStream_t stream) {
+  auto kernel = conv3x3_wgmma<BK, BN, PER_TAP>;
+  const int smem = Tile<BK, BN>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)(F / BN));
+  kernel<<<grid, THREADS, smem, stream>>>(static_cast<const bf16*>(x),
+                                          static_cast<const bf16*>(wt), static_cast<bf16*>(y),
+                                          M, X, Y, Z, C, F);
+  return (int)cudaGetLastError();
+}
+
+// x: (B, X, Y, Z, C) bf16; wt: (F, 27*C) bf16 (K contiguous); y: (B, X, Y, Z, F)
+// bf16; all 16-byte aligned. (bk, bn) must be one of CONV3X3_HOPPER_TILES with
+// bk dividing C and bn dividing F. Launches on `stream`; returns the CUDA error.
+template <bool PER_TAP>
+int launch(const void* x, const void* wt, void* y, int B, int X, int Y, int Z, int C, int F,
+           int bk, int bn, void* stream) {
+  const long long M = (long long)B * X * Y * Z;
+  if (M <= 0 || M > 0x7fffffffLL - BM || C <= 0 || F <= 0 || 27LL * C > 0x7fffffffLL ||
+      C % bk != 0 || F % bn != 0 ||
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wt) |
+        reinterpret_cast<uintptr_t>(y)) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CONV3X3_HOPPER_CASE(BK_, BN_) \
+  if (bk == BK_ && bn == BN_) return launch_tile<BK_, BN_, PER_TAP>(x, wt, y, (int)M, X, Y, Z, C, F, s);
+  CONV3X3_HOPPER_TILES(CONV3X3_HOPPER_CASE)
+#undef CONV3X3_HOPPER_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace hopper
 
 }  // namespace conv3x3_igemm

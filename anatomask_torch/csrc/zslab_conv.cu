@@ -22,18 +22,25 @@
 // Bound on the H100: at the shapes of probes/probe_pallas_v4.py (B = 4,
 // 112x112x128, bf16) the conv is bound by operations. dec3 (C = F = 64) does
 // 1.42 TFLOP, 1.44 ms at 989 TFLOP/s; enc0 (C = F = 32) 0.355 TFLOP, 0.36 ms,
-// where its 822 MB of x and y take 0.25 ms at 3.35 TB/s. The design keeps the
-// K loop on tensor cores (nvcuda::wmma bf16 16x16x16 fragments, fp32
-// accumulation) and adds only a shared-memory round trip of the 64x64 tile per
-// tap. Like kernel #1 it is simple and right first: one shared-memory stage,
-// no cp.async/TMA pipeline, wmma rather than wgmma, so it runs well under the
-// bound; PERF.md keeps its measured times.
+// where its 822 MB of x and y take 0.25 ms at 3.35 TB/s. Both probe shapes run
+// the hopper variant (a cp.async ring feeding wgmma), whose per-tap rounding
+// stays in registers: at a tap's end the accumulators are rounded and added to
+// a running bf16x2 sum, with no shared-memory round trip. fp32 and shapes the
+// hopper variant does not take run the simple variant, which stages each tap
+// through shared memory. PERF.md keeps the measured times.
 
 #include "conv3x3_igemm.cuh"
 
-// See conv3x3_igemm::launch for the arguments.
+// The simple variant; see conv3x3_igemm::launch for the arguments.
 extern "C" int zslab_forward(const void* x, const void* w, void* y, int B, int X, int Y,
                              int Z, int C, int F, int dtype, int vec_a, int vec_b,
                              void* stream) {
   return conv3x3_igemm::launch<true>(x, w, y, B, X, Y, Z, C, F, dtype, vec_a, vec_b, stream);
+}
+
+// The hopper variant (bf16, wt = the (F, 27*C) K-major weight); see
+// conv3x3_igemm::hopper::launch for the arguments.
+extern "C" int zslab_forward_hopper(const void* x, const void* wt, void* y, int B, int X, int Y,
+                                    int Z, int C, int F, int bk, int bn, void* stream) {
+  return conv3x3_igemm::hopper::launch<true>(x, wt, y, B, X, Y, Z, C, F, bk, bn, stream);
 }

@@ -15,16 +15,29 @@ NDHWC, weights DHWIO.
   slices of the zero-padded input times the (27*C, F) weight, fp32
   accumulation, one rounding). A CPU tensor goes through it; a CUDA tensor
   always launches the kernel, and anything the kernel does not take raises.
-- `check_args` and `launch_igemm`: the input checks and the ctypes launch
-  shared with `ops/zslab_conv.py`, whose kernel is the same implicit GEMM
-  (`csrc/conv3x3_igemm.cuh`) with per-tap rounding.
+- `check_args`, `igemm_variant`, `igemm_tile`, `pack_weight` and
+  `launch_igemm`: the input checks, the variant and tile choice, the weight
+  layout and the ctypes launch shared with `ops/zslab_conv.py`, whose kernel
+  is the same implicit GEMM (`csrc/conv3x3_igemm.cuh`) with per-tap rounding.
 
-Bound on the H100: the main path's convs (C, F >= 32, volumes of 7x7x8 up to
-112x112x128) do at least 2*27*32 FLOP per byte moved, so the bf16 tensor-core
-rate (989 TFLOP/s) bounds them, not the 3.35 TB/s of memory. The kernel is an
-implicit GEMM (no im2col tensor in device memory; the halo is masked in the
-load) on wmma tensor-core fragments with fp32 accumulators. Its gap to that
-bound is measured by chip_smoke.py and kept in PERF.md.
+Bound on the H100: the paths' convs (C, F >= 32, volumes of 7x7x8 up to
+128^3) do at least 2*27*32 FLOP per byte moved, so the bf16 tensor-core rate
+(989 TFLOP/s, reachable only through wgmma) bounds them, not the 3.35 TB/s of
+memory. `csrc/conv3x3_igemm.cuh` has two variants, and `igemm_variant` picks
+one from dtype, shape and alignment alone (a shape dispatch between two
+hand-written kernels; a failed build or launch raises):
+
+- "hopper": bf16 with C and F multiples of 32 and 16-byte-aligned data, i.e.
+  every conv of the paths but the C = 1 stem. The weight is repacked K-major,
+  (F, 27*C); 128 x BN output tiles (BN = 128, 64 or 32, the largest dividing
+  F), K steps of BK = 64 (C % 64 == 0) or 32, a 4-stage cp.async ring feeding
+  wgmma, the address math hoisted out of the K loop.
+- "simple": everything else (fp32, the stem, other channel counts): 64 x 64
+  tiles on wmma fragments (bf16) or FMA (fp32), one shared-memory stage.
+
+Each wrapper counts its launches in total (`launches`) and by variant
+(`launches_by_variant`). Their gap to the bound is measured by chip_smoke.py
+and kept in PERF.md.
 """
 from __future__ import annotations
 
@@ -74,42 +87,91 @@ def conv3d_3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+VARIANTS = ("hopper", "simple")
+# the (BK, BN) tiles of the hopper variant: CONV3X3_HOPPER_TILES in csrc/conv3x3_igemm.cuh
+HOPPER_TILES = ((32, 32), (32, 64), (32, 128), (64, 32), (64, 64), (64, 128))
+
+
+def igemm_variant(x: torch.Tensor, w: torch.Tensor) -> str:
+    """"hopper" for bf16 with C and F multiples of 32 and a 16-byte-aligned x
+    (the weight and the output are fresh allocations), else "simple"."""
+    C, F = x.shape[-1], w.shape[-1]
+    if x.dtype == torch.bfloat16 and C % 32 == 0 and F % 32 == 0 and x.data_ptr() % 16 == 0:
+        return "hopper"
+    return "simple"
+
+
+def igemm_tile(C: int, F: int) -> tuple[int, int]:
+    """(BK, BN) of the hopper variant: BK = 64 where it divides C, else 32; BN
+    the largest of 128, 64 and 32 that divides F."""
+    return (64 if C % 64 == 0 else 32,
+            next(bn for bn in (128, 64, 32) if F % bn == 0))
+
+
+def pack_weight(w: torch.Tensor, variant: str) -> torch.Tensor:
+    """The (3, 3, 3, C, F) weight as the variant's kernel reads it: (F, 27*C)
+    with K contiguous for "hopper", (27*C, F) for "simple"; K = (tap, c)."""
+    C, F = w.shape[3], w.shape[4]
+    w2 = w.reshape(27 * C, F)
+    return (w2.t() if variant == "hopper" else w2).contiguous()
+
+
 @functools.lru_cache(maxsize=None)
-def _entry(library: str, symbol: str):
+def _entry(library: str, symbol: str, n_ints: int):
     """The C launcher `symbol` of csrc/<library>.cu, built and loaded at
-    first use."""
+    first use: three pointers, n_ints ints, the stream."""
     f = getattr(_build.load(library), symbol)
-    f.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    f.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     f.restype = ctypes.c_int
     return f
 
 
-def launch_igemm(x: torch.Tensor, w: torch.Tensor, library: str, symbol: str) -> torch.Tensor:
-    """One launch of a kernel of csrc/conv3x3_igemm.cuh through its C launcher,
-    on the current stream of x's device. Counting is the caller's."""
+def launch_igemm(x: torch.Tensor, w: torch.Tensor, library: str,
+                 symbol: str) -> tuple[torch.Tensor, str]:
+    """One launch of a kernel of csrc/conv3x3_igemm.cuh through the C
+    launcher `symbol` (simple variant) or `symbol`_hopper, on the current
+    stream of x's device. Returns the output and the variant; counting is the
+    caller's."""
     B, X, Y, Z, C = x.shape
     F = w.shape[-1]
-    w2 = w.reshape(27 * C, F).contiguous()
+    variant = igemm_variant(x, w)
+    w2 = pack_weight(w, variant)
     y = torch.empty((B, X, Y, Z, F), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
-        return y
-    vec = 16 // x.element_size()
-    vec_a = C % vec == 0 and x.data_ptr() % 16 == 0
-    vec_b = F % vec == 0 and w2.data_ptr() % 16 == 0
+        return y, variant
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _entry(library, symbol)(x.data_ptr(), w2.data_ptr(), y.data_ptr(), B, X, Y, Z,
-                                      C, F, _DTYPE_CODES[x.dtype], int(vec_a), int(vec_b),
-                                      stream)
+        if variant == "hopper":
+            err = _entry(library, f"{symbol}_hopper", 8)(
+                x.data_ptr(), w2.data_ptr(), y.data_ptr(), B, X, Y, Z, C, F,
+                *igemm_tile(C, F), stream)
+        else:
+            vec = 16 // x.element_size()
+            vec_a = C % vec == 0 and x.data_ptr() % 16 == 0
+            vec_b = F % vec == 0 and w2.data_ptr() % 16 == 0
+            err = _entry(library, symbol, 9)(
+                x.data_ptr(), w2.data_ptr(), y.data_ptr(), B, X, Y, Z, C, F,
+                _DTYPE_CODES[x.dtype], int(vec_a), int(vec_b), stream)
     if err != 0:
-        raise RuntimeError(f"{symbol} kernel launch failed with CUDA error {err} "
+        raise RuntimeError(f"{symbol} ({variant}) kernel launch failed with CUDA error {err} "
                            f"(x {tuple(x.shape)}, F {F}, {x.dtype})")
-    return y
+    return y, variant
+
+
+def count_launch(fn, variant: str) -> None:
+    fn.launches += 1
+    fn.launches_by_variant[variant] += 1
+
+
+def zero_launch_counts(fn) -> None:
+    """Set a conv wrapper's launch counts, total and by variant, to 0."""
+    fn.launches = 0
+    fn.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    y = launch_igemm(x, w, "conv3x3", "conv3x3_forward")
-    conv3d_3x3.launches += 1
+    y, variant = launch_igemm(x, w, "conv3x3", "conv3x3_forward")
+    count_launch(conv3d_3x3, variant)
     return y
 
 
@@ -164,4 +226,5 @@ def conv3d_3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return Conv3x3Function.apply(x, w)
 
 
-conv3d_3x3.launches = 0  # kernel launches since the caller last set it to 0
+# kernel launches, in total and by variant, since the caller last set them to 0
+zero_launch_counts(conv3d_3x3)

@@ -23,15 +23,19 @@ the JAX package's default bf16 conv lowering (three 2D convs summed in bf16);
   anything the kernel does not take raises.
 
 Unlike the TPU kernel (H % 8 == 0, a 12 MB VMEM budget) there is no shape
-gate: any (B, D, H, W, C) with C >= 1, in fp32 or bf16. Bound on the H100 and
-the design: the note at the top of `csrc/zslab_conv.cu`.
+gate: any (B, D, H, W, C) with C >= 1, in fp32 or bf16. `igemm_variant` of
+`ops/conv3x3.py` sends bf16 with C and F multiples of 32 (both probe shapes)
+to the kernel's hopper variant, which rounds each tap in registers, and
+everything else to its simple variant. Bound on the H100 and the design: the
+notes at the top of `csrc/zslab_conv.cu` and `csrc/conv3x3_igemm.cuh`.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as fn
 
-from anatomask_torch.ops.conv3x3 import check_args, flip_weight, launch_igemm, weight_grad
+from anatomask_torch.ops.conv3x3 import (check_args, count_launch, flip_weight, launch_igemm,
+                                         weight_grad, zero_launch_counts)
 
 _PLAIN_CHUNK_BYTES = 1 << 28  # fp32 im2col slab per matmul in the plain version
 
@@ -61,8 +65,8 @@ def conv3d_zslab_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    y = launch_igemm(x, w, "zslab_conv", "zslab_forward")
-    conv3d_zslab.launches += 1
+    y, variant = launch_igemm(x, w, "zslab_conv", "zslab_forward")
+    count_launch(conv3d_zslab, variant)
     return y
 
 
@@ -101,4 +105,5 @@ def conv3d_zslab(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return ZslabConvFunction.apply(x, w)
 
 
-conv3d_zslab.launches = 0  # kernel launches since the caller last set it to 0
+# kernel launches, in total and by variant, since the caller last set them to 0
+zero_launch_counts(conv3d_zslab)

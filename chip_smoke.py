@@ -7,8 +7,11 @@ Phases, each of which raises on a failed check:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: compile csrc/conv3x3.cu, csrc/moments.cu and csrc/zslab_conv.cu
-   (the two convs share the kernel of csrc/conv3x3_igemm.cuh) for sm_90a
-   from the checkout's sources, one nvcc each, all at once;
+   (the two convs share the kernels of csrc/conv3x3_igemm.cuh: its hopper
+   and simple variants) for sm_90a from the checkout's sources, one nvcc
+   each, all at once; print each kernel's registers and spills from ptxas's
+   report, and check with cuobjdump's SASS that every hopper instantiation
+   of both conv libraries holds HGMMA (wgmma) instructions;
 3. conv kernel: at every call site of the stride-1 3x3x3 conv on both main
    paths, the kernel against its plain PyTorch version on the card. For the
    pretraining step: forward and dx (bf16 at B = 1 through the autograd
@@ -16,7 +19,9 @@ Phases, each of which raises on a failed check:
    without TF32 on a few shapes, <= 1e-5), and at B = 4 its time beside the
    bound, the plain version's time and F.conv3d's (a yardstick only; the port
    never calls it for this conv). For inference: forward at the tile
-   forward's B = 8 (the 8 mirror flips), <= 1e-2, and the same times;
+   forward's B = 8 (the 8 mirror flips), <= 1e-2, and the same times. Then
+   bf16 shapes off the paths at the hopper variant's edges (ragged M, F = 96
+   and 160 with BN = 32, C = 96 and 160 with BK = 32), fwd + dx, <= 1e-2;
 4. moments kernel: at every instance-norm shape of both paths (the step's
    masked and plain norms at B = 4, inference's at B = 8), bf16 and fp32, the
    kernel against its plain version, |diff| / sum|x| <= 1e-5 per (sample,
@@ -33,20 +38,22 @@ Phases, each of which raises on a failed check:
    forward + dx times, TFLOP/s and the bound, the plain version's time,
    F.conv3d's (a yardstick only), kernel #1's at the same shape, and
    max|kernel #2 - kernel #1| / max|kernel #1| in bf16. The probe's timed
-   calls are this kernel's path: its count is set to 0 just before them;
+   calls are this kernel's path: its count is set to 0 just before them,
+   and every one of its launches must run the hopper variant;
 6. references: a tiny SparK and a tiny STUNet (through both sliding-window
    paths) in fp32 on the card against the same models on the CPU, rel.
    error <= 1e-4;
 7. pretraining step: the AnatoMask pretraining step at full STUNet-B width (patch
    112x112x128, batch 4, mask ratio 0.6, bf16, decoder width 512) for 5
-   steps, checking finite losses, the hard masks, 50 conv and 44 moments
-   launches a step and the EMA law, and timing the last 3 steps;
+   steps, checking finite losses, the hard masks, 50 conv (48 hopper, 2
+   simple: the stem's two forwards) and 44 moments launches a step and the
+   EMA law, and timing the last 3 steps;
 8. inference: bench_inference.py's configuration at full width through the
    Predictor: STUNet-B (6 stages, 1 input channel, 3 classes), a
    240x240x155 volume, patch 128^3, step 0.5, 18 tiles, 8-flip mirror TTA,
    tile batch 1, bf16; 3 volumes, the first a warm-up, checking finite
-   logits of shape (3, 240, 240, 155) and 17 x 18 conv and 22 x 18 moments
-   launches a volume;
+   logits of shape (3, 240, 240, 155) and 17 x 18 conv (16 hopper, 1 simple
+   a tile) and 22 x 18 moments launches a volume;
 9. pretraining loop (PretrainTrainer): a synthetic preprocessed dataset
    (8 cases of 1 x 160^3) written with the port's own code into a temporary
    folder, then PretrainTrainer.run_pretraining at full STUNet-B width (patch
@@ -56,8 +63,9 @@ Phases, each of which raises on a failed check:
    through the host pipeline, and a second resume for 1 epoch x 6 iterations
    with a case cache too small for the training set, so that staged slots
    are copied in on a side stream and applied in place between steps;
-   checking finite losses, 50 conv and 44 moments launches a training step
-   (17 and 22 a validation step), the checkpoint files, the resumed epochs,
+   checking finite losses, 50 conv (48 hopper) and 44 moments launches a
+   training step (17, 16 hopper, and 22 a validation step), the checkpoint
+   files, the resumed epochs,
    that at least one slot was refilled and that every slot then holds its
    case bit for bit, and printing seconds an epoch, fetch-wait, validation and
    checkpoint seconds, patches/s and the step time beside the bare step's.
@@ -72,6 +80,7 @@ import copy
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -79,6 +88,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -94,8 +104,9 @@ from anatomask_torch.models.stunet import STUNet
 from anatomask_torch.ops import _build
 from anatomask_torch.ops import conv3x3 as conv_mod
 from anatomask_torch.ops import moments as moments_mod
-from anatomask_torch.ops.conv3x3 import (conv3d_3x3, conv3d_3x3_forward, conv3d_3x3_plain,
-                                         flip_weight)
+from anatomask_torch.ops.conv3x3 import (HOPPER_TILES, conv3d_3x3, conv3d_3x3_forward,
+                                         conv3d_3x3_plain, flip_weight, igemm_variant,
+                                         zero_launch_counts)
 from anatomask_torch.ops.moments import row_moments, row_moments_forward, row_moments_plain
 from anatomask_torch.ops.zslab_conv import (conv3d_zslab, conv3d_zslab_forward,
                                             conv3d_zslab_plain)
@@ -178,6 +189,10 @@ INFER_NORMS = [(f"{part}{d}.norm{i}", (r, r, r), c, False)
                for d, (r, c) in enumerate(levels) for i in (1, 2)]
 # probes/probe_pallas_v4.py's shapes for TPU kernel #2 (B = 4, bf16, C = F)
 PROBE_SHAPES = (("dec3", 64, (112, 112, 128)), ("enc0", 32, (112, 112, 128)))
+# bf16 (C, F, (X, Y, Z)) off the paths at the hopper variant's edges, each with
+# a voxel count that is no multiple of 128: F = 96 (BN = 32; its dx has C = 96,
+# BK = 32), F = 160 (BN = 32; its dx has C = 160), C = 96
+CONV_EDGE_SHAPES = ((64, 96, (9, 10, 11)), (32, 160, (7, 9, 13)), (96, 64, (5, 6, 7)))
 # fp32 shapes off the probe's: H % 8 != 0; C = 1; C != F with F over one N tile
 ZSLAB_FP32_SHAPES = (((2, 12, 13, 17, 32), 32), ((2, 16, 16, 16, 1), 32),
                      ((1, 10, 12, 14, 48), 80))
@@ -203,6 +218,62 @@ def gpu_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_label(mangled):
+    """A readable name for a kernel of csrc/conv3x3_igemm.cuh, else the symbol."""
+    m = re.search(r"conv3x3_wgmmaILi(\d+)ELi(\d+)ELb([01])E", mangled)
+    if m:
+        return f"hopper BK={m[1]} BN={m[2]}{' per-tap' if m[3] == '1' else ''}"
+    m = re.search(r"conv3x3_kernelI(f|13__nv_bfloat16)Lb([01])E", mangled)
+    if m:
+        return f"simple {'fp32' if m[1] == 'f' else 'bf16'}{' per-tap' if m[2] == '1' else ''}"
+    return mangled
+
+
+def build_report(name):
+    """Each kernel's registers and spills, and any warning, from ptxas's report
+    kept beside csrc/<name>.cu's library."""
+    entry = spills = None
+    for line in _build.library_path(name).with_suffix(".log").read_text().splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            entry = kernel_label(m[1])
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spills = f"{m[1]} bytes spill stores, {m[2]} loads"
+        elif m := re.search(r"Used (\d+) registers", line):
+            print(f"[build] {name} {entry}: {m[1]} registers, {spills}")
+        elif "warning" in line:
+            print(f"[build] {name}: {line.strip()}")
+
+
+def check_hgmma(name):
+    """Every hopper instantiation of csrc/<name>.cu holds HGMMA instructions in
+    its SASS (cuobjdump, beside nvcc): a build that lost wgmma fails."""
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts = {}
+    for chunk in sass.split("Function : ")[1:]:
+        label = kernel_label(chunk.split(None, 1)[0])
+        if label.startswith("hopper"):
+            counts[label] = sum("HGMMA" in line for line in chunk.splitlines())
+    check(len(counts) == len(HOPPER_TILES) and all(counts.values()),
+          f"{name}: HGMMA instructions by hopper kernel {counts}")
+    print(f"[build] {name}: HGMMA instructions in each of its {len(counts)} hopper kernels: "
+          f"{', '.join(f'{k} {v}' for k, v in sorted(counts.items()))}")
+
+
+def zero_counts():
+    """Every kernel wrapper's launch counts to 0."""
+    zero_launch_counts(conv3d_3x3)
+    zero_launch_counts(conv3d_zslab)
+    row_moments.launches = 0
+
+
+def counts():
+    """(conv, moments, conv hopper, conv simple) launches so far."""
+    return (conv3d_3x3.launches, row_moments.launches,
+            conv3d_3x3.launches_by_variant["hopper"], conv3d_3x3.launches_by_variant["simple"])
 
 
 def time_ms(f, reps):
@@ -257,7 +328,8 @@ def check_site(C, F, vol, dtype, gen, tol):
 def time_site(C, F, vol, gen, batch):
     """At a main path's batch in bf16: the kernel against the plain version
     (relative max error <= 1e-2), then the ms of the kernel, the plain version
-    and F.conv3d. Returns (ms, plain ms, F.conv3d ms), (max abs err, rel err)."""
+    and F.conv3d. Returns (ms, plain ms, F.conv3d ms), (max abs err, rel err)
+    and the kernel's variant."""
     x, w = conv_inputs(C, F, vol, batch, torch.bfloat16, gen)
     y_k, y_p = conv3d_3x3_forward(x, w), conv3d_3x3_plain(x, w)
     err = rel_err(y_k, y_p)
@@ -270,7 +342,7 @@ def time_site(C, F, vol, gen, batch):
     ms = time_ms(lambda: conv3d_3x3_forward(x, w), 3)
     plain = time_ms(lambda: conv3d_3x3_plain(x, w), 1)
     lib = time_ms(lambda: fn.conv3d(xc, wc, None, 1, 1), 3)
-    return (ms, plain, lib), (abs_err, err)
+    return (ms, plain, lib), (abs_err, err), igemm_variant(x, w)
 
 
 TOTAL_KEYS = ("ms", "plain_ms", "library_ms", "flop_ms", "byte_ms", "bound_ms")
@@ -307,18 +379,28 @@ def conv_phase(gen):
                       (256, 128, (28, 28, 32))]:
         _, r = check_site(C, F, vol, torch.float32, gen, 1e-5)
         print(f"[conv] fp32 {C:>3}->{F:<3} @{vol}: fwd+dx rel err {r:.3e}")
+    for C, F, vol in CONV_EDGE_SHAPES:
+        x, w = conv_inputs(C, F, vol, 1, torch.bfloat16, gen)
+        check(igemm_variant(x, w) == "hopper" and igemm_variant(x, flip_weight(w)) == "hopper",
+              f"edge shape {C}->{F} @{vol} does not take the hopper variant")
+        a, r = check_site(C, F, vol, torch.bfloat16, gen, 1e-2)
+        max_abs, max_rel = max(max_abs, a), max(max_rel, r)
+        print(f"[conv] bf16 {C:>3}->{F:<3} @{vol} ({math.prod(vol)} voxels): fwd+dx rel err "
+              f"{r:.3e} (hopper edge case)")
     timed = {}
     for key in shapes:
-        timed[key], (a, r) = time_site(*key, gen, BATCH)
+        timed[key], (a, r), variant = time_site(*key, gen, BATCH)
         max_abs, max_rel = max(max_abs, a), max(max_rel, r)
-        print(f"[conv] bf16 {key[0]:>3}->{key[1]:<3} @{key[2]} B={BATCH}: fwd rel err {r:.3e}")
+        print(f"[conv] bf16 {key[0]:>3}->{key[1]:<3} @{key[2]} B={BATCH}: fwd rel err {r:.3e} "
+              f"({variant})")
     torch.cuda.empty_cache()
     infer = {}
     for _, C, F, vol in INFER_SITES:
         if (C, F, vol) not in infer:
-            infer[(C, F, vol)], (a, r) = time_site(C, F, vol, gen, TTA_BATCH)
+            infer[(C, F, vol)], (a, r), variant = time_site(C, F, vol, gen, TTA_BATCH)
             max_abs, max_rel = max(max_abs, a), max(max_rel, r)
-            print(f"[conv] bf16 {C:>4}->{F:<3} @{vol} B={TTA_BATCH}: fwd rel err {r:.3e}")
+            print(f"[conv] bf16 {C:>4}->{F:<3} @{vol} B={TTA_BATCH}: fwd rel err {r:.3e} "
+                  f"({variant})")
             torch.cuda.empty_cache()
     step = dict.fromkeys(TOTAL_KEYS, 0.0)
     for name, C, F, vol in SITES:
@@ -396,7 +478,7 @@ def zslab_phase(gen):
 
     totals = dict.fromkeys(TOTAL_KEYS, 0.0)
     # the probe path: counts from here on are its launches
-    conv3d_zslab.launches = 0
+    zero_launch_counts(conv3d_zslab)
     for name, C, vol in PROBE_SHAPES:
         x, w, g = inputs.pop(name)
         wf = flip_weight(w)
@@ -421,7 +503,11 @@ def zslab_phase(gen):
               f"fwd+dx {k1_dx:.3f} ms")
         del x, w, g, wf, xc, gc
         torch.cuda.empty_cache()
-    return max_abs, max_rel, totals, conv3d_zslab.launches
+    by_variant = dict(conv3d_zslab.launches_by_variant)
+    check(by_variant["simple"] == 0 and by_variant["hopper"] == conv3d_zslab.launches,
+          f"probe launches by variant {by_variant}: all must be hopper")
+    print(f"[zslab] probe path: {conv3d_zslab.launches} launches, by variant {by_variant}")
+    return max_abs, max_rel, totals, by_variant
 
 
 def moments_bound_ms(batch, vol, C, masked, visible, itemsize=2):
@@ -576,9 +662,9 @@ def slice_phase():
     torch.cuda.reset_peak_memory_stats()
     times, losses = [], []
     # counts from here on belong to the pretraining path
-    conv3d_3x3.launches = row_moments.launches = 0
+    zero_counts()
     for step in range(STEPS):
-        before = conv3d_3x3.launches, row_moments.launches
+        before = counts()
         old = [p.detach().clone() for p in teacher.parameters()]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -593,9 +679,11 @@ def slice_phase():
               f"step {step}: kept {hard.sum(1).tolist()}")
         top = torch.topk(loss_map, len_loss, dim=1).indices
         check(not torch.gather(hard, 1, top).any(), f"step {step}: a forced patch is kept")
-        n_conv = conv3d_3x3.launches - before[0]
-        n_mom = row_moments.launches - before[1]
-        check(n_conv == 50, f"step {step}: {n_conv} conv launches, expected 50")
+        n_conv, n_mom, n_hopper, n_simple = (a - b for a, b in zip(counts(), before))
+        # 2 x 17 forwards and 16 dx; only the stem's two forwards (C = 1) run simple
+        check((n_conv, n_hopper, n_simple) == (50, 48, 2),
+              f"step {step}: {n_conv} conv launches ({n_hopper} hopper, {n_simple} simple), "
+              f"expected 50 (48, 2)")
         # two forwards (teacher, student) of 22 norms; the backward is elementwise
         check(n_mom == 2 * len(PRETRAIN_NORMS),
               f"step {step}: {n_mom} moments launches, expected {2 * len(PRETRAIN_NORMS)}")
@@ -606,8 +694,8 @@ def slice_phase():
             moved = moved or not torch.equal(e, o)
         check(moved, f"step {step}: the teacher did not move")
         print(f"[slice] step {step}: loss {losses[-1]:.6f}, {times[-1]:.1f} ms, "
-              f"launches conv {n_conv}, moments {n_mom}")
-    launches = conv3d_3x3.launches, row_moments.launches
+              f"launches conv {n_conv} ({n_hopper} hopper, {n_simple} simple), moments {n_mom}")
+    launches = counts()
     step_ms = statistics.median(times[WARMUP:])
     peak = torch.cuda.max_memory_allocated()
     print(f"[slice] step {step_ms:.1f} ms (median of {STEPS - WARMUP}), "
@@ -668,25 +756,27 @@ def inference_phase():
     torch.cuda.reset_peak_memory_stats()
     times, first = [], None
     # counts from here on belong to the inference path
-    conv3d_3x3.launches = row_moments.launches = 0
+    zero_counts()
     for v in range(VOLUMES):
-        before = conv3d_3x3.launches, row_moments.launches
+        before = counts()
         t0 = time.perf_counter()
         logits = predictor.predict_sliding_window_return_logits(data)
         times.append(time.perf_counter() - t0)
-        n_conv = conv3d_3x3.launches - before[0]
-        n_mom = row_moments.launches - before[1]
+        n_conv, n_mom, n_hopper, n_simple = (a - b for a, b in zip(counts(), before))
         check(logits.shape == (NUM_CLASSES, *VOLUME), f"volume {v}: logits {logits.shape}")
         check(bool(np.isfinite(logits).all()), f"volume {v}: non-finite logits")
-        check(n_conv == len(INFER_SITES) * TILES,
-              f"volume {v}: {n_conv} conv launches, expected {len(INFER_SITES) * TILES}")
+        # 17 convs a tile, all but the stem (C = 1) on the hopper variant
+        want = (len(INFER_SITES) * TILES, (len(INFER_SITES) - 1) * TILES, TILES)
+        check((n_conv, n_hopper, n_simple) == want,
+              f"volume {v}: conv launches (all, hopper, simple) {(n_conv, n_hopper, n_simple)}, "
+              f"expected {want}")
         check(n_mom == len(INFER_NORMS) * TILES,
               f"volume {v}: {n_mom} moments launches, expected {len(INFER_NORMS) * TILES}")
         first = logits if first is None else first
-        print(f"[inference] volume {v}: {times[-1]:.3f} s, launches conv {n_conv}, moments "
-              f"{n_mom}, logits mean {float(logits.mean()):.6f}, max |diff| to volume 0 "
+        print(f"[inference] volume {v}: {times[-1]:.3f} s, launches conv {n_conv} ({n_hopper} "
+              f"hopper, {n_simple} simple), moments {n_mom}, logits mean {float(logits.mean()):.6f}, max |diff| to volume 0 "
               f"{float(np.abs(logits - first).max()):.3e}")
-    launches = conv3d_3x3.launches, row_moments.launches
+    launches = counts()
     volume_s = statistics.median(times[1:])
     peak = torch.cuda.max_memory_allocated()
     print(f"[inference] {volume_s:.3f} s a volume (median of {VOLUMES - 1}), "
@@ -733,19 +823,23 @@ def trainer_run(cfg, continue_training=False, output_folder=None):
     trainer = PretrainTrainer(TRAINER_DATASET, cfg, device="cuda", output_folder=output_folder)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    conv3d_3x3.launches = row_moments.launches = conv3d_zslab.launches = 0
+    zero_counts()
     history = trainer.run_pretraining(continue_training=continue_training)
-    launches = conv3d_3x3.launches, row_moments.launches
+    launches = counts()
     check(conv3d_zslab.launches == 0, "the trainer launched the zslab kernel")
     check(all(math.isfinite(v) for k in history for v in history[k]),
           f"non-finite losses {history}")
     epochs = len(history["train_loss"])
     iters = trainer.iters_per_epoch
     n_val = epochs * max(1, iters // 5)
-    # a training step launches 50 conv (two forwards and the student's dx) and
-    # 44 moments kernels (two forwards), a val step 17 and 22 (one forward)
-    want = (epochs * iters * 50 + n_val * 17, epochs * iters * 44 + n_val * 22)
-    check(launches == want, f"trainer launches (conv, moments) {launches}, expected {want}")
+    # a training step launches 50 conv (two forwards and the student's dx; 48
+    # hopper, the stem's 2 simple) and 44 moments kernels (two forwards), a val
+    # step 17 (16 hopper, 1 simple) and 22 (one forward)
+    steps = epochs * iters
+    want = (steps * 50 + n_val * 17, steps * 44 + n_val * 22, steps * 48 + n_val * 16,
+            steps * 2 + n_val)
+    check(launches == want, f"trainer launches (conv, moments, conv hopper, conv simple) "
+          f"{launches}, expected {want}")
     return trainer, history, launches, torch.cuda.max_memory_allocated()
 
 
@@ -765,8 +859,8 @@ def trainer_phase(bare_step_ms):
     """PretrainTrainer.run_pretraining at full STUNet-B width: 2 epochs x 5
     iterations with the GPU case cache, then a resume from checkpoint_latest
     for 1 epoch x 2 iterations through the host pipeline, then one for 1
-    epoch x 6 iterations with a case cache that refills. Returns the conv and
-    moments launches of the three runs."""
+    epoch x 6 iterations with a case cache that refills. Returns the launch
+    counts (conv, moments, conv hopper, conv simple) of the three runs."""
     with tempfile.TemporaryDirectory() as root:
         write_trainer_dataset(root)
         for which in ("preprocessed", "results"):
@@ -789,7 +883,7 @@ def trainer_phase(bare_step_ms):
         print(f"[trainer] epoch {last['epoch']} training loop: {BATCH * TRAINER_ITERS / last['train']:.3f} "
               f"patches/s, {step_ms:.1f} ms a step through the trainer (bare step "
               f"{bare_step_ms:.1f} ms); peak memory {peak / 2**30:.2f} GiB ({peak} bytes); "
-              f"launches conv {launches[0]}, moments {launches[1]}")
+              f"launches conv {launches[0]} ({launches[2]} hopper), moments {launches[1]}")
         for f in ("checkpoint_latest.pt", "B_head_latest.pt", "checkpoint_best.pt",
                   "checkpoint_final.pt", "history.json"):
             check(os.path.isfile(os.path.join(t.output_folder, f)), f"no {f}")
@@ -827,13 +921,15 @@ def trainer_phase(bare_step_ms):
 
 
 def kernel_record(name, source, replaces, launches_by_path, max_abs, max_rel, totals_by_path,
-                  per):
+                  per, launches_by_variant=None):
     """totals_by_path: {path: TOTAL_KEYS totals}; launches_by_path: {path:
-    launches in that path's run}."""
+    launches in that path's run}; launches_by_variant: a conv's launches over
+    the same runs, by variant of csrc/conv3x3_igemm.cuh."""
     both = {k: sum(t[k] for t in totals_by_path.values()) for k in TOTAL_KEYS}
+    variants = {} if launches_by_variant is None else {"launches_by_variant": launches_by_variant}
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
-        launches=sum(launches_by_path.values()), launches_by_path=launches_by_path,
+        launches=sum(launches_by_path.values()), launches_by_path=launches_by_path, **variants,
         max_abs_err=max_abs, max_rel_err=max_rel, checked=True,
         ms=both["ms"], plain_ms=both["plain_ms"], bound_ms=both["bound_ms"],
         bound_by="operations" if both["flop_ms"] >= both["byte_ms"] else "bytes",
@@ -859,9 +955,9 @@ def main():
         _build.load(name)
     print(f"[build] csrc/{{{','.join(names)}}}.cu for sm_90a in {time.perf_counter() - t0:.1f} s")
     for name in names:
-        for line in _build.library_path(name).with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+        build_report(name)
+    for name in ("conv3x3", "zslab_conv"):
+        check_hgmma(name)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -869,7 +965,7 @@ def main():
     conv_err, conv_rel, conv_step, conv_volume, conv_checked = conv_phase(gen)
     mom_err, mom_rel, mom_step, mom_volume, mom_checked = moments_phase(gen)
     torch.cuda.empty_cache()
-    zs_err, zs_rel, zs_probe, zs_launches = zslab_phase(gen)
+    zs_err, zs_rel, zs_probe, zs_variants = zslab_phase(gen)
     torch.cuda.empty_cache()
 
     reference_phase()
@@ -896,7 +992,9 @@ def main():
                       {"pretrain": pretrain[0], "inference": inference[0],
                        "pretrain_trainer": trainer[0]},
                       conv_err, conv_rel,
-                      {"pretrain_step": conv_step, "inference_volume": conv_volume}, per),
+                      {"pretrain_step": conv_step, "inference_volume": conv_volume}, per,
+                      {"hopper": pretrain[2] + inference[2] + trainer[2],
+                       "simple": pretrain[3] + inference[3] + trainer[3]}),
         kernel_record("row_moments", "anatomask_torch/csrc/moments.cu",
                       "probes/probe_rowstats.py:53",
                       {"pretrain": pretrain[1], "inference": inference[1],
@@ -904,10 +1002,10 @@ def main():
                       mom_err, mom_rel,
                       {"pretrain_step": mom_step, "inference_volume": mom_volume}, per),
         kernel_record("conv3d_zslab", "anatomask_torch/csrc/zslab_conv.cu",
-                      "anatomask_tpu/ops/pallas_zslab_conv.py:142", {"probe": zs_launches},
-                      zs_err, zs_rel, {"probe": zs_probe},
+                      "anatomask_tpu/ops/pallas_zslab_conv.py:142",
+                      {"probe": sum(zs_variants.values())}, zs_err, zs_rel, {"probe": zs_probe},
                       "one forward + dx (through the autograd Function) at each shape of "
-                      "probes/probe_pallas_v4.py: dec3 and enc0, B = 4, bf16"),
+                      "probes/probe_pallas_v4.py: dec3 and enc0, B = 4, bf16", zs_variants),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -3,6 +3,8 @@ package's Pallas conv (interpret mode) and lax conv, the autograd Function's
 gradients against jax.grad through the Pallas VJP, and the wrapper's checks.
 The CUDA kernel itself is held against the plain version on the card by
 chip_smoke.py."""
+import re
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -13,8 +15,9 @@ from anatomask_tpu.ops.pallas_conv import _lax_conv, conv3d_3x3 as jax_conv3d_3x
 from anatomask_tpu.ops.pallas_conv import pallas_conv3d_available
 from anatomask_torch.ops import _build
 from anatomask_torch.ops import conv3x3 as conv_mod
-from anatomask_torch.ops.conv3x3 import (conv3d_3x3, conv3d_3x3_forward, conv3d_3x3_plain,
-                                         flip_weight)
+from anatomask_torch.ops.conv3x3 import (HOPPER_TILES, conv3d_3x3, conv3d_3x3_forward,
+                                         conv3d_3x3_plain, flip_weight, igemm_tile,
+                                         igemm_variant, pack_weight)
 from anatomask_torch.ssl.pretrain import PretrainConfig, build_spark_model
 
 # (x shape NDHWC, F): the cases of tests/test_pallas_conv.py, C = 1 (the stem
@@ -97,6 +100,82 @@ def test_plain_path_counts_no_launch():
     before = conv3d_3x3.launches
     conv3d_3x3(torch.from_numpy(x), torch.from_numpy(w))
     assert conv3d_3x3.launches == before
+
+
+@pytest.mark.parametrize("dtype,C,F", [(torch.bfloat16, 32, 32), (torch.float32, 32, 32),
+                                       (torch.bfloat16, 1, 32), (torch.bfloat16, 64, 12)])
+def test_plain_path_counts_no_launch_by_variant(dtype, C, F):
+    """A CPU tensor takes the plain version whatever variant its shape would
+    pick on the card: neither per-variant count moves, forward or dx."""
+    x = torch.rand(1, 3, 4, 5, C, dtype=dtype).requires_grad_(True)
+    w = torch.rand(3, 3, 3, C, F, dtype=dtype)
+    before = dict(conv3d_3x3.launches_by_variant)
+    conv3d_3x3(x, w).float().sum().backward()
+    assert conv3d_3x3.launches_by_variant == before
+
+
+def _unaligned(shape, dtype):
+    """A contiguous tensor whose data starts 2 bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 8, dtype=dtype)[1:n + 1].view(shape)
+
+
+@pytest.mark.parametrize("case,variant", [
+    ("bf16 C=F=32", "hopper"), ("bf16 C=1024 F=512", "hopper"), ("bf16 C=96 F=160", "hopper"),
+    ("fp32 C=F=64", "simple"), ("bf16 C=1 (stem)", "simple"), ("bf16 F=12", "simple"),
+    ("bf16 C=48", "simple"), ("bf16 unaligned x", "simple")])
+def test_igemm_variant(case, variant):
+    dtype = torch.float32 if case.startswith("fp32") else torch.bfloat16
+    C, F = {"bf16 C=F=32": (32, 32), "bf16 C=1024 F=512": (1024, 512),
+            "bf16 C=96 F=160": (96, 160), "fp32 C=F=64": (64, 64), "bf16 C=1 (stem)": (1, 32),
+            "bf16 F=12": (64, 12), "bf16 C=48": (48, 64), "bf16 unaligned x": (64, 64)}[case]
+    shape = (1, 3, 4, 5, C)
+    x = _unaligned(shape, dtype) if "unaligned" in case else torch.zeros(shape, dtype=dtype)
+    assert (x.data_ptr() % 16 != 0) == ("unaligned" in case)
+    assert igemm_variant(x, torch.zeros(3, 3, 3, C, F, dtype=dtype)) == variant
+
+
+def test_igemm_tile_is_one_the_launcher_builds():
+    """Every (BK, BN) that igemm_tile picks for C, F multiples of 32 is among
+    the tiles the C launcher instantiates (CONV3X3_HOPPER_TILES), and is the
+    largest that divides: BK of (64, 32) dividing C, BN of (128, 64, 32)
+    dividing F."""
+    header = (_build.CSRC / "conv3x3_igemm.cuh").read_text()
+    body = header[header.index("#define CONV3X3_HOPPER_TILES"):].split("\n\n")[0]
+    built = {(int(a), int(b)) for a, b in re.findall(r"TILE\((\d+), (\d+)\)", body)}
+    assert built == set(HOPPER_TILES)
+    picked = set()
+    for C in range(32, 1025, 32):
+        for F in range(32, 1025, 32):
+            bk, bn = igemm_tile(C, F)
+            assert (bk, bn) in built and C % bk == 0 and F % bn == 0
+            assert bk == max(b for b in (64, 32) if C % b == 0)
+            assert bn == max(b for b in (128, 64, 32) if F % b == 0)
+            picked.add((bk, bn))
+    assert picked == built
+    assert [igemm_tile(C, F) for C, F in [(32, 32), (64, 32), (32, 64), (96, 160), (512, 512),
+                                          (1024, 512)]] == [
+        (32, 32), (64, 32), (32, 64), (32, 32), (64, 128), (64, 128)]
+
+
+@pytest.mark.parametrize("C,F", [(32, 64), (96, 32), (8, 12)])
+def test_pack_weight_k_major(C, F):
+    """The hopper variant's weight is (F, 27*C) with K = (tap, c) contiguous:
+    w.reshape(27*C, F).t() for the forward, flip_weight(w).reshape(27*F, C).t()
+    for dx; the simple variant keeps (27*C, F)."""
+    w = torch.from_numpy(np.random.RandomState(C + F).rand(3, 3, 3, C, F).astype(np.float32))
+    w = w.bfloat16()
+    fwd = pack_weight(w, "hopper")
+    assert fwd.shape == (F, 27 * C) and fwd.is_contiguous()
+    assert torch.equal(fwd, w.reshape(27 * C, F).t())
+    dx = pack_weight(flip_weight(w), "hopper")
+    assert dx.shape == (C, 27 * F) and dx.is_contiguous()
+    assert torch.equal(dx, flip_weight(w).reshape(27 * F, C).t())
+    # element for element: row f, column tap * C + c holds w[dx, dy, dz, c, f]
+    tap, c, f = 14, C - 1, F - 1
+    assert fwd[f, tap * C + c] == w[tap // 9, tap // 3 % 3, tap % 3, c, f]
+    assert dx[c, tap * F + f] == w[2 - tap // 9, 2 - tap // 3 % 3, 2 - tap % 3, c, f]
+    assert torch.equal(pack_weight(w, "simple"), w.reshape(27 * C, F))
 
 
 def test_plain_keeps_bf16_rounding_once():
