@@ -26,7 +26,9 @@
 //   64 rows with wgmma.m64nBNk16 (inline PTX, shared-memory descriptors), one
 //   commit group a K step, one group kept in flight while the next stages
 //   land. The address math is hoisted: each row's voxel and its 27-bit mask of
-//   in-volume taps are computed once a block; a K step costs one tap offset.
+//   in-volume taps are computed once a block, and so are the two wgmma
+//   descriptors; a K step advances a (tap, channel) counter, reads one tap
+//   offset and adds a stage offset to the descriptors (no division).
 //   PER_TAP rounds in registers: once a tap's last products retire (waited
 //   for after the next step's copies are issued), the accumulators are
 //   rounded to bf16 and added, in fp32 then rounded, to a running sum held as
@@ -525,20 +527,27 @@ conv3x3_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ wt, bf16* __r
   __syncthreads();  // tap_off
 
   const int KT = K / BK;
+  // steps are loaded in order; BK divides C, so a step lies in one tap, and
+  // (tap, c0) of the next step to load advance by counting, not dividing
+  int ld_tap = 0, ld_c0 = 0;
   auto load = [&](int step) {
     const uint32_t stage = ring + (step % STAGES) * T::STAGE_BYTES;
-    const int k0 = step * BK;
-    const int tap = k0 / C;  // BK divides C: one tap a step
-    const long long koff = tap_off[tap] + (k0 - tap * C);
+    const long long koff = tap_off[ld_tap] + ld_c0;
+    const uint32_t bit = 1u << ld_tap;
 #pragma unroll
     for (int i = 0; i < T::A_ITERS; ++i) {
-      const bool in = (a_taps[i] >> tap) & 1u;
+      const bool in = a_taps[i] & bit;
       cp_async16<true>(stage + a_dst[i], in ? a_src[i] + koff : x, in ? 16 : 0);
     }
 #pragma unroll
     for (int i = 0; i < T::B_ITERS; ++i)
       if (T::B_ITERS * THREADS == BN * T::CPR || tid + i * THREADS < BN * T::CPR)
-        cp_async16<false>(stage + b_dst[i], b_src[i] + k0, 16);
+        cp_async16<false>(stage + b_dst[i], b_src[i] + step * BK, 16);
+    ld_c0 += BK;
+    if (ld_c0 == C) {
+      ld_c0 = 0;
+      ++ld_tap;
+    }
   };
 
   float acc[T::NACC];
@@ -559,7 +568,11 @@ conv3x3_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ wt, bf16* __r
     }
   };
   const int seg = PER_TAP ? KT / 3 : KT;  // K steps a segment: a tap, or all of K
-  const uint32_t a_rows = (tid / 128) * 64 * T::ROWB;  // this warpgroup's 64 rows
+  int seg_pos = 0;                        // step kt's place in its segment
+  // descriptors of stage 0: this warpgroup's 64 rows of A, and B; a stage's
+  // are these plus its byte offset >> 4 (in the 14-bit start address field)
+  const uint64_t desc_a = make_desc<BK>(ring + (tid / 128) * 64 * T::ROWB);
+  const uint64_t desc_b = make_desc<BK>(ring + T::A_BYTES);
 
 #pragma unroll 1
   for (int s = 0; s < STAGES - 2; ++s) {
@@ -577,17 +590,17 @@ conv3x3_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ wt, bf16* __r
     if (kt + STAGES - 2 < KT) load(kt + STAGES - 2);
     cp_async_commit();
     if constexpr (PER_TAP) {
-      if (kt > 0 && kt % seg == 0) {  // the previous tap ended with step kt - 1
+      if (kt > 0 && seg_pos == 0) {  // the previous tap ended with step kt - 1
         wgmma_wait<0>();
         fence_operand(acc);
         add_tap(kt == seg);
       }
     }
 
-    const uint32_t stage = ring + (kt % STAGES) * T::STAGE_BYTES;
-    const uint64_t da = make_desc<BK>(stage + a_rows);
-    const uint64_t db = make_desc<BK>(stage + T::A_BYTES);
-    const int keep = kt % seg != 0;  // scale-d: a segment's first product starts at 0
+    const uint32_t stage_off = (kt % STAGES) * (T::STAGE_BYTES >> 4);
+    const uint64_t da = desc_a + stage_off, db = desc_b + stage_off;
+    const int keep = seg_pos != 0;  // scale-d: a segment's first product starts at 0
+    if (++seg_pos == seg) seg_pos = 0;
     fence_operand(acc);
     wgmma_fence();
 #pragma unroll
