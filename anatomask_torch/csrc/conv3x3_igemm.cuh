@@ -487,7 +487,7 @@ conv3x3_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ wt, bf16* __r
     const int dx = tid / 9, dy = tid / 3 % 3, dz = tid % 3;
     tap_off[tid] = (long long)(((dx - 1) * Y + (dy - 1)) * Z + (dz - 1)) * C;
   }
-  // A: this thread copies chunk `ja` of rows ra + i * (THREADS / CPR)
+  // A: this thread copies chunk `ja` of rows tid / CPR + i * (THREADS / CPR)
   const int ja = tid % T::CPR;
   const bf16* a_src[T::A_ITERS];
   uint32_t a_taps[T::A_ITERS];  // bit t: tap t of the row lies inside the volume

@@ -70,11 +70,13 @@ Phases, each of which raises on a failed check:
    case bit for bit, and printing seconds an epoch, fetch-wait, validation and
    checkpoint seconds, patches/s and the step time beside the bare step's.
 
-Each main path (7, 8, 9) runs with the launch counts set to 0 just before
-it and read just after, and every launch it makes must be at a shape that
-phases 3 and 4 held against the plain version. The last three lines of
-standard output are the nvidia-smi line, one JSON object {"kernels": [...]},
-and {"ok": true, "device": {...}}.
+A kernel's time is the median of three runs of back-to-back calls, each
+run timed with CUDA events, after a warm-up call. Each main path (7, 8, 9)
+runs with the launch counts set to 0 just before it and read just after, and
+every launch it makes must be at a shape that phases 3 and 4 held against
+the plain version. The last three lines of standard output are the
+nvidia-smi line, one JSON object {"kernels": [...]}, and
+{"ok": true, "device": {...}}.
 """
 import copy
 import json
@@ -276,16 +278,21 @@ def counts():
             conv3d_3x3.launches_by_variant["hopper"], conv3d_3x3.launches_by_variant["simple"])
 
 
-def time_ms(f, reps):
+def time_ms(f, reps, rounds=3):
+    """ms a call: `rounds` runs of `reps` calls back to back, each run between
+    its own CUDA events, after a warm-up call; the median of the runs' means,
+    so that one stalled call moves one run only."""
     f()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        f()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(rounds)]
+    for start, end in events:
+        start.record()
+        for _ in range(reps):
+            f()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(start.elapsed_time(end) / reps for start, end in events)
 
 
 def bound_ms(C, F, vol, batch=BATCH, itemsize=2):
