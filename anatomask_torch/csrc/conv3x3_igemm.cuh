@@ -41,7 +41,9 @@
 //   16x16x16 fragments, fp32 by plain FMA. PER_TAP (bf16) sends the fp32
 //   accumulators through shared memory at each tap's end (wmma's fragment
 //   layout is opaque), rounds them and adds them to a running bf16 sum kept in
-//   shared memory. In fp32 rounding a tap's sum changes nothing, so both flags
+//   shared memory. Where all of K fits one step (C = 1), PER_TAP gathers the
+//   input tile once and runs it against each tap's weight rows in turn, the
+//   other rows zero. In fp32 rounding a tap's sum changes nothing, so both flags
 //   run the one loop.
 //
 // In both, the output is written once, at the end.
@@ -126,9 +128,10 @@ __device__ __forceinline__ void load_a(T* As, const T* __restrict__ x, const Row
   }
 }
 
+// Weight rows k0 .. k0 + BK - 1; rows outside [kbeg, kend) are zeros.
 template <typename T, int LDB>
 __device__ __forceinline__ void load_b(T* Bs, const T* __restrict__ w, int k0, int n0,
-                                       int kend, int F, bool vec) {
+                                       int kbeg, int kend, int F, bool vec) {
   constexpr int VEC = 16 / sizeof(T);
   if (vec) {
     constexpr int VPR = BN / VEC;
@@ -136,14 +139,16 @@ __device__ __forceinline__ void load_b(T* Bs, const T* __restrict__ w, int k0, i
       const int r = v / VPR, nn = (v % VPR) * VEC;
       const int k = k0 + r, n = n0 + nn;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k < kend && n < F) val = *reinterpret_cast<const uint4*>(w + (long long)k * F + n);
+      if (k >= kbeg && k < kend && n < F)
+        val = *reinterpret_cast<const uint4*>(w + (long long)k * F + n);
       *reinterpret_cast<uint4*>(Bs + r * LDB + nn) = val;
     }
   } else {
     for (int v = threadIdx.x; v < BK * BN; v += THREADS) {
       const int r = v / BN, nn = v % BN;
       const int k = k0 + r, n = n0 + nn;
-      Bs[r * LDB + nn] = (k < kend && n < F) ? w[(long long)k * F + n] : from_float<T>(0.f);
+      Bs[r * LDB + nn] = (k >= kbeg && k < kend && n < F) ? w[(long long)k * F + n]
+                                                           : from_float<T>(0.f);
     }
   }
 }
@@ -184,6 +189,11 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__
     // K segments: the whole of K, or one first-axis tap each
     constexpr int SEGS = PER_TAP ? 3 : 1;
     const int KS = K / SEGS;
+    // all of K in one step (C = 1, the stem): the input tile is gathered once
+    // and each tap multiplies it by the weight rows of that tap alone (the
+    // others zero, which adds exact zeros for a finite input), instead of
+    // three gathers of a 9-wide step
+    const bool one_step = PER_TAP && K <= BK;
     // the running bf16 sum of the rounded taps; in shared memory, as 32 more
     // registers a thread would cost a resident block per SM
     __shared__ bf16 run[PER_TAP ? BM * BN : 1];
@@ -194,9 +204,10 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__
       for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-      for (int k0 = kbeg; k0 < kend; k0 += BK) {
-        load_a<T, LDA>(As, x, rows, k0, kend, X, Y, Z, C, vec_a);
-        load_b<T, LDB>(Bs, w, k0, n0, kend, F, vec_b);
+      for (int k0 = one_step ? 0 : kbeg; k0 < kend; k0 += BK) {
+        if (!one_step || s == 0)
+          load_a<T, LDA>(As, x, rows, k0, one_step ? K : kend, X, Y, Z, C, vec_a);
+        load_b<T, LDB>(Bs, w, k0, n0, kbeg, kend, F, vec_b);
         __syncthreads();
 #pragma unroll
         for (int kk = 0; kk < BK; kk += 16) {
@@ -247,7 +258,7 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
     for (int k0 = 0; k0 < K; k0 += BK) {
       load_a<T, LDA>(As, x, rows, k0, K, X, Y, Z, C, vec_a);
-      load_b<T, LDB>(Bs, w, k0, n0, K, F, vec_b);
+      load_b<T, LDB>(Bs, w, k0, n0, 0, K, F, vec_b);
       __syncthreads();
 #pragma unroll 4
       for (int kk = 0; kk < BK; ++kk) {

@@ -6,10 +6,13 @@ Activations are NCDHW in `torch.channels_last_3d` memory (NDHWC underneath),
 so the 3x3x3 kernel gets a contiguous NDHWC view by a free permute.
 
 Rounding follows the JAX model at bf16: conv inputs and weights are cast to
-the compute dtype, conv outputs come back rounded to it, and the bias is added
-in it. Norm statistics are fp32, with x widened to fp32 before it is squared
-(the JAX model squares in the compute dtype, so at bf16 the two differ by that
-rounding); the affine is applied in the compute dtype. No autocast.
+the compute dtype and the bias is added in it. A 3x3x3 conv with at least
+MIN_VOLUME output voxels a sample is rounded per tap of the first spatial
+axis, as the JAX package's `conv3d_zconcat` (stride 1) and `conv3d_z2d`
+(stride 2 along that axis) lowerings round it; smaller ones, 1x1x1 and
+anisotropic kernels are rounded once from fp32, as `lax` rounds them. Norm
+statistics are fp32 sums of x and of x*x squared in the compute dtype; the
+affine is applied in the compute dtype. No autocast.
 """
 from __future__ import annotations
 
@@ -22,8 +25,12 @@ import torch.nn.functional as fn
 
 from anatomask_torch.ops.conv3x3 import conv3d_3x3
 from anatomask_torch.ops.moments import row_moments
+from anatomask_torch.ops.zslab_conv import conv3d_zconcat
 
 CL3D = torch.channels_last_3d
+# output voxels a sample from which a 3x3x3 conv is rounded per tap
+# (anatomask_tpu/ops/conv_lowering.py _MIN_VOLUME)
+MIN_VOLUME = 32768
 
 
 def _triple(v: Union[int, Sequence[int]]) -> Tuple[int, int, int]:
@@ -43,11 +50,39 @@ def trunc_normal_(w: torch.Tensor, generator: Optional[torch.Generator] = None,
     return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
+def conv3d_z2d(x: torch.Tensor, w: torch.Tensor, stride: Tuple[int, int, int]) -> torch.Tensor:
+    """3x3x3 conv, padding 1, stride[0] > 1, of an NCDHW x with w (F, C, 3,
+    3, 3), as the JAX package's `conv3d_z2d`: one (1, 3, 3) conv a tap of the
+    first spatial axis, each rounded to x's dtype, added in it in the order
+    0, 1, 2. Tap dz reads input plane stride[0] * o + dz - 1: a conv with
+    depth padding p = (1 - dz) mod stride[0] yields it at output plane o +
+    (dz - 1 + p) / stride[0], so no tap copies a slab of x. Autograd then
+    rounds dx per tap too, as jax.vjp of `conv3d_z2d` does. Library code: no
+    TPU kernel is involved."""
+    sz = stride[0]
+    out_z = (x.shape[2] - 1) // sz + 1
+    y = None
+    for dz in range(3):
+        p = (1 - dz) % sz
+        shift = (dz - 1 + p) // sz
+        tap = fn.conv3d(x, w[:, :, dz:dz + 1], None, stride, (p, 1, 1))[:, :, shift:shift + out_z]
+        y = tap if y is None else y + tap
+    return y
+
+
 class ConvND(nn.Module):
     """3D conv, kernel k, stride s (an int or one per axis), torch padding
-    k//2. The stride-1 3x3x3 conv goes to the hand-written kernel
-    (`conv3d_3x3`); every other conv (stride 2, 1x1x1, anisotropic kernels)
-    stays `F.conv3d`, as plain convs the JAX package leaves to XLA.
+    k//2, with the JAX package's `pick_lowering` rounding:
+
+    - stride-1 3x3x3: `conv3d_zconcat` (per-tap forward, kernel #2; dx once,
+      kernel #1) at >= MIN_VOLUME output voxels a sample, else `conv3d_3x3`
+      (kernel #1, rounded once);
+    - 3x3x3 strided along the first axis, at >= MIN_VOLUME output voxels:
+      `conv3d_z2d` (three `F.conv3d`, per tap);
+    - everything else (smaller strided convs, 1x1x1, anisotropic kernels, and
+      3x3x3 strided on the last two axes only, which no model here has):
+      one `F.conv3d`, as plain convs the JAX package leaves to XLA.
+
     Parameters `weight` (O, I, *k) and `bias` as in torch's Conv3d."""
 
     def __init__(self, cin: int, cout: int, kernel_size: Union[int, Sequence[int]],
@@ -65,9 +100,13 @@ class ConvND(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype).contiguous(memory_format=CL3D)
         w = self.weight.to(self.dtype)
+        out = math.prod((n - 1) // s + 1 for n, s in zip(x.shape[2:], self.stride))
+        per_tap = self.kernel_size == (3, 3, 3) and out >= MIN_VOLUME
         if self.kernel_size == (3, 3, 3) and self.stride == (1, 1, 1):
-            y = conv3d_3x3(x.permute(0, 2, 3, 4, 1), w.permute(2, 3, 4, 1, 0))
-            y = y.permute(0, 4, 1, 2, 3)
+            conv = conv3d_zconcat if per_tap else conv3d_3x3
+            y = conv(x.permute(0, 2, 3, 4, 1), w.permute(2, 3, 4, 1, 0)).permute(0, 4, 1, 2, 3)
+        elif per_tap and self.stride[0] > 1:
+            y = conv3d_z2d(x, w, self.stride)
         else:
             y = fn.conv3d(x, w, None, self.stride, tuple(k // 2 for k in self.kernel_size))
         if self.bias is not None:
@@ -77,8 +116,9 @@ class ConvND(nn.Module):
 
 class InstanceNorm(nn.Module):
     """torch InstanceNorm3d(affine=True) semantics, eps 1e-5, fp32
-    statistics from the moments kernel (`row_moments`), affine a*x+b applied
-    in the compute dtype."""
+    statistics from the moments kernel (`row_moments`, x*x squared in x's
+    dtype as the JAX norm squares it), affine a*x+b applied in the compute
+    dtype."""
 
     def __init__(self, channels: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -88,7 +128,7 @@ class InstanceNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.contiguous(memory_format=CL3D)
-        s, ss = row_moments(x.permute(0, 2, 3, 4, 1))
+        s, ss = row_moments(x.permute(0, 2, 3, 4, 1), square_in_dtype=True)
         cnt = float(math.prod(x.shape[2:]))
         mean = s / cnt
         var = (ss / cnt - mean.square()).clamp_min(0.0)

@@ -1,5 +1,6 @@
 """Stride-1 "same" 3x3x3 convolution with the z-slab rounding: the
-hand-written CUDA kernel, its plain PyTorch version and its autograd Function.
+hand-written CUDA kernel, its plain PyTorch version and two autograd
+Functions.
 
 Replaces the TPU kernel `anatomask_tpu/ops/pallas_zslab_conv.py` `_fwd_impl`
 (public `conv3d_zslab`, custom VJP `_fwd_vjp`/`_bwd_vjp`). Layouts are the JAX
@@ -8,34 +9,41 @@ package's: x NDHWC, w DHWIO.
 It computes the conv of `ops/conv3x3.py` with the TPU kernel's rounding: the
 9*C-term partial sum of each tap along the first spatial axis (the TPU
 kernel's z-tap) is summed in fp32 and rounded to x's dtype, and the three are
-added in x's dtype, tap 0, then + tap 1, then + tap 2. That is the rounding of
-the JAX package's default bf16 conv lowering (three 2D convs summed in bf16);
-`conv3d_3x3` rounds once from fp32.
+added in x's dtype, tap 0, then + tap 1, then + tap 2. That is the forward
+rounding of the JAX package's bf16 main path at >= 32768 output voxels
+(`ops/conv_lowering.py` `conv3d_zconcat`, three 2D convs summed in bf16);
+`conv3d_3x3` rounds once from fp32. The two Functions differ in dx only:
 
-- `conv3d_zslab(x, w)`: differentiable. The forward is the kernel
-  (`csrc/zslab_conv.cu`: the implicit GEMM of `csrc/conv3x3_igemm.cuh` that
-  `conv3d_3x3` also runs, with its per-tap rounding switched on); dx is the same kernel on the output gradient, cast
-  to x's dtype, with the weight flipped on its three spatial axes and C/F
-  swapped, as `_bwd_vjp` does. dw is torch's weight-gradient convolution, as
-  the TPU kernel leaves dw to XLA.
-- `conv3d_zslab_plain(x, w)`: the same arithmetic in plain PyTorch. A CPU
-  tensor goes through it; a CUDA tensor always launches the kernel, and
+- `conv3d_zconcat(x, w)`: the main path's conv (`models/layers.py` ConvND at
+  >= 32768 output voxels). The forward is the kernel (`csrc/zslab_conv.cu`:
+  the implicit GEMM of `csrc/conv3x3_igemm.cuh` that `conv3d_3x3` also runs,
+  with its per-tap rounding switched on). dx and dw are `conv3d_3x3`'s:
+  kernel #1 on the output gradient with the flipped weight, rounded once,
+  and torch's weight-gradient convolution. That is jax.vjp of
+  `conv3d_zconcat`, whose dx is one conv over the 3F-channel cotangent.
+- `conv3d_zslab(x, w)`: the Pallas kernel's own VJP, for the probe path
+  (`probes/probe_pallas_v4.py`): dx is this kernel, per-tap rounded, on the
+  output gradient cast to x's dtype with the weight flipped on its three
+  spatial axes and C/F swapped, as `_bwd_vjp` does; dw as above.
+- `conv3d_zslab_plain(x, w)`: the forward's arithmetic in plain PyTorch. A
+  CPU tensor goes through it; a CUDA tensor always launches the kernel, and
   anything the kernel does not take raises.
 
 Unlike the TPU kernel (H % 8 == 0, a 12 MB VMEM budget) there is no shape
 gate: any (B, D, H, W, C) with C >= 1, in fp32 or bf16. `igemm_variant` of
-`ops/conv3x3.py` sends bf16 with C and F multiples of 32 (both probe shapes)
-to the kernel's hopper variant, which rounds each tap in registers, and
-everything else to its simple variant. Bound on the H100 and the design: the
-notes at the top of `csrc/zslab_conv.cu` and `csrc/conv3x3_igemm.cuh`.
+`ops/conv3x3.py` sends bf16 with C and F multiples of 32 to the kernel's
+hopper variant, which rounds each tap in registers, and everything else (the
+C = 1 stem, fp32) to its simple variant. Bound on the H100 and the design:
+the notes at the top of `csrc/zslab_conv.cu` and `csrc/conv3x3_igemm.cuh`.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as fn
 
-from anatomask_torch.ops.conv3x3 import (check_args, count_launch, flip_weight, launch_igemm,
-                                         weight_grad, zero_launch_counts)
+from anatomask_torch.ops.conv3x3 import (Conv3x3Function, check_args, count_launch,
+                                         flip_weight, launch_igemm, weight_grad,
+                                         zero_launch_counts)
 
 _PLAIN_CHUNK_BYTES = 1 << 28  # fp32 im2col slab per matmul in the plain version
 
@@ -100,9 +108,25 @@ class ZslabConvFunction(torch.autograd.Function):
 
 
 def conv3d_zslab(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Differentiable stride-1 'same' 3x3x3 conv with per-tap rounding, x NDHWC,
-    w DHWIO."""
+    """Differentiable stride-1 'same' 3x3x3 conv with per-tap rounding of the
+    forward and of dx (the Pallas kernel's VJP), x NDHWC, w DHWIO."""
     return ZslabConvFunction.apply(x, w)
+
+
+class ZconcatConvFunction(Conv3x3Function):
+    """Forward per tap (this kernel); backward inherited from conv3d_3x3's
+    Function: dx rounded once (kernel #1), dw by weight_grad."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return conv3d_zslab_forward(x, w)
+
+
+def conv3d_zconcat(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Differentiable stride-1 'same' 3x3x3 conv rounded as the JAX main
+    path's `conv3d_zconcat`: the forward per tap, dx once. x NDHWC, w DHWIO."""
+    return ZconcatConvFunction.apply(x, w)
 
 
 # kernel launches, in total and by variant, since the caller last set them to 0

@@ -39,9 +39,10 @@ def mask_to_resolution(mask: torch.Tensor, spatial_shape: Sequence[int]) -> torc
 def _masked_moments(x: torch.Tensor, m: torch.Tensor, batch_pooled: bool):
     """fp32 mean/var per (sample, channel) over the visible voxels (m == 1),
     (B, C, 1, 1, 1); pooled over the batch as (1, C, 1, 1, 1). The sums come
-    from the moments kernel; counts are clamped >= 1."""
+    from the moments kernel, x*x squared in x's dtype as JAX's
+    `_masked_moments` squares it; counts are clamped >= 1."""
     x = x.contiguous(memory_format=CL3D)
-    s, ss = row_moments(x.permute(0, 2, 3, 4, 1), m[:, 0])
+    s, ss = row_moments(x.permute(0, 2, 3, 4, 1), m[:, 0], square_in_dtype=True)
     cnt = m.sum((1, 2, 3, 4), dtype=torch.float32)[:, None]
     if batch_pooled:
         s, ss, cnt = s.sum(0, keepdim=True), ss.sum(0, keepdim=True), cnt.sum(0, keepdim=True)

@@ -12,8 +12,10 @@ Phases, each of which raises on a failed check:
    each, all at once; print each kernel's registers and spills from ptxas's
    report, and check with cuobjdump's SASS that every hopper instantiation
    of both conv libraries holds HGMMA (wgmma) instructions;
-3. conv kernel: at every call site of the stride-1 3x3x3 conv on both main
-   paths, the kernel against its plain PyTorch version on the card. For the
+3. conv kernel (TPU kernel #1): at every call site of the stride-1 3x3x3
+   conv on both main paths (the paths run it for the forwards below
+   MIN_VOLUME output voxels and for every dx; the table checks all), the
+   kernel against its plain PyTorch version on the card. For the
    pretraining step: forward and dx (bf16 at B = 1 through the autograd
    Function and at the step's B = 4, relative max error <= 1e-2; fp32
    without TF32 on a few shapes, <= 1e-5), and at B = 4 its time beside the
@@ -22,12 +24,23 @@ Phases, each of which raises on a failed check:
    forward's B = 8 (the 8 mirror flips), <= 1e-2, and the same times. Then
    bf16 shapes off the paths at the hopper variant's edges (ragged M, F = 96
    and 160 with BN = 32, C = 96 and 160 with BK = 32), fwd + dx, <= 1e-2;
+   then kernel #2 at every shape where the paths run it (the per-tap
+   forwards, >= MIN_VOLUME output voxels; models/layers.py ConvND): forward
+   and dx through conv3d_zconcat (dx is kernel #1, rounded once) at the
+   step's B = 4, forward at inference's B = 8, against the plain versions,
+   rel. max error <= 1e-2, bit-equal on >= 95% of the elements, kernel #1's
+   forward at least 10 points lower; its time beside kernel #1's;
 4. moments kernel: at every instance-norm shape of both paths (the step's
-   masked and plain norms at B = 4, inference's at B = 8), bf16 and fp32, the
-   kernel against its plain version, |diff| / sum|x| <= 1e-5 per (sample,
-   channel), and in bf16 its time beside the bound, the plain version's and
-   one torch.var_mean call's (a yardstick only); then the same check on four
-   shapes off the main paths that take the kernel's other code paths;
+   masked and plain norms at B = 4, inference's at B = 8), bf16 and fp32,
+   with and without square_in_dtype (x*x rounded to bf16 first, as the
+   paths run it), the kernel against its plain version, |diff| / sum|x| <=
+   1e-5 per (sample, channel), and a second call bit-equal to the first; in
+   bf16 the call's time (CUDA events around back-to-back calls: host and
+   device) and the kernel's device time (torch.profiler) beside the bound,
+   the plain version's time and one torch.var_mean call's (a yardstick
+   only), with GB/s, and that a call allocates its output alone (the scratch
+   is kept); then the same checks on four shapes off the main paths that
+   take the kernel's other code paths;
 5. zslab kernel (TPU kernel #2), at the shapes of probes/probe_pallas_v4.py
    (dec3: C = F = 64, enc0: C = F = 32, 112x112x128, B = 4, bf16): forward
    and dx through the autograd Function against the plain version (rel. max
@@ -45,15 +58,16 @@ Phases, each of which raises on a failed check:
    error <= 1e-4;
 7. pretraining step: the AnatoMask pretraining step at full STUNet-B width (patch
    112x112x128, batch 4, mask ratio 0.6, bf16, decoder width 512) for 5
-   steps, checking finite losses, the hard masks, 50 conv (48 hopper, 2
-   simple: the stem's two forwards) and 44 moments launches a step and the
-   EMA law, and timing the last 3 steps;
+   steps, checking finite losses, the hard masks, the launches by kernel and
+   variant (kernel #1 34 hopper, kernel #2 14 hopper and the stem's 2
+   simple, 44 moments; `path_launches` counts them from the site tables) and
+   the EMA law, and timing the last 3 steps;
 8. inference: bench_inference.py's configuration at full width through the
    Predictor: STUNet-B (6 stages, 1 input channel, 3 classes), a
    240x240x155 volume, patch 128^3, step 0.5, 18 tiles, 8-flip mirror TTA,
    tile batch 1, bf16; 3 volumes, the first a warm-up, checking finite
-   logits of shape (3, 240, 240, 155) and 17 x 18 conv (16 hopper, 1 simple
-   a tile) and 22 x 18 moments launches a volume;
+   logits of shape (3, 240, 240, 155) and, a tile, 7 kernel #1 (hopper), 10
+   kernel #2 (9 hopper, the stem simple) and 22 moments launches;
 9. pretraining loop (PretrainTrainer): a synthetic preprocessed dataset
    (8 cases of 1 x 160^3) written with the port's own code into a temporary
    folder, then PretrainTrainer.run_pretraining at full STUNet-B width (patch
@@ -63,8 +77,8 @@ Phases, each of which raises on a failed check:
    through the host pipeline, and a second resume for 1 epoch x 6 iterations
    with a case cache too small for the training set, so that staged slots
    are copied in on a side stream and applied in place between steps;
-   checking finite losses, 50 conv (48 hopper) and 44 moments launches a
-   training step (17, 16 hopper, and 22 a validation step), the checkpoint
+   checking the launches of every training step (as the bare step's) and
+   validation step (one forward), finite losses, the checkpoint
    files, the resumed epochs,
    that at least one slot was refilled and that every slot then holds its
    case bit for bit, and printing seconds an epoch, fetch-wait, validation and
@@ -74,8 +88,8 @@ A kernel's time is the median of three runs of back-to-back calls, each
 run timed with CUDA events, after a warm-up call. Each main path (7, 8, 9)
 runs with the launch counts set to 0 just before it and read just after, and
 every launch it makes must be at a shape that phases 3 and 4 held against
-the plain version. The last three lines of standard output are the
-nvidia-smi line, one JSON object {"kernels": [...]}, and
+the plain version (kernel #2's: its path shapes in phase 3). The last three
+lines of standard output are the nvidia-smi line, one JSON object {"kernels": [...]}, and
 {"ok": true, "device": {...}}.
 """
 import copy
@@ -102,15 +116,17 @@ from anatomask_torch.inference.sliding_window import (compute_steps_for_sliding_
                                                       sliding_window_predict,
                                                       sliding_window_predict_device_resident)
 from anatomask_torch.models.build import build_network_from_plans
+from anatomask_torch.models.layers import MIN_VOLUME
 from anatomask_torch.models.stunet import STUNet
 from anatomask_torch.ops import _build
 from anatomask_torch.ops import conv3x3 as conv_mod
 from anatomask_torch.ops import moments as moments_mod
+from anatomask_torch.ops import zslab_conv as zslab_mod
 from anatomask_torch.ops.conv3x3 import (HOPPER_TILES, conv3d_3x3, conv3d_3x3_forward,
                                          conv3d_3x3_plain, flip_weight, igemm_variant,
                                          zero_launch_counts)
 from anatomask_torch.ops.moments import row_moments, row_moments_forward, row_moments_plain
-from anatomask_torch.ops.zslab_conv import (conv3d_zslab, conv3d_zslab_forward,
+from anatomask_torch.ops.zslab_conv import (conv3d_zconcat, conv3d_zslab, conv3d_zslab_forward,
                                             conv3d_zslab_plain)
 from anatomask_torch.plans.plans_handler import PlansManager, save_json
 from anatomask_torch.preprocessing.preprocessor import save_properties
@@ -272,10 +288,51 @@ def zero_counts():
     row_moments.launches = 0
 
 
+COUNT_KEYS = ("conv3x3.hopper", "conv3x3.simple", "zslab.hopper", "zslab.simple", "moments")
+
+
 def counts():
-    """(conv, moments, conv hopper, conv simple) launches so far."""
-    return (conv3d_3x3.launches, row_moments.launches,
-            conv3d_3x3.launches_by_variant["hopper"], conv3d_3x3.launches_by_variant["simple"])
+    """Launches so far: each conv kernel's by variant, and the moments kernel's."""
+    return {**{f"conv3x3.{v}": n for v, n in conv3d_3x3.launches_by_variant.items()},
+            **{f"zslab.{v}": n for v, n in conv3d_zslab.launches_by_variant.items()},
+            "moments": row_moments.launches}
+
+
+def since(before):
+    now = counts()
+    return {k: now[k] - before[k] for k in COUNT_KEYS}
+
+
+def per_tap(vol):
+    """The main path rounds this 3x3x3 conv per tap: its forward runs kernel #2
+    (models/layers.py ConvND), its dx kernel #1."""
+    return math.prod(vol) >= MIN_VOLUME
+
+
+def path_launches(sites, norms, forwards, backward):
+    """The launches of `forwards` forwards over `sites` and `norms` and, with
+    `backward`, one backward (dx at every site but the stem, whose input
+    carries no gradient; the norms' backward is elementwise)."""
+    want = dict.fromkeys(COUNT_KEYS, 0)
+    for name, C, F, vol in sites:
+        variant = "hopper" if C % 32 == 0 and F % 32 == 0 else "simple"
+        want[f"{'zslab' if per_tap(vol) else 'conv3x3'}.{variant}"] += forwards
+        if backward and name != "enc0.conv1":
+            want[f"conv3x3.{variant}"] += 1
+    want["moments"] = forwards * len(norms)
+    return want
+
+
+# a pretraining step (two forwards and the student's backward), a validation
+# step and a tile forward
+STEP_LAUNCHES = path_launches(SITES, PRETRAIN_NORMS, 2, True)
+VAL_LAUNCHES = path_launches(SITES, PRETRAIN_NORMS, 1, False)
+TILE_LAUNCHES = path_launches(INFER_SITES, INFER_NORMS, 1, False)
+
+
+def kernel_launches(c, kernel):
+    """A kernel's launches among the counts `c`, a conv's over its variants."""
+    return sum(n for k, n in c.items() if k.split(".")[0] == kernel)
 
 
 def time_ms(f, reps, rounds=3):
@@ -411,18 +468,21 @@ def conv_phase(gen):
             torch.cuda.empty_cache()
     step = dict.fromkeys(TOTAL_KEYS, 0.0)
     for name, C, F, vol in SITES:
-        # per step: teacher and student forwards, and the student's dx except
-        # at the stem, whose input carries no gradient
-        for key, n in (((C, F, vol), 2), ((F, C, vol), 0 if name == "enc0.conv1" else 1)):
+        # per step: teacher and student forwards where kernel #1 runs them
+        # (kernel #2 runs the per-tap ones), and the student's dx everywhere
+        # but at the stem, whose input carries no gradient
+        for key, n in (((C, F, vol), 0 if per_tap(vol) else 2),
+                       ((F, C, vol), 0 if name == "enc0.conv1" else 1)):
             add_totals(step, n, *timed[key], *bound_ms(*key))
     volume = dict.fromkeys(TOTAL_KEYS, 0.0)
     for _, C, F, vol in INFER_SITES:  # per volume: one forward a tile
-        add_totals(volume, TILES, *infer[(C, F, vol)], *bound_ms(C, F, vol, TTA_BATCH))
+        if not per_tap(vol):
+            add_totals(volume, TILES, *infer[(C, F, vol)], *bound_ms(C, F, vol, TTA_BATCH))
     print_timed("step", BATCH, timed)
     print_timed("inference", TTA_BATCH, infer)
     checked = ({(BATCH, *vol, C, F) for C, F, vol in timed}
                | {(TTA_BATCH, *vol, C, F) for C, F, vol in infer})
-    return max_abs, max_rel, step, volume, checked
+    return max_abs, max_rel, step, volume, checked, timed, infer
 
 
 def zslab_errs(x, w, g):
@@ -538,96 +598,241 @@ def moments_inputs(batch, vol, C, masked, dtype, gen):
     return x, mask_to_resolution(keep, vol)[:, 0]
 
 
-def moments_err(x, mask):
+def moments_err(x, mask, square):
     """Kernel against plain: max over (sample, channel) of |diff| / sum m|x|
-    for the sum and |diff| / sum m x^2 for the sum of squares."""
-    s_k, ss_k = row_moments_forward(x, mask)
-    s_p, ss_p = row_moments_plain(x, mask)
+    for the sum and |diff| / sum m x^2 for the sum of squares; and that a
+    second call gives the same bits."""
+    s_k, ss_k = row_moments_forward(x, mask, square)
+    again = row_moments_forward(x, mask, square)
+    s_p, ss_p = row_moments_plain(x, mask, square)
     scale = row_moments_plain(x.abs(), mask)[0].clamp_min(1e-30)
     torch.cuda.synchronize()
+    check(torch.equal(s_k, again[0]) and torch.equal(ss_k, again[1]),
+          f"moments kernel {tuple(x.shape)} {x.dtype} square_in_dtype={square}: two calls "
+          f"gave different bits")
     rel = max(((s_k - s_p).abs() / scale).max().item(),
               ((ss_k - ss_p).abs() / ss_p.clamp_min(1e-30)).max().item())
     abs_err = max((s_k - s_p).abs().max().item(), (ss_k - ss_p).abs().max().item())
     return abs_err, rel
 
 
+MOMENTS_PROFILED = 10  # calls a (shape, flag) in the profiler's trace
+
+
+def device_ms(calls):
+    """Device ms of one call of each of `calls` ({label: a function that
+    launches the moments kernel once}): the median over MOMENTS_PROFILED
+    calls of the kernel's time in one torch.profiler trace. None for every
+    label where the trace does not hold exactly those kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for f in calls.values():
+            for _ in range(MOMENTS_PROFILED):
+                f()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and "moments_kernel" in e.name), key=lambda e: e.time_range.start)
+    if len(kernels) != MOMENTS_PROFILED * len(calls):
+        print(f"[moments] the profiler's trace holds {len(kernels)} kernel events, "
+              f"expected {MOMENTS_PROFILED * len(calls)}: device time not measured")
+        return dict.fromkeys(calls)
+    return {label: statistics.median(
+        e.time_range.elapsed_us() / 1e3
+        for e in kernels[i * MOMENTS_PROFILED:(i + 1) * MOMENTS_PROFILED])
+        for i, label in enumerate(calls)}
+
+
 def moments_phase(gen):
-    """Returns max abs err, max rel err, totals for one pretraining step and
-    for one inference volume, and the launch shapes it checked."""
+    """Every norm shape of both paths in bf16 and fp32, with and without
+    square_in_dtype (the paths set it): the kernel against its plain version
+    and twice against itself. In bf16: the call's time (CUDA events around
+    back-to-back calls: host and device) and the kernel's device time
+    (torch.profiler), with and without the flag, beside the bound, the plain
+    version's time and torch.var_mean's. Returns max abs err, max rel err,
+    totals for one pretraining step and for one inference volume (the flag
+    set), their device-time totals, and the launch shapes it checked."""
     shapes = {}
     for batch, norms in ((BATCH, PRETRAIN_NORMS), (TTA_BATCH, INFER_NORMS)):
         for name, vol, C, masked in norms:
             shapes.setdefault((batch, vol, C, masked), []).append(name)
-    max_abs, max_rel, timed = 0.0, 0.0, {}
+    max_abs, max_rel, timed, calls = 0.0, 0.0, {}, {}
     for key, users in shapes.items():
         batch, vol, C, masked = key
         for dtype in (torch.bfloat16, torch.float32):
             x, mask = moments_inputs(batch, vol, C, masked, dtype, gen)
-            a, r = moments_err(x, mask)
-            check(math.isfinite(r) and r <= 1e-5,
-                  f"moments kernel vs plain {key} {dtype}: rel error {r} > 1e-5")
-            max_abs, max_rel = max(max_abs, a), max(max_rel, r)
-            print(f"[moments] {str(dtype)[6:]:>8} B={batch} {vol} C={C:<3} "
-                  f"{'masked' if masked else 'plain '}: rel err {r:.3e} ({','.join(users)})")
+            for square in (False, True):
+                a, r = moments_err(x, mask, square)
+                check(math.isfinite(r) and r <= 1e-5,
+                      f"moments kernel vs plain {key} {dtype} square_in_dtype={square}: "
+                      f"rel error {r} > 1e-5")
+                max_abs, max_rel = max(max_abs, a), max(max_rel, r)
+                print(f"[moments] {str(dtype)[6:]:>8} B={batch} {vol} C={C:<3} "
+                      f"{'masked' if masked else 'plain '} square_in_dtype={square:d}: rel err "
+                      f"{r:.3e}, two calls bit-equal ({','.join(users)})")
             if dtype == torch.bfloat16:
-                ms = time_ms(lambda: row_moments_forward(x, mask), 20)
-                plain = time_ms(lambda: row_moments_plain(x, mask), 3)
+                ms = [time_ms(lambda: row_moments_forward(x, mask, sq), 20) for sq in (False, True)]
+                # the scratch is sized by now: a call allocates its (2, B, C) output alone
+                before = torch.cuda.memory_stats()["allocation.all.allocated"]
+                for _ in range(5):
+                    row_moments_forward(x, mask, True)
+                n_alloc = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+                check(n_alloc == 5, f"moments {key}: {n_alloc} allocations in 5 calls, expected 5")
+                plain = time_ms(lambda: row_moments_plain(x, mask, True), 3)
                 lib = time_ms(lambda: torch.var_mean(x, dim=(1, 2, 3), correction=0), 5)
                 visible = int(mask.sum()) if masked else batch * math.prod(vol)
                 timed[key] = (ms, plain, lib, visible)
-            del x, mask
+                for sq in (False, True):
+                    calls[(key, sq)] = (lambda x=x, mask=mask, sq=sq:
+                                        row_moments_forward(x, mask, sq))
+            else:
+                del x, mask
         torch.cuda.empty_cache()
+    dev = device_ms(calls)
+    calls.clear()
+    torch.cuda.empty_cache()
     # off the main paths: element loads (C not a multiple of 16 bytes), more
-    # channels than one block's 256 vector columns, a ragged last chunk
+    # channels than one block's tile of 32 vector columns, a ragged last
+    # group, a mask read byte by byte (V % 8 != 0)
     for batch, vol, C, masked in ((2, (5, 6, 7), 3, True), (3, (9, 9, 9), 12, False),
                                   (2, (7, 7, 8), 4096, True), (1, (33, 35, 37), 8, False)):
         for dtype in (torch.bfloat16, torch.float32):
             x = (torch.randn((batch, *vol, C), generator=gen, device="cuda") + 0.5).to(dtype)
             mask = (torch.rand((batch, *vol), generator=gen, device="cuda") > 0.4
                     if masked else None)
-            a, r = moments_err(x, mask)
-            check(math.isfinite(r) and r <= 1e-5,
-                  f"moments kernel vs plain {(batch, vol, C, masked)} {dtype}: rel error {r}")
-            max_abs, max_rel = max(max_abs, a), max(max_rel, r)
-            print(f"[moments] {str(dtype)[6:]:>8} B={batch} {vol} C={C:<4} "
-                  f"{'masked' if masked else 'plain '}: rel err {r:.3e} (edge case)")
-    step = dict.fromkeys(TOTAL_KEYS, 0.0)
-    for name, vol, C, masked in PRETRAIN_NORMS:  # teacher and student forwards
-        key = (BATCH, vol, C, masked)
-        add_totals(step, 2, *timed[key][:3], *moments_bound_ms(*key, timed[key][3]))
-    volume = dict.fromkeys(TOTAL_KEYS, 0.0)
-    for name, vol, C, masked in INFER_NORMS:  # one forward a tile
-        key = (TTA_BATCH, vol, C, masked)
-        add_totals(volume, TILES, *timed[key][:3], *moments_bound_ms(*key, timed[key][3]))
-    for (batch, vol, C, masked), (ms, plain, lib, visible) in timed.items():
-        flop_ms, byte_ms = moments_bound_ms(batch, vol, C, masked, visible)
-        gbps = byte_ms * PEAK_BYTES / 1e3 / ms / 1e6
-        print(f"[moments] B={batch} {vol} C={C:<3} {'masked' if masked else 'plain '}: "
-              f"{ms:.4f} ms ({gbps:.0f} GB/s), bound {max(flop_ms, byte_ms):.4f} ms "
-              f"({'bytes' if byte_ms >= flop_ms else 'operations'}), plain {plain:.4f} ms, "
-              f"var_mean {lib:.4f} ms")
-    checked = {(b, *vol, C, masked) for b, vol, C, masked in timed}
+            for square in (False, True):
+                a, r = moments_err(x, mask, square)
+                check(math.isfinite(r) and r <= 1e-5,
+                      f"moments kernel vs plain {(batch, vol, C, masked)} {dtype} "
+                      f"square_in_dtype={square}: rel error {r}")
+                max_abs, max_rel = max(max_abs, a), max(max_rel, r)
+                print(f"[moments] {str(dtype)[6:]:>8} B={batch} {vol} C={C:<4} "
+                      f"{'masked' if masked else 'plain '} square_in_dtype={square:d}: rel err "
+                      f"{r:.3e}, two calls bit-equal (edge case)")
+
+    def totals(batch, norms, n):
+        t, d = dict.fromkeys(TOTAL_KEYS, 0.0), 0.0
+        for _, vol, C, masked in norms:
+            key = (batch, vol, C, masked)
+            ms, plain, lib, visible = timed[key]
+            add_totals(t, n, ms[1], plain, lib, *moments_bound_ms(*key, visible))
+            d = None if d is None or dev[(key, True)] is None else d + n * dev[(key, True)]
+        return t, d
+
+    step, step_dev = totals(BATCH, PRETRAIN_NORMS, 2)  # teacher and student forwards
+    volume, volume_dev = totals(TTA_BATCH, INFER_NORMS, TILES)  # one forward a tile
+    for key, (ms, plain, lib, visible) in timed.items():
+        batch, vol, C, masked = key
+        flop_ms, byte_ms = moments_bound_ms(*key, visible)
+        nbytes = byte_ms * PEAK_BYTES / 1e3
+        all_bytes = batch * math.prod(vol) * C * 2 + 2 * batch * C * 4  # var_mean reads every row
+        for sq in (False, True):
+            d = dev[(key, sq)]
+            device = "not measured" if d is None else f"{d:.4f} ms ({nbytes / d / 1e6:.0f} GB/s)"
+            print(f"[moments] B={batch} {vol} C={C:<3} {'masked' if masked else 'plain '} "
+                  f"square_in_dtype={sq:d}: call {ms[sq]:.4f} ms "
+                  f"({nbytes / ms[sq] / 1e6:.0f} GB/s), "
+                  f"device {device}, bound {max(flop_ms, byte_ms):.4f} ms "
+                  f"({'bytes' if byte_ms >= flop_ms else 'operations'}); plain {plain:.4f} ms, "
+                  f"var_mean {lib:.4f} ms ({all_bytes / lib / 1e6:.0f} GB/s)")
+    print(f"[moments] step (44 calls, flag set): call {step['ms']:.3f} ms, device "
+          f"{'not measured' if step_dev is None else f'{step_dev:.3f} ms'}, bound "
+          f"{step['bound_ms']:.3f} ms, var_mean {step['library_ms']:.3f} ms; volume "
+          f"({len(INFER_NORMS) * TILES} calls): call {volume['ms']:.3f} ms, device "
+          f"{'not measured' if volume_dev is None else f'{volume_dev:.3f} ms'}, bound "
+          f"{volume['bound_ms']:.3f} ms, var_mean {volume['library_ms']:.3f} ms")
+    checked = {(b, *vol, C, masked, sq) for b, vol, C, masked in timed for sq in (False, True)}
+    return max_abs, max_rel, (step, step_dev), (volume, volume_dev), checked
+
+
+def zconcat_phase(gen, k1_step, k1_infer):
+    """Kernel #2 at every shape where the main paths run it (ConvND's per-tap
+    forwards, >= MIN_VOLUME output voxels): at the step's B = 4 the forward
+    and dx through conv3d_zconcat (dx is kernel #1, rounded once) against
+    the plain versions, at inference's B = 8 the forward; rel. max error <=
+    1e-2 and bit-equal to plain on >= 95% of the elements, where kernel #1's
+    forward (one rounding) must match on at least 10 points fewer. Then the
+    forward's time beside kernel #1's at the same shape (conv phase), the
+    bound, the plain version's and F.conv3d's. Returns max abs err, max rel
+    err, the totals of one step and one volume (kernel #2's forwards) and the
+    launch shapes it checked."""
+    max_abs, max_rel, timed = 0.0, 0.0, {}
+    for batch, sites, k1 in ((BATCH, SITES, k1_step), (TTA_BATCH, INFER_SITES, k1_infer)):
+        for C, F, vol in sorted({(C, F, vol) for _, C, F, vol in sites if per_tap(vol)}):
+            x, w = conv_inputs(C, F, vol, batch, torch.bfloat16, gen)
+            y_k, y_p = conv3d_zslab_forward(x, w), conv3d_zslab_plain(x, w)
+            once = (conv3d_3x3_forward(x, w) == y_p).float().mean().item()
+            errs, shares = [rel_err(y_k, y_p)], [(y_k == y_p).float().mean().item()]
+            abs_err = (y_k.float() - y_p.float()).abs().max().item()
+            del y_k, y_p
+            if batch == BATCH and C > 1:  # dx, where the step takes it
+                g = torch.randn((batch, *vol, F), generator=gen, device="cuda").to(torch.bfloat16)
+                xg = x.detach().requires_grad_(True)
+                dx_k, = torch.autograd.grad(conv3d_zconcat(xg, w), xg, g)
+                dx_p = conv3d_3x3_plain(g, flip_weight(w))
+                errs.append(rel_err(dx_k, dx_p))
+                shares.append((dx_k == dx_p).float().mean().item())
+                abs_err = max(abs_err, (dx_k.float() - dx_p.float()).abs().max().item())
+                del g, xg, dx_k, dx_p
+            torch.cuda.synchronize()
+            check(all(math.isfinite(e) and e <= 1e-2 for e in errs),
+                  f"zslab {C}->{F} @{vol} B={batch}: rel errors {errs} > 1e-2")
+            check(min(shares) >= 0.95 and once <= shares[0] - 0.1,
+                  f"zslab {C}->{F} @{vol} B={batch}: bit-equal shares (fwd, dx) {shares}, "
+                  f"kernel #1 fwd {once}")
+            max_abs, max_rel = max(max_abs, abs_err), max(max_rel, max(errs))
+            xc, wc = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous()
+            ms = time_ms(lambda: conv3d_zslab_forward(x, w), 3)
+            plain = time_ms(lambda: conv3d_zslab_plain(x, w), 1)
+            lib = time_ms(lambda: fn.conv3d(xc, wc, None, 1, 1), 3)
+            timed[(batch, C, F, vol)] = (ms, plain, lib)
+            flop_ms, byte_ms = bound_ms(C, F, vol, batch)
+            tflops = 2 * batch * math.prod(vol) * 27 * C * F / ms / 1e9
+            print(f"[zslab] path B={batch} {C:>3}->{F:<3} @{vol} ({igemm_variant(x, w)}): rel err "
+                  f"{max(errs):.3e}, bit-equal to plain fwd {shares[0]:.6f}"
+                  f"{f', dx {shares[1]:.6f}' if len(shares) > 1 else ''}, kernel #1 fwd "
+                  f"{once:.6f}; fwd {ms:.3f} ms ({tflops:.1f} TFLOP/s), kernel #1 "
+                  f"{k1[(C, F, vol)][0]:.3f} ms, bound {max(flop_ms, byte_ms):.3f} ms, plain "
+                  f"{plain:.3f} ms, F.conv3d {lib:.3f} ms")
+            del x, w, xc, wc
+            torch.cuda.empty_cache()
+    step, volume = dict.fromkeys(TOTAL_KEYS, 0.0), dict.fromkeys(TOTAL_KEYS, 0.0)
+    for batch, sites, totals, n in ((BATCH, SITES, step, 2),
+                                    (TTA_BATCH, INFER_SITES, volume, TILES)):
+        for _, C, F, vol in sites:
+            if per_tap(vol):
+                add_totals(totals, n, *timed[(batch, C, F, vol)], *bound_ms(C, F, vol, batch))
+    print(f"[zslab] path: step {step['ms']:.3f} ms (bound {step['bound_ms']:.3f}, F.conv3d "
+          f"{step['library_ms']:.3f}), volume {volume['ms']:.3f} ms (bound "
+          f"{volume['bound_ms']:.3f}, F.conv3d {volume['library_ms']:.3f})")
+    checked = {(b, *vol, C, F) for b, C, F, vol in timed}
     return max_abs, max_rel, step, volume, checked
 
 
 class LaunchShapes:
-    """Records the shape of every kernel launch while it is on: the conv's
-    (B, X, Y, Z, C, F) and the moments' (B, X, Y, Z, C, masked). It wraps each
-    module's launch function and leaves the launch counts to the wrappers."""
+    """Records the shape of every kernel launch while it is on: each conv's
+    (B, X, Y, Z, C, F) and the moments' (B, X, Y, Z, C, masked,
+    square_in_dtype). It wraps each module's launch function and leaves the
+    launch counts to the wrappers."""
 
     def __init__(self):
-        self.conv, self.moments = set(), set()
-        conv_launch, moments_launch = conv_mod._launch, moments_mod._launch
+        self.conv, self.zslab, self.moments = set(), set(), set()
+        conv_launch, zslab_launch = conv_mod._launch, zslab_mod._launch
+        moments_launch = moments_mod._launch
 
         def conv(x, w):
             self.conv.add((*x.shape, w.shape[-1]))
             return conv_launch(x, w)
 
-        def moments(x, mask):
-            self.moments.add((*x.shape, mask is not None))
-            return moments_launch(x, mask)
+        def zslab(x, w):
+            self.zslab.add((*x.shape, w.shape[-1]))
+            return zslab_launch(x, w)
 
-        conv_mod._launch, moments_mod._launch = conv, moments
+        def moments(x, mask, square_in_dtype):
+            self.moments.add((*x.shape, mask is not None, square_in_dtype))
+            return moments_launch(x, mask, square_in_dtype)
+
+        conv_mod._launch, zslab_mod._launch, moments_mod._launch = conv, zslab, moments
 
 
 def reference_phase():
@@ -686,28 +891,24 @@ def slice_phase():
               f"step {step}: kept {hard.sum(1).tolist()}")
         top = torch.topk(loss_map, len_loss, dim=1).indices
         check(not torch.gather(hard, 1, top).any(), f"step {step}: a forced patch is kept")
-        n_conv, n_mom, n_hopper, n_simple = (a - b for a, b in zip(counts(), before))
-        # 2 x 17 forwards and 16 dx; only the stem's two forwards (C = 1) run simple
-        check((n_conv, n_hopper, n_simple) == (50, 48, 2),
-              f"step {step}: {n_conv} conv launches ({n_hopper} hopper, {n_simple} simple), "
-              f"expected 50 (48, 2)")
-        # two forwards (teacher, student) of 22 norms; the backward is elementwise
-        check(n_mom == 2 * len(PRETRAIN_NORMS),
-              f"step {step}: {n_mom} moments launches, expected {2 * len(PRETRAIN_NORMS)}")
+        # two forwards (teacher, student) of 17 convs and 22 norms and the
+        # student's dx: 34 on kernel #1, all hopper; 16 on kernel #2, of which
+        # the stem's two (C = 1) simple; 44 moments
+        n = since(before)
+        check(n == STEP_LAUNCHES, f"step {step}: launches {n}, expected {STEP_LAUNCHES}")
         moved = False
         for e, o, p in zip(teacher.parameters(), old, student.parameters()):
             want = o + 0.001 * (p.detach() - o)
             check((e - want).abs().max().item() <= 1e-6, f"step {step}: EMA law broken")
             moved = moved or not torch.equal(e, o)
         check(moved, f"step {step}: the teacher did not move")
-        print(f"[slice] step {step}: loss {losses[-1]:.6f}, {times[-1]:.1f} ms, "
-              f"launches conv {n_conv} ({n_hopper} hopper, {n_simple} simple), moments {n_mom}")
+        print(f"[slice] step {step}: loss {losses[-1]:.6f}, {times[-1]:.1f} ms, launches {n}")
     launches = counts()
     step_ms = statistics.median(times[WARMUP:])
     peak = torch.cuda.max_memory_allocated()
     print(f"[slice] step {step_ms:.1f} ms (median of {STEPS - WARMUP}), "
-          f"{BATCH / step_ms * 1e3:.3f} patches/s, peak memory {peak / 2**30:.2f} GiB, "
-          f"{launches[0]} conv and {launches[1]} moments launches in {STEPS} steps")
+          f"{BATCH / step_ms * 1e3:.3f} patches/s, peak memory {peak / 2**30:.2f} GiB "
+          f"({peak} bytes), launches in {STEPS} steps {launches}")
     return launches, step_ms
 
 
@@ -769,27 +970,22 @@ def inference_phase():
         t0 = time.perf_counter()
         logits = predictor.predict_sliding_window_return_logits(data)
         times.append(time.perf_counter() - t0)
-        n_conv, n_mom, n_hopper, n_simple = (a - b for a, b in zip(counts(), before))
+        n = since(before)
         check(logits.shape == (NUM_CLASSES, *VOLUME), f"volume {v}: logits {logits.shape}")
         check(bool(np.isfinite(logits).all()), f"volume {v}: non-finite logits")
-        # 17 convs a tile, all but the stem (C = 1) on the hopper variant
-        want = (len(INFER_SITES) * TILES, (len(INFER_SITES) - 1) * TILES, TILES)
-        check((n_conv, n_hopper, n_simple) == want,
-              f"volume {v}: conv launches (all, hopper, simple) {(n_conv, n_hopper, n_simple)}, "
-              f"expected {want}")
-        check(n_mom == len(INFER_NORMS) * TILES,
-              f"volume {v}: {n_mom} moments launches, expected {len(INFER_NORMS) * TILES}")
+        # a tile: 7 convs on kernel #1, 10 on kernel #2 (the stem simple), 22 norms
+        want = {k: TILES * n_tile for k, n_tile in TILE_LAUNCHES.items()}
+        check(n == want, f"volume {v}: launches {n}, expected {want}")
         first = logits if first is None else first
-        print(f"[inference] volume {v}: {times[-1]:.3f} s, launches conv {n_conv} ({n_hopper} "
-              f"hopper, {n_simple} simple), moments {n_mom}, logits mean {float(logits.mean()):.6f}, max |diff| to volume 0 "
+        print(f"[inference] volume {v}: {times[-1]:.3f} s, launches {n}, logits mean "
+              f"{float(logits.mean()):.6f}, max |diff| to volume 0 "
               f"{float(np.abs(logits - first).max()):.3e}")
     launches = counts()
     volume_s = statistics.median(times[1:])
     peak = torch.cuda.max_memory_allocated()
     print(f"[inference] {volume_s:.3f} s a volume (median of {VOLUMES - 1}), "
           f"{1 / volume_s:.4f} volumes/s, {TILES / volume_s:.2f} tiles/s, peak memory "
-          f"{peak / 2**30:.2f} GiB ({peak} bytes), {launches[0]} conv and {launches[1]} "
-          f"moments launches in {VOLUMES} volumes")
+          f"{peak / 2**30:.2f} GiB ({peak} bytes), launches in {VOLUMES} volumes {launches}")
     return launches
 
 
@@ -833,20 +1029,15 @@ def trainer_run(cfg, continue_training=False, output_folder=None):
     zero_counts()
     history = trainer.run_pretraining(continue_training=continue_training)
     launches = counts()
-    check(conv3d_zslab.launches == 0, "the trainer launched the zslab kernel")
     check(all(math.isfinite(v) for k in history for v in history[k]),
           f"non-finite losses {history}")
     epochs = len(history["train_loss"])
     iters = trainer.iters_per_epoch
     n_val = epochs * max(1, iters // 5)
-    # a training step launches 50 conv (two forwards and the student's dx; 48
-    # hopper, the stem's 2 simple) and 44 moments kernels (two forwards), a val
-    # step 17 (16 hopper, 1 simple) and 22 (one forward)
+    # a training step launches as the bare step does, a val step one forward
     steps = epochs * iters
-    want = (steps * 50 + n_val * 17, steps * 44 + n_val * 22, steps * 48 + n_val * 16,
-            steps * 2 + n_val)
-    check(launches == want, f"trainer launches (conv, moments, conv hopper, conv simple) "
-          f"{launches}, expected {want}")
+    want = {k: steps * STEP_LAUNCHES[k] + n_val * VAL_LAUNCHES[k] for k in COUNT_KEYS}
+    check(launches == want, f"trainer launches {launches}, expected {want}")
     return trainer, history, launches, torch.cuda.max_memory_allocated()
 
 
@@ -867,7 +1058,7 @@ def trainer_phase(bare_step_ms):
     iterations with the GPU case cache, then a resume from checkpoint_latest
     for 1 epoch x 2 iterations through the host pipeline, then one for 1
     epoch x 6 iterations with a case cache that refills. Returns the launch
-    counts (conv, moments, conv hopper, conv simple) of the three runs."""
+    counts of the three runs."""
     with tempfile.TemporaryDirectory() as root:
         write_trainer_dataset(root)
         for which in ("preprocessed", "results"):
@@ -890,7 +1081,7 @@ def trainer_phase(bare_step_ms):
         print(f"[trainer] epoch {last['epoch']} training loop: {BATCH * TRAINER_ITERS / last['train']:.3f} "
               f"patches/s, {step_ms:.1f} ms a step through the trainer (bare step "
               f"{bare_step_ms:.1f} ms); peak memory {peak / 2**30:.2f} GiB ({peak} bytes); "
-              f"launches conv {launches[0]} ({launches[2]} hopper), moments {launches[1]}")
+              f"launches {launches}")
         for f in ("checkpoint_latest.pt", "B_head_latest.pt", "checkpoint_best.pt",
                   "checkpoint_final.pt", "history.json"):
             check(os.path.isfile(os.path.join(t.output_folder, f)), f"no {f}")
@@ -904,7 +1095,7 @@ def trainer_phase(bare_step_ms):
         print(f"[trainer] resumed at epoch {e['epoch']} from checkpoint_latest, host pipeline: "
               f"{e['total']:.3f} s (train {e['train']:.3f} s, fetch-wait {e['fetch_wait']:.3f} s, "
               f"val {e['val']:.3f} s); losses {history2}; peak memory {peak2 / 2**30:.2f} GiB; "
-              f"launches conv {launches2[0]}, moments {launches2[1]}")
+              f"launches {launches2}")
         del t2
 
         refill = replace(cfg, num_epochs=TRAINER_EPOCHS + 2, iters_per_epoch=REFILL_ITERS,
@@ -923,8 +1114,8 @@ def trainer_phase(bare_step_ms):
               f"refilled in {REFILL_ITERS} steps (one every {cache._refill_every}), every slot "
               f"holds its case; {e['total']:.3f} s (train {e['train']:.3f} s, fetch-wait "
               f"{e['fetch_wait']:.3f} s, val {e['val']:.3f} s); losses {history3}; peak memory "
-              f"{peak3 / 2**30:.2f} GiB; launches conv {launches3[0]}, moments {launches3[1]}")
-    return tuple(a + b + c for a, b, c in zip(launches, launches2, launches3))
+              f"{peak3 / 2**30:.2f} GiB; launches {launches3}")
+    return {k: launches[k] + launches2[k] + launches3[k] for k in COUNT_KEYS}
 
 
 def kernel_record(name, source, replaces, launches_by_path, max_abs, max_rel, totals_by_path,
@@ -969,10 +1160,14 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    conv_err, conv_rel, conv_step, conv_volume, conv_checked = conv_phase(gen)
+    conv_err, conv_rel, conv_step, conv_volume, conv_checked, k1_step, k1_infer = conv_phase(gen)
+    torch.cuda.empty_cache()
+    zc_err, zc_rel, zc_step, zc_volume, zc_checked = zconcat_phase(gen, k1_step, k1_infer)
+    torch.cuda.empty_cache()
     mom_err, mom_rel, mom_step, mom_volume, mom_checked = moments_phase(gen)
     torch.cuda.empty_cache()
     zs_err, zs_rel, zs_probe, zs_variants = zslab_phase(gen)
+    zc_err, zc_rel = max(zc_err, zs_err), max(zc_rel, zs_rel)
     torch.cuda.empty_cache()
 
     reference_phase()
@@ -984,35 +1179,50 @@ def main():
     inference = inference_phase()
     torch.cuda.empty_cache()
     trainer = trainer_phase(bare_step_ms)
-    check(shapes.conv <= conv_checked,
-          f"conv launches at unchecked shapes: {sorted(shapes.conv - conv_checked)}")
-    check(shapes.moments <= mom_checked,
-          f"moments launches at unchecked shapes: {sorted(shapes.moments - mom_checked)}")
-    print(f"[paths] every launch ran at a checked shape: {len(shapes.conv)} conv, "
-          f"{len(shapes.moments)} moments shapes")
+    for label, seen, checked in (("conv3x3", shapes.conv, conv_checked),
+                                 ("zslab", shapes.zslab, zc_checked),
+                                 ("moments", shapes.moments, mom_checked)):
+        check(seen <= checked, f"{label} launches at unchecked shapes: {sorted(seen - checked)}")
+    print(f"[paths] every launch ran at a checked shape: {len(shapes.conv)} kernel #1, "
+          f"{len(shapes.zslab)} kernel #2, {len(shapes.moments)} moments shapes")
 
+    runs = {"pretrain": pretrain, "inference": inference, "pretrain_trainer": trainer}
     per = ("one pretraining step (B = 4) plus one inference volume (18 tiles at B = 8); "
            "by_path splits them; launches_by_path also counts the PretrainTrainer runs")
+
+    def launches(kernel):
+        return {path: kernel_launches(c, kernel) for path, c in runs.items()}
+
+    def by_variant(kernel):
+        return {v: sum(c[f"{kernel}.{v}"] for c in runs.values()) for v in ("hopper", "simple")}
+
+    zslab_record = kernel_record(
+        "conv3d_zslab", "anatomask_torch/csrc/zslab_conv.cu",
+        "anatomask_tpu/ops/pallas_zslab_conv.py:142", launches("zslab"), zc_err, zc_rel,
+        {"pretrain_step": zc_step, "inference_volume": zc_volume},
+        per + "; the main paths' per-tap forwards through conv3d_zconcat", by_variant("zslab"))
+    zslab_record["probe"] = {"launches_by_variant": zs_variants, **{
+        k: zs_probe[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "per": "one forward + dx (through conv3d_zslab, per-tap dx) at each shape of "
+               "probes/probe_pallas_v4.py: dec3 and enc0, B = 4, bf16"}
+    moments_record = kernel_record(
+        "row_moments", "anatomask_torch/csrc/moments.cu", "probes/probe_rowstats.py:53",
+        launches("moments"), mom_err, mom_rel,
+        {"pretrain_step": mom_step[0], "inference_volume": mom_volume[0]},
+        per + "; ms is the call (host and device, CUDA events), device_ms the kernel "
+        "(torch.profiler)")
+    moments_record["device_ms"] = (None if None in (mom_step[1], mom_volume[1])
+                                   else mom_step[1] + mom_volume[1])
+    moments_record["by_path"]["pretrain_step"]["device_ms"] = mom_step[1]
+    moments_record["by_path"]["inference_volume"]["device_ms"] = mom_volume[1]
     kernels = [
         kernel_record("conv3d_3x3", "anatomask_torch/csrc/conv3x3.cu",
-                      "anatomask_tpu/ops/pallas_conv.py:108",
-                      {"pretrain": pretrain[0], "inference": inference[0],
-                       "pretrain_trainer": trainer[0]},
+                      "anatomask_tpu/ops/pallas_conv.py:108", launches("conv3x3"),
                       conv_err, conv_rel,
                       {"pretrain_step": conv_step, "inference_volume": conv_volume}, per,
-                      {"hopper": pretrain[2] + inference[2] + trainer[2],
-                       "simple": pretrain[3] + inference[3] + trainer[3]}),
-        kernel_record("row_moments", "anatomask_torch/csrc/moments.cu",
-                      "probes/probe_rowstats.py:53",
-                      {"pretrain": pretrain[1], "inference": inference[1],
-                       "pretrain_trainer": trainer[1]},
-                      mom_err, mom_rel,
-                      {"pretrain_step": mom_step, "inference_volume": mom_volume}, per),
-        kernel_record("conv3d_zslab", "anatomask_torch/csrc/zslab_conv.cu",
-                      "anatomask_tpu/ops/pallas_zslab_conv.py:142",
-                      {"probe": sum(zs_variants.values())}, zs_err, zs_rel, {"probe": zs_probe},
-                      "one forward + dx (through the autograd Function) at each shape of "
-                      "probes/probe_pallas_v4.py: dec3 and enc0, B = 4, bf16", zs_variants),
+                      by_variant("conv3x3")),
+        moments_record,
+        zslab_record,
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

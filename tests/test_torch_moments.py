@@ -109,14 +109,36 @@ def test_backward_matches_jax_grad(masked):
 
 
 def test_bf16_is_squared_in_fp32():
-    """The plain version widens bf16 to fp32 before squaring, as the kernel
-    and the TPU kernel do: the same sums as on the widened input."""
+    """With square_in_dtype unset the plain version widens bf16 to fp32
+    before squaring, as the kernel and the TPU kernel do: the same sums as on
+    the widened input."""
     x, keep = _inputs(8, True, seed=40)
     xb = torch.from_numpy(x).bfloat16()
-    got = row_moments_plain(xb, _port_mask(keep))
+    got = row_moments_plain(xb, _port_mask(keep), square_in_dtype=False)
     ref = row_moments_plain(xb.float(), _port_mask(keep))
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_bf16_squared_in_bf16_matches_folded_row_sums(masked):
+    """With square_in_dtype the plain version rounds x*x to bf16 before the
+    fp32 sum, as the JAX package's `folded_row_sums` does at bf16; fp32 sums
+    in another order. In fp32 the flag changes nothing."""
+    x, keep = _inputs(8, masked, seed=43 + masked)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    B, X, Y, Z, C = x.shape
+    mx = None if keep is None else jnp.asarray(keep.reshape(B * X, Y, Z, 1), jnp.bfloat16)
+    s, ss = folded_row_sums(xb.reshape(B * X, Y, Z, C), mx)
+    ref = s.reshape(B, X, C).sum(1), ss.reshape(B, X, C).sum(1)
+    xt = torch.tensor(np.asarray(xb.astype(jnp.float32))).bfloat16()
+    got = row_moments(xt, _port_mask(keep), square_in_dtype=True)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=RTOL, atol=ATOL)
+    assert not torch.equal(got[1], row_moments(xt, _port_mask(keep))[1])
+    for a, b in zip(row_moments(xt.float(), _port_mask(keep), square_in_dtype=True),
+                    row_moments(xt.float(), _port_mask(keep))):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("batch_pooled", [False, True])
