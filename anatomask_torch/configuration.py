@@ -1,6 +1,11 @@
-"""Host process counts. The port's own copy of the part of
-anatomask_tpu/configuration.py that the PretrainTrainer reads."""
+"""Host process counts and the anisotropy threshold. The port's own copy of
+the part of anatomask_tpu/configuration.py that the PretrainTrainer and the
+preprocessing read."""
 import os
+
+# Spacing ratio above which an axis is treated as anisotropic (separate-z
+# resampling).
+ANISO_THRESHOLD = 3
 
 
 def get_allowed_n_proc_DA() -> int:

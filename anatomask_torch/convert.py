@@ -2,13 +2,21 @@
 
 The input is a JAX package param tree as nested dicts of numpy arrays; the
 output uses the reference torch models' names, so the JAX package's
-`convert_torch_spark_state_dict` and `convert_torch_stunet_state_dict` are
-the inverses of `spark_state_dict_from_jax` and `stunet_state_dict_from_jax`.
+`training/checkpoint.py` adapters are the inverses:
+`convert_torch_spark_state_dict` of `spark_state_dict_from_jax`,
+`convert_torch_stunet_state_dict` of `stunet_state_dict_from_jax`,
+`convert_torch_plain_unet_state_dict` of `plain_unet_state_dict_from_jax`
+and `convert_torch_resenc_state_dict` of `resenc_state_dict_from_jax`.
+`state_dict_from_jax` picks one by the network's architecture name.
 
 - conv kernels DHWIO -> OIDHW: transpose(4, 3, 0, 1, 2);
-- ConvTranspose kernels (k, k, k, I, O), correlated un-flipped by
-  lax.conv_transpose -> torch (I, O, k, k, k): flip the spatial axes, then
-  transpose(3, 4, 0, 1, 2);
+- SparK's k4s2 ConvTranspose kernels (k, k, k, I, O), correlated un-flipped
+  by lax.conv_transpose -> torch (I, O, k, k, k): flip the spatial axes,
+  then transpose(3, 4, 0, 1, 2), as `convert_torch_spark_state_dict` flips;
+- the U-Nets' k = s transposed convs (s1, s2, s3, I, O) -> (I, O, s1, s2,
+  s3): transpose(3, 4, 0, 1, 2) with no flip, as
+  `convert_torch_plain_unet_state_dict` has none (`models/layers.py`
+  `SubpixelConvTranspose` applies the weight mirrored, as the JAX layer);
 - mask tokens (C,) -> (1, C, 1, 1, 1); norm scale/bias -> weight/bias.
 """
 from __future__ import annotations
@@ -33,6 +41,12 @@ def _norm(prefix: str, node: Mapping, out: Dict[str, np.ndarray]) -> None:
     out[f"{prefix}.bias"] = np.asarray(node["bias"])
 
 
+def _conv_module(prefix: str, node: Mapping, out: Dict[str, np.ndarray]) -> None:
+    """A ConvND's {conv: {kernel, bias}} -> {prefix}.weight, {prefix}.bias."""
+    out[f"{prefix}.weight"] = _conv(node["conv"]["kernel"])
+    out[f"{prefix}.bias"] = np.asarray(node["conv"]["bias"])
+
+
 def _tensors(out: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.tensor(np.ascontiguousarray(v, np.float32)) for k, v in out.items()}
 
@@ -44,8 +58,7 @@ def _res_stage(prefix: str, stage: Mapping, out: Dict[str, np.ndarray]) -> None:
         pre = f"{prefix}.{block_name[len('block'):]}"
         for layer, node in block.items():
             if layer.startswith("conv"):
-                out[f"{pre}.{layer}.weight"] = _conv(node["conv"]["kernel"])
-                out[f"{pre}.{layer}.bias"] = np.asarray(node["conv"]["bias"])
+                _conv_module(f"{pre}.{layer}", node, out)
             else:
                 _norm(f"{pre}.{layer}", node, out)
 
@@ -60,11 +73,9 @@ def stunet_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         if kind in ("conv_blocks_context", "conv_blocks_localization"):
             _res_stage(f"{kind}.{i}", node, out)
         elif kind == "upsample_layers":
-            out[f"upsample_layers.{i}.conv.weight"] = _conv(node["conv"]["conv"]["kernel"])
-            out[f"upsample_layers.{i}.conv.bias"] = np.asarray(node["conv"]["conv"]["bias"])
+            _conv_module(f"upsample_layers.{i}.conv", node["conv"], out)
         elif kind == "seg_outputs":
-            out[f"seg_outputs.{i}.weight"] = _conv(node["conv"]["kernel"])
-            out[f"seg_outputs.{i}.bias"] = np.asarray(node["conv"]["bias"])
+            _conv_module(f"seg_outputs.{i}", node, out)
         else:
             raise ValueError(f"not a STUNet parameter: {name}")
     return _tensors(out)
@@ -83,8 +94,7 @@ def spark_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         if kind == "densify_norm":
             _norm(f"densify_norms.{i}", node, out)
         elif kind == "densify_proj":
-            out[f"densify_projs.{i}.weight"] = _conv(node["conv"]["kernel"])
-            out[f"densify_projs.{i}.bias"] = np.asarray(node["conv"]["bias"])
+            _conv_module(f"densify_projs.{i}", node, out)
         else:
             out[f"mask_tokens.{i}"] = np.asarray(node).reshape(1, -1, 1, 1, 1)
     dec = params["dense_decoder"]
@@ -100,3 +110,67 @@ def spark_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
             out[f"{prefix}.conv.{3 * j}.weight"] = _conv(node[f"conv{j}"]["kernel"])
             _norm(f"{prefix}.conv.{3 * j + 1}", node[f"norm{j}"], out)
     return _tensors(out)
+
+
+def _unet_decoder(name: str, node: Mapping, out: Dict[str, np.ndarray]) -> bool:
+    """decoder_stage_{d}, decoder_transp_{d} and seg_output_{d} of the JAX
+    U-Nets -> the port's decoder names; False for any other parameter."""
+    kind, d = name.rsplit("_", 1)
+    if kind == "decoder_stage":
+        _conv_stage(f"decoder.stages.{d}", node, out)
+    elif kind == "decoder_transp":
+        out[f"decoder.transpconvs.{d}.weight"] = np.asarray(node["kernel"]).transpose(3, 4, 0, 1, 2)
+        out[f"decoder.transpconvs.{d}.bias"] = np.asarray(node["bias"])
+    elif kind == "seg_output":
+        _conv_module(f"decoder.seg_layers.{d}", node, out)
+    else:
+        return False
+    return True
+
+
+def _conv_stage(prefix: str, stage: Mapping, out: Dict[str, np.ndarray]) -> None:
+    """conv{i}/{conv, norm} of a JAX _ConvStage -> {prefix}.convs.{i}.conv/.norm."""
+    for conv_name, block in stage.items():
+        pre = f"{prefix}.convs.{conv_name[len('conv'):]}"
+        _conv_module(f"{pre}.conv", block["conv"], out)
+        _norm(f"{pre}.norm", block["norm"], out)
+
+
+def plain_unet_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX PlainConvUNet's params (encoder_stage_{s}, decoder_stage_{d},
+    decoder_transp_{d}, seg_output_{d}) -> the port's PlainConvUNet
+    state_dict."""
+    out: Dict[str, np.ndarray] = {}
+    for name, node in params.items():
+        if name.startswith("encoder_stage_"):
+            _conv_stage(f"encoder.stages.{name.rsplit('_', 1)[1]}", node, out)
+        elif not _unet_decoder(name, node, out):
+            raise ValueError(f"not a PlainConvUNet parameter: {name}")
+    return _tensors(out)
+
+
+def resenc_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX ResidualEncoderUNet's params (encoder_stage_{s}_block_{b} with
+    conv1, norm1, conv2, norm2 and the skip's conv3; the decoder as
+    PlainConvUNet's) -> the port's ResidualEncoderUNet state_dict."""
+    out: Dict[str, np.ndarray] = {}
+    for name, node in params.items():
+        m = re.fullmatch(r"encoder_stage_(\d+)_block_(\d+)", name)
+        if m:
+            _res_stage(f"encoder.stages.{m[1]}.blocks", {f"block{m[2]}": node}, out)
+        elif not _unet_decoder(name, node, out):
+            raise ValueError(f"not a ResidualEncoderUNet parameter: {name}")
+    return _tensors(out)
+
+
+def state_dict_from_jax(arch_name: str, params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX params of a network built by `build_network_from_plans` for
+    `arch_name` ('STUNet-*', 'PlainConvUNet', 'ResidualEncoderUNet') -> the
+    port's state_dict."""
+    if arch_name.lower().startswith("stunet"):
+        return stunet_state_dict_from_jax(params)
+    if arch_name == "PlainConvUNet":
+        return plain_unet_state_dict_from_jax(params)
+    if arch_name == "ResidualEncoderUNet":
+        return resenc_state_dict_from_jax(params)
+    raise RuntimeError(f"Unknown network architecture {arch_name!r}")

@@ -1,26 +1,30 @@
 """Gaussian-weighted sliding-window prediction on the card. Counterpart of
-anatomask_tpu/inference/sliding_window.py (`compute_steps_for_sliding_window`,
-`pad_nd_image`, `make_tile_predictor`, `sliding_window_predict`,
-`sliding_window_predict_device_resident`).
+anatomask_tpu/inference/sliding_window.py (`is_oom_error`,
+`compute_steps_for_sliding_window`, `pad_nd_image`, `make_tile_predictor`,
+`sliding_window_predict`, `sliding_window_predict_device_resident`).
 
 Same tile placement, Gaussian and normalization as there:
 - mirror TTA is one forward: the 2^|axes| flips are stacked on the batch
   axis, predicted together, flipped back and averaged in fp32;
-- the Gaussian accumulation runs in place in device memory, into (X, Y, Z, K)
-  fp32 logits and (X, Y, Z) weights; only the final logits go to the host;
+- tiles go in batches of `tile_batch_size`; a last batch with fewer tiles is
+  padded with duplicates of its last tile, which add nothing to the blend.
+  The network always sees full batches, so a `BatchNorm` net, which
+  normalises with the statistics of the batch it is given, sees what the
+  JAX package's does;
+- the Gaussian accumulation runs in place into (X, Y, Z, K) fp32 logits and
+  (X, Y, Z) weights; only the final logits go to the host;
 - `sliding_window_predict_device_resident` copies the padded volume to the
   device once and slices every tile there; `sliding_window_predict` streams:
-  it cuts the tiles on the host and copies each batch over.
+  it cuts the tiles on the host and copies each batch over. Where the
+  device runs out of memory (`is_oom_error`) during its device
+  accumulation, it starts again with the accumulators in host memory.
 
 Both take numpy (c, x, y, z) float32 and return numpy (K, x, y, z) float32.
-Nothing here leaves the device it was given: running out of device memory
-raises (the JAX package's spill to host memory is not ported yet,
-ROADMAP.md). A last batch with fewer tiles than `tile_batch_size` runs as it
-is, where the JAX package pads it with zero-weight duplicates.
 """
 from __future__ import annotations
 
 import itertools
+import math
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -28,6 +32,21 @@ import torch
 
 from anatomask_torch.device import resolve_device
 from anatomask_torch.inference.gaussian import compute_gaussian
+
+
+# what a CUDA, cuBLAS or cuDNN allocation failure says in a RuntimeError
+_ALLOCATION_FAILURES = ("CUDA out of memory", "CUDA error: out of memory",
+                        "CUBLAS_STATUS_ALLOC_FAILED", "CUDNN_STATUS_ALLOC_FAILED")
+
+
+def is_oom_error(e: BaseException) -> bool:
+    """True when the exception says that device memory ran out: a
+    torch.cuda.OutOfMemoryError, or a RuntimeError of a CUDA, cuBLAS or
+    cuDNN allocation. Anything else (a host MemoryError, a ValueError that
+    mentions memory, a failed kernel launch) is an error to surface."""
+    if isinstance(e, torch.cuda.OutOfMemoryError):
+        return True
+    return type(e) is RuntimeError and any(s in str(e) for s in _ALLOCATION_FAILURES)
 
 
 def compute_steps_for_sliding_window(image_size: Sequence[int], tile_size: Sequence[int],
@@ -98,19 +117,22 @@ def _tile_slices(origin, tile_size) -> Tuple[slice, ...]:
 @torch.no_grad()
 def _predict(get_tiles: Callable, spatial: Sequence[int], slicer_to_undo, tile_fn: Callable,
              tile_size: Tuple[int, ...], num_output_channels: int, tile_step_size: float,
-             use_gaussian: bool, tile_batch_size: int, device: torch.device) -> np.ndarray:
-    """Predict every tile, Gaussian-accumulate in place on `device`, normalize,
-    and return the un-padded (K, x, y, z) logits on the host."""
+             use_gaussian: bool, tile_batch_size: int, acc_device: torch.device) -> np.ndarray:
+    """Predict every tile in full batches (the last one padded with its last
+    tile), Gaussian-accumulate the real tiles in place on `acc_device`,
+    normalize, and return the un-padded (K, x, y, z) logits on the host."""
     origins = list(itertools.product(*compute_steps_for_sliding_window(spatial, tile_size,
                                                                        tile_step_size)))
     gauss = (compute_gaussian(tile_size, value_scaling_factor=1000.0) if use_gaussian
              else np.ones(tile_size, dtype=np.float32))
-    gauss = torch.tensor(gauss, device=device)
-    logits = torch.zeros((*spatial, num_output_channels), dtype=torch.float32, device=device)
-    weights = torch.zeros(tuple(spatial), dtype=torch.float32, device=device)
+    gauss = torch.tensor(gauss, device=acc_device)
+    logits = torch.zeros((*spatial, num_output_channels), dtype=torch.float32, device=acc_device)
+    weights = torch.zeros(tuple(spatial), dtype=torch.float32, device=acc_device)
     for start in range(0, len(origins), tile_batch_size):
         batch = origins[start:start + tile_batch_size]
-        preds = tile_fn(get_tiles(batch))  # (b, tx, ty, tz, K) fp32
+        n_valid = len(batch)
+        batch += [batch[-1]] * (tile_batch_size - n_valid)
+        preds = tile_fn(get_tiles(batch))[:n_valid].to(acc_device)  # (b, tx, ty, tz, K) fp32
         for pred, origin in zip(preds, batch):
             sl = _tile_slices(origin, tile_size)
             logits[sl].addcmul_(pred, gauss[..., None])
@@ -145,20 +167,40 @@ def sliding_window_predict_device_resident(
 def sliding_window_predict(
         data: np.ndarray, tile_fn: Callable, tile_size: Sequence[int],
         num_output_channels: int, tile_step_size: float = 0.5, use_gaussian: bool = True,
-        tile_batch_size: int = 4, device="cuda") -> np.ndarray:
+        tile_batch_size: int = 4, device="cuda", verbose: bool = False) -> np.ndarray:
     """Streaming sliding window: the volume stays on the host and each batch
-    of tiles is copied to the device; the accumulation runs on the device.
-    Same arguments and result as sliding_window_predict_device_resident."""
+    of tiles is copied to the device. The accumulation runs on the device,
+    or, where the device runs out of memory (is_oom_error), again from the
+    start in host memory. Same arguments and result as
+    sliding_window_predict_device_resident."""
     if data.ndim != 4:
         raise ValueError(f"expected (c, x, y, z) data, got shape {data.shape}")
     device = resolve_device(device)
     tile_size = tuple(int(t) for t in tile_size)
     data_padded, slicer_to_undo = pad_nd_image(data, tile_size)
+    spatial = data_padded.shape[1:]
+    if verbose:
+        n = math.prod(len(s) for s in compute_steps_for_sliding_window(spatial, tile_size,
+                                                                         tile_step_size))
+        print(f"sliding window: {n} tiles over {spatial}")
 
     def get_tiles(batch):
         tiles = np.stack([data_padded[(slice(None), *_tile_slices(o, tile_size))]
                           for o in batch])
         return torch.tensor(np.moveaxis(tiles, 1, -1), dtype=torch.float32, device=device)
 
-    return _predict(get_tiles, data_padded.shape[1:], slicer_to_undo, tile_fn, tile_size,
-                    num_output_channels, tile_step_size, use_gaussian, tile_batch_size, device)
+    def run(acc_device):
+        return _predict(get_tiles, spatial, slicer_to_undo, tile_fn, tile_size,
+                        num_output_channels, tile_step_size, use_gaussian, tile_batch_size,
+                        acc_device)
+
+    try:
+        return run(device)
+    except RuntimeError as e:
+        if not is_oom_error(e):
+            raise
+    # the failed attempt's tensors went with its traceback: free their memory
+    torch.cuda.empty_cache()
+    if verbose:
+        print("device accumulation out of memory; accumulating in host memory")
+    return run(torch.device("cpu"))

@@ -1,6 +1,6 @@
-"""Shared layers: 3D conv with torch k//2 padding, InstanceNorm with fp32
-statistics from the moments kernel, LeakyReLU, nearest upsampling.
-Counterpart of anatomask_tpu/models/layers.py.
+"""Shared layers: 3D conv with torch k//2 padding, InstanceNorm and BatchNorm
+with fp32 statistics from the moments kernel, the k = s transposed conv,
+LeakyReLU, nearest upsampling. Counterpart of anatomask_tpu/models/layers.py.
 
 Activations are NCDHW in `torch.channels_last_3d` memory (NDHWC underneath),
 so the 3x3x3 kernel gets a contiguous NDHWC view by a free permute.
@@ -126,16 +126,68 @@ class InstanceNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
+    def sums(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, float]:
+        """fp32 (sum x, sum x^2), each (B, C), and the voxels each sums over."""
+        s, ss = row_moments(x.permute(0, 2, 3, 4, 1), square_in_dtype=True)
+        return s, ss, float(math.prod(x.shape[2:]))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.contiguous(memory_format=CL3D)
-        s, ss = row_moments(x.permute(0, 2, 3, 4, 1), square_in_dtype=True)
-        cnt = float(math.prod(x.shape[2:]))
+        s, ss, cnt = self.sums(x)
         mean = s / cnt
         var = (ss / cnt - mean.square()).clamp_min(0.0)
         a = torch.rsqrt(var + self.eps) * self.weight.float()
         b = self.bias.float() - mean * a
         dt = self.dtype
         return x.to(dt) * a.to(dt)[:, :, None, None, None] + b.to(dt)[:, :, None, None, None]
+
+
+class BatchNorm(InstanceNorm):
+    """The JAX package's BatchNorm: training-mode statistics over the batch
+    and the voxels, whatever the batch (no running averages), eps 1e-5, as
+    InstanceNorm otherwise. The moments kernel sums each (sample, channel)
+    with x*x squared in x's dtype; the samples' sums are added in fp32."""
+
+    def sums(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, float]:
+        s, ss, cnt = super().sums(x)
+        return s.sum(0, keepdim=True), ss.sum(0, keepdim=True), cnt * x.shape[0]
+
+
+class SubpixelConvTranspose(nn.Module):
+    """Transposed conv with kernel == stride, the JAX package's
+    SubpixelConvTranspose (`ops/subpixel.py` `conv_transpose_k_eq_s`): each
+    output voxel depends on one input voxel, so it is one matmul of x by the
+    (C, s1*s2*s3*F) weight, a pixel shuffle, and the bias added in the
+    compute dtype. Library code: no TPU kernel is involved.
+
+    `weight` is (C, F, s1, s2, s3), torch ConvTranspose3d's layout, and
+    `bias` (F,); the kernel is applied mirrored, as the JAX one is
+    (out[s*m + r] = x[m] @ weight[:, :, s-1-r]), so that the JAX package's
+    torch adapters carry the weight across unchanged."""
+
+    def __init__(self, cin: int, cout: int, stride: Union[int, Sequence[int]],
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.stride, self.dtype = _triple(stride), dtype
+        self.weight = nn.Parameter(torch.empty(cin, cout, *self.stride))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        with torch.no_grad():  # He normal over the JAX kernel's fan-in, C * s1*s2*s3
+            std = math.sqrt(2.0 / (1.0 + 1e-4) / (cin * math.prod(self.stride)))
+            nn.init.normal_(self.weight, 0.0, std, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        B, C, D, H, W = x.shape
+        s1, s2, s3 = self.stride
+        F = self.weight.shape[1]
+        # (C, phase-major s1*s2*s3*F) of the mirrored kernel
+        w1 = self.weight.to(dt).flip(2, 3, 4).permute(0, 2, 3, 4, 1).reshape(C, -1)
+        xn = x.to(dt).contiguous(memory_format=CL3D).permute(0, 2, 3, 4, 1)
+        phases = (xn.reshape(-1, C) @ w1).view(B, D, H, W, s1, s2, s3, F)
+        y = torch.empty((B, D, s1, H, s2, W, s3, F), dtype=dt, device=x.device)
+        torch.add(phases.permute(0, 1, 4, 2, 5, 3, 6, 7), self.bias.to(dt), out=y)
+        return y.view(B, D * s1, H * s2, W * s3, F).permute(0, 4, 1, 2, 3)
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:

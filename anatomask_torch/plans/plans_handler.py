@@ -3,24 +3,21 @@ anatomask_tpu/plans/plans_handler.py (PlansManager, ConfigurationManager).
 
 Configuration inheritance via 'inherits_from' with cycle detection and the
 per-configuration hyperparameters, as there. Plans files written by nnU-Net
-v2 or the JAX package load unchanged. The accessors that hand out the
-preprocessor, the resampling functions and the image reader/writer raise
-until those modules are ported (ROADMAP.md).
+v2 or the JAX package load unchanged. The preprocessor, the resampling
+functions (bound to their plans kwargs) and the image reader/writer are
+looked up by name in the port's registries, at first use.
 """
 from __future__ import annotations
 
 import json
 from copy import deepcopy
+from functools import partial
 from typing import List, Optional, Union
 
 
 def load_json(path: str) -> dict:
     with open(path) as f:
         return json.load(f)
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported to anatomask_torch yet (ROADMAP.md)")
 
 
 def save_json(obj, path: str, sort_keys: bool = True):
@@ -48,7 +45,8 @@ class ConfigurationManager:
 
     @property
     def preprocessor_class(self):
-        _not_ported(f"the preprocessor {self.preprocessor_name!r}")
+        from anatomask_torch.preprocessing.preprocessor import get_preprocessor_class
+        return get_preprocessor_class(self.preprocessor_name)
 
     @property
     def batch_size(self) -> int:
@@ -118,7 +116,9 @@ class ConfigurationManager:
 
     # --- resampling -----------------------------------------------------------
     def _resampling_fn(self, which: str):
-        _not_ported(f"the resampling function {self.configuration[f'resampling_fn_{which}']!r}")
+        from anatomask_torch.preprocessing.resampling import get_resampling_fn
+        fn = get_resampling_fn(self.configuration[f"resampling_fn_{which}"])
+        return partial(fn, **self.configuration.get(f"resampling_fn_{which}_kwargs", {}))
 
     @property
     def resampling_fn_data(self):
@@ -213,7 +213,8 @@ class PlansManager:
 
     @property
     def image_reader_writer_class(self):
-        _not_ported(f"the image reader/writer {self.plans['image_reader_writer']!r}")
+        from anatomask_torch.imageio.registry import find_reader_writer_by_name
+        return find_reader_writer_by_name(self.plans["image_reader_writer"])
 
     @property
     def transpose_forward(self) -> List[int]:

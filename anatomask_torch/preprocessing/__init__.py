@@ -1,1 +1,2 @@
-"""Preprocessed-case files (counterpart of anatomask_tpu/preprocessing/)."""
+"""Raw-case preprocessing: cropping, normalization, resampling and the
+DefaultPreprocessor (counterpart of anatomask_tpu/preprocessing/)."""

@@ -1,8 +1,9 @@
 """Checkpoints. Counterpart of anatomask_tpu/training/checkpoint.py.
 
-- `load_checkpoint` reads the JAX package's files: one .npz holding the
-  flattened pytree ('a/b/c' keys, '#i' for list items) plus a JSON metadata
-  entry; numpy only, no pickle.
+- `load_checkpoint` reads the JAX package's files and `save_checkpoint`
+  writes them: one .npz holding the flattened pytree ('a/b/c' keys, '#i'
+  for list items, `flatten_tree`) plus a JSON metadata entry; numpy only,
+  no pickle. A trained-model folder for the Predictor is written with them.
 - `save_trainer_checkpoint` / `load_trainer_checkpoint` are the port's own
   format for the PretrainTrainer's state (student, teacher, optimizer,
   metadata with the epoch, the SparK and Pretrain configs), written with
@@ -12,12 +13,25 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 SEP = "/"
+
+
+def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flatten_tree(v, f"{prefix}{k}{SEP}"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flatten_tree(v, f"{prefix}#{i}{SEP}"))
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
 
 
 def unflatten_tree(flat: Dict[str, np.ndarray]):
@@ -37,6 +51,20 @@ def unflatten_tree(flat: Dict[str, np.ndarray]):
         return {k: fix_lists(v) for k, v in node.items()}
 
     return fix_lists(root)
+
+
+def save_checkpoint(path: str, arrays: dict, metadata: Optional[dict] = None,
+                    compress: bool = False):
+    """arrays: nested dicts/lists of arrays (e.g. {'network_weights':
+    params}); metadata: a JSON-serialisable dict. Written to a temporary file
+    and renamed; uncompressed unless compress=True. Loading accepts both."""
+    flat = flatten_tree(arrays)
+    meta = json.dumps(metadata or {})
+    tmp = path + ".tmp"
+    saver = np.savez_compressed if compress else np.savez
+    with open(tmp, "wb") as f:
+        saver(f, __metadata__=np.frombuffer(meta.encode(), dtype=np.uint8), **flat)
+    os.replace(tmp, path)
 
 
 def load_checkpoint(path: str) -> Tuple[dict, dict]:

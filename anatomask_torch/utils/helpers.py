@@ -1,10 +1,11 @@
-"""Dataset naming. The port's own copy of the part of
-anatomask_tpu/utils/helpers.py that the PretrainTrainer reads."""
+"""Dataset naming and case discovery. The port's own copy of the part of
+anatomask_tpu/utils/helpers.py that the PretrainTrainer, the preprocessor
+and the predictor read."""
 from __future__ import annotations
 
 import os
 import re
-from typing import Union
+from typing import List, Optional, Tuple, Union
 
 from anatomask_torch import paths
 
@@ -35,3 +36,35 @@ def maybe_convert_to_dataset_name(dataset_name_or_id: Union[int, str]) -> str:
     if len(candidates) > 1:
         raise RuntimeError(f"Multiple datasets with id {dataset_id}: {sorted(candidates)}")
     return candidates.pop()
+
+
+def get_case_identifiers_from_raw(raw_dataset_dir: str, dataset_json: dict) -> List[str]:
+    """Case identifiers from imagesTr file names (strip _XXXX channel + ending)."""
+    ending = dataset_json["file_ending"]
+    images_dir = os.path.join(raw_dataset_dir, "imagesTr")
+    idents = set()
+    for f in sorted(os.listdir(images_dir)):
+        if f.endswith(ending):
+            stem = f[: -len(ending)]
+            idents.add(stem.rsplit("_", 1)[0])
+    return sorted(idents)
+
+
+def get_filenames_of_case(raw_dataset_dir: str, identifier: str, dataset_json: dict,
+                          images_dir: str = "imagesTr", labels_dir: str = "labelsTr"
+                          ) -> Tuple[List[str], Optional[str]]:
+    ending = dataset_json["file_ending"]
+    n_channels = len(dataset_json.get("channel_names", dataset_json.get("modality", {"0": "?"})))
+    images = [
+        os.path.join(raw_dataset_dir, images_dir, f"{identifier}_{c:04d}{ending}")
+        for c in range(n_channels)
+    ]
+    seg = os.path.join(raw_dataset_dir, labels_dir, f"{identifier}{ending}")
+    if not os.path.isfile(seg):
+        seg = None
+    return images, seg
+
+
+def get_identifiers_from_split_files(folder: str) -> List[str]:
+    """Case identifiers from a preprocessed data folder (.npz files)."""
+    return sorted({f[:-4] for f in os.listdir(folder) if f.endswith(".npz")})

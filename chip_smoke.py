@@ -13,7 +13,7 @@ Phases, each of which raises on a failed check:
    report, and check with cuobjdump's SASS that every hopper instantiation
    of both conv libraries holds HGMMA (wgmma) instructions;
 3. conv kernel (TPU kernel #1): at every call site of the stride-1 3x3x3
-   conv on both main paths (the paths run it for the forwards below
+   conv on the main paths (the paths run it for the forwards below
    MIN_VOLUME output voxels and for every dx; the table checks all), the
    kernel against its plain PyTorch version on the card. For the
    pretraining step: forward and dx (bf16 at B = 1 through the autograd
@@ -53,9 +53,9 @@ Phases, each of which raises on a failed check:
    max|kernel #2 - kernel #1| / max|kernel #1| in bf16. The probe's timed
    calls are this kernel's path: its count is set to 0 just before them,
    and every one of its launches must run the hopper variant;
-6. references: a tiny SparK and a tiny STUNet (through both sliding-window
-   paths) in fp32 on the card against the same models on the CPU, rel.
-   error <= 1e-4;
+6. references: a tiny SparK, and a tiny STUNet, PlainConvUNet (instance and
+   batch norm) and ResidualEncoderUNet through both sliding-window paths, in
+   fp32 on the card against the same models on the CPU, rel. error <= 1e-4;
 7. pretraining step: the AnatoMask pretraining step at full STUNet-B width (patch
    112x112x128, batch 4, mask ratio 0.6, bf16, decoder width 512) for 5
    steps, checking finite losses, the hard masks, the launches by kernel and
@@ -82,13 +82,32 @@ Phases, each of which raises on a failed check:
    files, the resumed epochs,
    that at least one slot was refilled and that every slot then holds its
    case bit for bit, and printing seconds an epoch, fetch-wait, validation and
-   checkpoint seconds, patches/s and the step time beside the bare step's.
+   checkpoint seconds, patches/s and the step time beside the bare step's;
+10. prediction from raw files (Predictor.predict_from_files): a trained-model
+   folder written with the port's own code in the JAX package's layout
+   (plans.json of nnU-Net's 3d_fullres PlainConvUNet as the JAX planner
+   writes it: 4 channels, 4 labels, masked z-score, 1 mm, patch 128^3, 6
+   stages of 32-320 features, 2 convs a stage; dataset.json; a seeded
+   fold_0/checkpoint_final.npz) and three BraTS-sized raw cases (4 x
+   240x240x155 int16 .nii.gz, nonzero inside an ellipsoid; two at 1 mm, one
+   at 1 x 1 x 1.5 mm), predicted with 2 spawned preprocessing workers, bf16,
+   8-flip TTA, tile batch 1, the first case a warm-up; checking each
+   output's shape, spacing, affine and labels, the launches by kernel and
+   variant (a tile: 7 kernel #1, 10 kernel #2 of which the C = 4 stem simple,
+   22 moments), and predict_single_npy_array against the resampled case's
+   file; printing seconds a case split into fetch-wait, sliding window and
+   export, tiles a case, peak memory, and that case's host split in-process;
+11. the out-of-memory ladder: one volume at tile batch 2 under a
+   torch.cuda.set_per_process_memory_fraction cap between the uncapped tile
+   batch 1 and 2 peaks: the device-resident path must run out at 2, finish
+   at 1, and match the uncapped tile batch 1 logits within 1e-3 relative.
 
 A kernel's time is the median of three runs of back-to-back calls, each
-run timed with CUDA events, after a warm-up call. Each main path (7, 8, 9)
-runs with the launch counts set to 0 just before it and read just after, and
-every launch it makes must be at a shape that phases 3 and 4 held against
-the plain version (kernel #2's: its path shapes in phase 3). The last three
+run timed with CUDA events, after a warm-up call. Each main path (7, 8, 9,
+10) runs with the launch counts set to 0 just before it and read just after,
+and every launch it makes must be at a shape that phases 3 and 4 held
+against the plain version (kernel #2's: its path shapes in phase 3); phase
+11 runs after that check, as its tile batch 2 launches at B = 16. The last three
 lines of standard output are the nvidia-smi line, one JSON object {"kernels": [...]}, and
 {"ok": true, "device": {...}}.
 """
@@ -110,13 +129,19 @@ import numpy as np
 import torch
 import torch.nn.functional as fn
 
+from anatomask_torch.convert import plain_unet_state_dict_from_jax
+from anatomask_torch.imageio.nifti import NiftiIO, read_nifti, write_nifti
+from anatomask_torch.inference import predictor as pred_mod
+from anatomask_torch.inference.export import (
+    convert_predicted_logits_to_segmentation_with_correct_shape)
 from anatomask_torch.inference.predictor import Predictor
 from anatomask_torch.inference.sliding_window import (compute_steps_for_sliding_window,
-                                                      make_tile_predictor,
+                                                      is_oom_error, make_tile_predictor,
                                                       sliding_window_predict,
                                                       sliding_window_predict_device_resident)
 from anatomask_torch.models.build import build_network_from_plans
 from anatomask_torch.models.layers import MIN_VOLUME
+from anatomask_torch.models.plain_unet import PlainConvUNet, ResidualEncoderUNet
 from anatomask_torch.models.stunet import STUNet
 from anatomask_torch.ops import _build
 from anatomask_torch.ops import conv3x3 as conv_mod
@@ -134,6 +159,7 @@ from anatomask_torch.ssl.pretrain import (PretrainConfig, PretrainTrainer, anato
                                           build_spark_model, make_optimizer, make_teacher)
 from anatomask_torch.ssl.sparse import mask_to_resolution
 from anatomask_torch.ssl.spark import random_keep_mask
+from anatomask_torch.training.checkpoint import save_checkpoint
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12   # H100 SXM fp32 rate outside the tensor cores
@@ -182,6 +208,20 @@ INFER_SITES = [
     ("dec4.conv1", 64, 32, (128, 128, 128)),
     ("dec4.conv2", 32, 32, (128, 128, 128)),
 ]
+# nnU-Net's 3d_fullres PlainConvUNet as the JAX planner writes it (base 32
+# features, at most 320, 6 stages, 2 convs a stage in the encoder and the
+# decoder) for a BraTS-sized input: 4 channels, 4 labels, patch 128^3
+PLAIN_FEATURES, PLAIN_RES = (32, 64, 128, 256, 320, 320), (128, 64, 32, 16, 8, 4)
+PLAIN_IN, PLAIN_CLASSES = 4, 4
+# the stride-1 3x3x3 convs of one tile forward of it: the C = 4 stem and each
+# encoder stage's second conv (its first has stride 2 from stage 1 on), and
+# both convs of each decoder stage (conv0 reads the concat of the transposed
+# conv's output and the skip)
+PLAIN_INFER_SITES = (
+    [("enc0.conv0", PLAIN_IN, PLAIN_FEATURES[0], (PLAIN_RES[0],) * 3)]
+    + [(f"enc{s}.conv1", f, f, (r,) * 3) for s, (f, r) in enumerate(zip(PLAIN_FEATURES, PLAIN_RES))]
+    + [(f"dec{d}.conv{i}", 2 * f if i == 0 else f, f, (r,) * 3)
+       for d, (f, r) in enumerate(zip(PLAIN_FEATURES[-2::-1], PLAIN_RES[-2::-1])) for i in (0, 1)])
 # (call site, (X, Y, Z), C, masked) of every instance norm in one forward of
 # the pretraining step: 10 masked in the encoder, 4 masked densify norms (the
 # finest feature's is never read), 8 plain in the LightDecoder
@@ -205,6 +245,13 @@ INFER_NORMS = [(f"{part}{d}.norm{i}", (r, r, r), c, False)
                                     ("dec", [(8, 512), (16, 256), (32, 128), (64, 64),
                                              (128, 32)]))
                for d, (r, c) in enumerate(levels) for i in (1, 2)]
+# the same for the PlainConvUNet tile: one after every conv, 12 in the encoder
+# and 10 in the decoder
+PLAIN_INFER_NORMS = (
+    [(f"enc{s}.norm{i}", (r,) * 3, f, False)
+     for s, (f, r) in enumerate(zip(PLAIN_FEATURES, PLAIN_RES)) for i in (0, 1)]
+    + [(f"dec{d}.norm{i}", (r,) * 3, f, False)
+       for d, (f, r) in enumerate(zip(PLAIN_FEATURES[-2::-1], PLAIN_RES[-2::-1])) for i in (0, 1)])
 # probes/probe_pallas_v4.py's shapes for TPU kernel #2 (B = 4, bf16, C = F)
 PROBE_SHAPES = (("dec3", 64, (112, 112, 128)), ("enc0", 32, (112, 112, 128)))
 # bf16 (C, F, (X, Y, Z)) off the paths at the hopper variant's edges, each with
@@ -224,6 +271,13 @@ FMAP, LEN_KEEP = (7, 7, 8), 157  # the step's patch grid and visible patches
 # bench_inference.py's configuration
 VOLUME, NUM_CLASSES, PATCH = (240, 240, 155), 3, (128, 128, 128)
 TILES, VOLUMES = 18, 3
+# the file path: BraTS-sized raw cases, disk (x, y, z), and their spacings in
+# mm; the first a warm-up, the last at 1.5 mm along z so that its data and its
+# logits are resampled; the nonzero ellipsoid's semi-axes in mm
+FILES_DATASET, RAW_SHAPE = "Dataset137_BraTSLike", (240, 240, 155)
+RAW_CASES = (("BraTS_000", (1.0, 1.0, 1.0)), ("BraTS_001", (1.0, 1.0, 1.0)),
+             ("BraTS_002", (1.0, 1.0, 1.5)))
+BRAIN_MM = (80.0, 95.0, 70.0)
 
 
 def check(cond, msg):
@@ -328,6 +382,7 @@ def path_launches(sites, norms, forwards, backward):
 STEP_LAUNCHES = path_launches(SITES, PRETRAIN_NORMS, 2, True)
 VAL_LAUNCHES = path_launches(SITES, PRETRAIN_NORMS, 1, False)
 TILE_LAUNCHES = path_launches(INFER_SITES, INFER_NORMS, 1, False)
+PLAIN_TILE_LAUNCHES = path_launches(PLAIN_INFER_SITES, PLAIN_INFER_NORMS, 1, False)
 
 
 def kernel_launches(c, kernel):
@@ -428,8 +483,10 @@ def print_timed(label, batch, timed):
 
 
 def conv_phase(gen):
-    """Returns max abs err, max rel err, totals for one pretraining step and
-    totals for one inference volume, and the launch shapes it checked."""
+    """Returns max abs err, max rel err, totals for one pretraining step, for
+    one inference volume and for one PlainConvUNet tile, the launch shapes it
+    checked, and the timings by shape at the step's and at inference's
+    batch."""
     max_abs, max_rel = 0.0, 0.0
     shapes = {}
     for name, C, F, vol in SITES:
@@ -459,7 +516,7 @@ def conv_phase(gen):
               f"({variant})")
     torch.cuda.empty_cache()
     infer = {}
-    for _, C, F, vol in INFER_SITES:
+    for _, C, F, vol in INFER_SITES + PLAIN_INFER_SITES:
         if (C, F, vol) not in infer:
             infer[(C, F, vol)], (a, r), variant = time_site(C, F, vol, gen, TTA_BATCH)
             max_abs, max_rel = max(max_abs, a), max(max_rel, r)
@@ -474,15 +531,16 @@ def conv_phase(gen):
         for key, n in (((C, F, vol), 0 if per_tap(vol) else 2),
                        ((F, C, vol), 0 if name == "enc0.conv1" else 1)):
             add_totals(step, n, *timed[key], *bound_ms(*key))
-    volume = dict.fromkeys(TOTAL_KEYS, 0.0)
-    for _, C, F, vol in INFER_SITES:  # per volume: one forward a tile
-        if not per_tap(vol):
-            add_totals(volume, TILES, *infer[(C, F, vol)], *bound_ms(C, F, vol, TTA_BATCH))
+    volume, plain_tile = dict.fromkeys(TOTAL_KEYS, 0.0), dict.fromkeys(TOTAL_KEYS, 0.0)
+    for sites, totals, n in ((INFER_SITES, volume, TILES), (PLAIN_INFER_SITES, plain_tile, 1)):
+        for _, C, F, vol in sites:  # one forward a tile
+            if not per_tap(vol):
+                add_totals(totals, n, *infer[(C, F, vol)], *bound_ms(C, F, vol, TTA_BATCH))
     print_timed("step", BATCH, timed)
     print_timed("inference", TTA_BATCH, infer)
     checked = ({(BATCH, *vol, C, F) for C, F, vol in timed}
                | {(TTA_BATCH, *vol, C, F) for C, F, vol in infer})
-    return max_abs, max_rel, step, volume, checked, timed, infer
+    return max_abs, max_rel, step, volume, plain_tile, checked, timed, infer
 
 
 def zslab_errs(x, w, g):
@@ -651,9 +709,11 @@ def moments_phase(gen):
     (torch.profiler), with and without the flag, beside the bound, the plain
     version's time and torch.var_mean's. Returns max abs err, max rel err,
     totals for one pretraining step and for one inference volume (the flag
-    set), their device-time totals, and the launch shapes it checked."""
+    set) and for one PlainConvUNet tile, their device-time totals, and the
+    launch shapes it checked."""
     shapes = {}
-    for batch, norms in ((BATCH, PRETRAIN_NORMS), (TTA_BATCH, INFER_NORMS)):
+    for batch, norms in ((BATCH, PRETRAIN_NORMS), (TTA_BATCH, INFER_NORMS),
+                         (TTA_BATCH, PLAIN_INFER_NORMS)):
         for name, vol, C, masked in norms:
             shapes.setdefault((batch, vol, C, masked), []).append(name)
     max_abs, max_rel, timed, calls = 0.0, 0.0, {}, {}
@@ -721,6 +781,7 @@ def moments_phase(gen):
 
     step, step_dev = totals(BATCH, PRETRAIN_NORMS, 2)  # teacher and student forwards
     volume, volume_dev = totals(TTA_BATCH, INFER_NORMS, TILES)  # one forward a tile
+    plain_tile, plain_tile_dev = totals(TTA_BATCH, PLAIN_INFER_NORMS, 1)
     for key, (ms, plain, lib, visible) in timed.items():
         batch, vol, C, masked = key
         flop_ms, byte_ms = moments_bound_ms(*key, visible)
@@ -740,9 +801,13 @@ def moments_phase(gen):
           f"{step['bound_ms']:.3f} ms, var_mean {step['library_ms']:.3f} ms; volume "
           f"({len(INFER_NORMS) * TILES} calls): call {volume['ms']:.3f} ms, device "
           f"{'not measured' if volume_dev is None else f'{volume_dev:.3f} ms'}, bound "
-          f"{volume['bound_ms']:.3f} ms, var_mean {volume['library_ms']:.3f} ms")
+          f"{volume['bound_ms']:.3f} ms, var_mean {volume['library_ms']:.3f} ms; PlainConvUNet "
+          f"tile ({len(PLAIN_INFER_NORMS)} calls): call {plain_tile['ms']:.3f} ms, device "
+          f"{'not measured' if plain_tile_dev is None else f'{plain_tile_dev:.3f} ms'}, bound "
+          f"{plain_tile['bound_ms']:.3f} ms, var_mean {plain_tile['library_ms']:.3f} ms")
     checked = {(b, *vol, C, masked, sq) for b, vol, C, masked in timed for sq in (False, True)}
-    return max_abs, max_rel, (step, step_dev), (volume, volume_dev), checked
+    return (max_abs, max_rel, (step, step_dev), (volume, volume_dev),
+            (plain_tile, plain_tile_dev), checked)
 
 
 def zconcat_phase(gen, k1_step, k1_infer):
@@ -754,10 +819,11 @@ def zconcat_phase(gen, k1_step, k1_infer):
     forward (one rounding) must match on at least 10 points fewer. Then the
     forward's time beside kernel #1's at the same shape (conv phase), the
     bound, the plain version's and F.conv3d's. Returns max abs err, max rel
-    err, the totals of one step and one volume (kernel #2's forwards) and the
-    launch shapes it checked."""
+    err, the totals of one step, one volume and one PlainConvUNet tile
+    (kernel #2's forwards) and the launch shapes it checked."""
     max_abs, max_rel, timed = 0.0, 0.0, {}
-    for batch, sites, k1 in ((BATCH, SITES, k1_step), (TTA_BATCH, INFER_SITES, k1_infer)):
+    for batch, sites, k1 in ((BATCH, SITES, k1_step),
+                             (TTA_BATCH, INFER_SITES + PLAIN_INFER_SITES, k1_infer)):
         for C, F, vol in sorted({(C, F, vol) for _, C, F, vol in sites if per_tap(vol)}):
             x, w = conv_inputs(C, F, vol, batch, torch.bfloat16, gen)
             y_k, y_p = conv3d_zslab_forward(x, w), conv3d_zslab_plain(x, w)
@@ -796,17 +862,20 @@ def zconcat_phase(gen, k1_step, k1_infer):
                   f"{plain:.3f} ms, F.conv3d {lib:.3f} ms")
             del x, w, xc, wc
             torch.cuda.empty_cache()
-    step, volume = dict.fromkeys(TOTAL_KEYS, 0.0), dict.fromkeys(TOTAL_KEYS, 0.0)
+    step, volume, plain_tile = (dict.fromkeys(TOTAL_KEYS, 0.0) for _ in range(3))
     for batch, sites, totals, n in ((BATCH, SITES, step, 2),
-                                    (TTA_BATCH, INFER_SITES, volume, TILES)):
+                                    (TTA_BATCH, INFER_SITES, volume, TILES),
+                                    (TTA_BATCH, PLAIN_INFER_SITES, plain_tile, 1)):
         for _, C, F, vol in sites:
             if per_tap(vol):
                 add_totals(totals, n, *timed[(batch, C, F, vol)], *bound_ms(C, F, vol, batch))
     print(f"[zslab] path: step {step['ms']:.3f} ms (bound {step['bound_ms']:.3f}, F.conv3d "
           f"{step['library_ms']:.3f}), volume {volume['ms']:.3f} ms (bound "
-          f"{volume['bound_ms']:.3f}, F.conv3d {volume['library_ms']:.3f})")
+          f"{volume['bound_ms']:.3f}, F.conv3d {volume['library_ms']:.3f}), PlainConvUNet "
+          f"tile {plain_tile['ms']:.3f} ms (bound {plain_tile['bound_ms']:.3f}, F.conv3d "
+          f"{plain_tile['library_ms']:.3f})")
     checked = {(b, *vol, C, F) for b, C, F, vol in timed}
-    return max_abs, max_rel, step, volume, checked
+    return max_abs, max_rel, step, volume, plain_tile, checked
 
 
 class LaunchShapes:
@@ -913,13 +982,25 @@ def slice_phase():
 
 
 def inference_reference_phase():
-    """A tiny STUNet in fp32 through both sliding-window paths (mirror TTA,
-    8 tiles): the card (kernels) against the CPU (plain)."""
+    """A tiny STUNet, PlainConvUNet (instance and batch norm) and
+    ResidualEncoderUNet in fp32 through both sliding-window paths (mirror
+    TTA, 8 tiles in batches of 3, the last padded): the card (kernels)
+    against the CPU (plain)."""
     # pools chosen so that the bottom level keeps 4x4x8 voxels of a 32^3 tile
     pools = [(2, 2, 2), (2, 2, 2), (2, 2, 1), (1, 1, 1), (1, 1, 1)]
-    cpu = STUNet(1, 3, dims=(4, 8, 16, 16, 32, 32), pool_op_kernel_sizes=pools,
-                 deep_supervision=False, generator=torch.Generator().manual_seed(7)).eval()
-    gpu = copy.deepcopy(cpu).to("cuda")
+    unet = dict(input_channels=1, num_classes=3, n_stages=4, features_per_stage=(4, 8, 16, 32),
+                kernel_sizes=[(3, 3, 3)] * 4, strides=[(1, 1, 1)] + pools[:3],
+                n_conv_per_stage_decoder=(2, 1, 2), deep_supervision=False)
+    nets = {
+        "STUNet": lambda g: STUNet(1, 3, dims=(4, 8, 16, 16, 32, 32), pool_op_kernel_sizes=pools,
+                                   deep_supervision=False, generator=g),
+        "PlainConvUNet": lambda g: PlainConvUNet(n_conv_per_stage=(2, 1, 2, 2), generator=g,
+                                                 **unet),
+        "PlainConvUNet, BatchNorm": lambda g: PlainConvUNet(n_conv_per_stage=(2, 1, 2, 2),
+                                                            norm="batch", generator=g, **unet),
+        "ResidualEncoderUNet": lambda g: ResidualEncoderUNet(n_blocks_per_stage=(1, 2, 1, 1),
+                                                             generator=g, **unet),
+    }
     data = np.random.RandomState(8).rand(1, 45, 40, 33).astype(np.float32)
 
     def tile_fn(net):
@@ -927,15 +1008,20 @@ def inference_reference_phase():
             lambda x: net(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1), (0, 1, 2))
 
     kw = dict(tile_size=(32, 32, 32), num_output_channels=3, tile_batch_size=3)
-    ref = sliding_window_predict_device_resident(data, tile_fn(cpu), device="cpu", **kw)
-    errs = [float(np.abs(got - ref).max() / np.abs(ref).max())
-            for got in (sliding_window_predict_device_resident(data, tile_fn(gpu), **kw),
-                        sliding_window_predict(data, tile_fn(gpu), **kw))]
-    check(all(math.isfinite(e) and e <= 1e-4 for e in errs),
-          f"tiny STUNet card vs CPU rel errs {errs}")
-    print(f"[inference] tiny STUNet fp32, card vs CPU: rel err device-resident "
-          f"{errs[0]:.3e}, streaming {errs[1]:.3e}")
-    return max(errs)
+    worst = 0.0
+    for name, make in nets.items():
+        cpu = make(torch.Generator().manual_seed(7)).eval()
+        gpu = copy.deepcopy(cpu).to("cuda")
+        ref = sliding_window_predict_device_resident(data, tile_fn(cpu), device="cpu", **kw)
+        errs = [float(np.abs(got - ref).max() / np.abs(ref).max())
+                for got in (sliding_window_predict_device_resident(data, tile_fn(gpu), **kw),
+                            sliding_window_predict(data, tile_fn(gpu), **kw))]
+        check(all(math.isfinite(e) and e <= 1e-4 for e in errs),
+              f"tiny {name} card vs CPU rel errs {errs}")
+        print(f"[inference] tiny {name} fp32, card vs CPU: rel err device-resident "
+              f"{errs[0]:.3e}, streaming {errs[1]:.3e}")
+        worst = max(worst, *errs)
+    return worst
 
 
 def inference_phase():
@@ -1118,6 +1204,281 @@ def trainer_phase(bare_step_ms):
     return {k: launches[k] + launches2[k] + launches3[k] for k in COUNT_KEYS}
 
 
+def plain_unet_plans():
+    """nnU-Net's 3d_fullres PlainConvUNet plans as the JAX planner writes them
+    (`planning/planner.py`: base 32 features, at most 320, 2 convs a stage,
+    the planner's resampling functions and kwargs) for BraTS: 4 MR channels
+    z-scored inside the nonzero mask, 1 mm spacing, patch 128^3, 6 stages."""
+    kw_data = {"is_seg": False, "order": 3, "order_z": 0, "force_separate_z": None}
+    kw_seg = {"is_seg": True, "order": 1, "order_z": 0, "force_separate_z": None}
+    fg = {"mean": 400.0, "std": 100.0, "percentile_00_5": 150.0, "percentile_99_5": 700.0}
+    return {
+        "dataset_name": FILES_DATASET, "plans_name": "ATKPlans",
+        "original_median_spacing_after_transp": [1.0, 1.0, 1.0],
+        "original_median_shape_after_transp": [140, 190, 160],
+        "image_reader_writer": "NiftiIO", "transpose_forward": [0, 1, 2],
+        "transpose_backward": [0, 1, 2], "experiment_planner_used": "ExperimentPlanner",
+        "label_manager": "LabelManager",
+        "foreground_intensity_properties_per_channel": {str(c): fg for c in range(PLAIN_IN)},
+        "configurations": {"3d_fullres": {
+            "data_identifier": "ATKPlans_3d_fullres", "preprocessor_name": "DefaultPreprocessor",
+            "batch_size": 2, "patch_size": list(PATCH), "median_image_size_in_voxels": [140, 190, 160],
+            "spacing": [1.0, 1.0, 1.0], "normalization_schemes": ["ZScoreNormalization"] * PLAIN_IN,
+            "use_mask_for_norm": [True] * PLAIN_IN, "UNet_class_name": "PlainConvUNet",
+            "UNet_base_num_features": 32, "unet_max_num_features": 320,
+            "n_conv_per_stage_encoder": [2] * 6, "n_conv_per_stage_decoder": [2] * 5,
+            "num_pool_per_axis": [5, 5, 5],
+            "pool_op_kernel_sizes": [[1, 1, 1]] + [[2, 2, 2]] * 5,
+            "conv_kernel_sizes": [[3, 3, 3]] * 6,
+            "resampling_fn_data": "resample_data_or_seg_to_shape",
+            "resampling_fn_seg": "resample_data_or_seg_to_shape",
+            "resampling_fn_probabilities": "resample_data_or_seg_to_shape",
+            "resampling_fn_data_kwargs": kw_data, "resampling_fn_seg_kwargs": kw_seg,
+            "resampling_fn_probabilities_kwargs": dict(kw_data, order=1), "batch_dice": True}}}
+
+
+def jax_layout(state_dict):
+    """A PlainConvUNet state_dict in the JAX package's parameter layout (the
+    inverse of convert.plain_unet_state_dict_from_jax): conv OIDHW -> DHWIO,
+    the transposed conv (I, O, s, s, s) -> (s, s, s, I, O), norms scale/bias."""
+    tree = {}
+
+    def put(path, value):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+
+    for key, value in state_dict.items():
+        a = value.detach().cpu().numpy()
+        *parts, leaf = key.split(".")
+        name = "kernel" if leaf == "weight" else "bias"
+        if parts[1] == "stages":  # {encoder,decoder}.stages.{s}.convs.{i}.{conv,norm}
+            base = [f"{parts[0]}_stage_{parts[2]}", f"conv{parts[4]}"]
+            if parts[5] == "conv":
+                put(base + ["conv", "conv", name], a.transpose(2, 3, 4, 1, 0) if leaf == "weight"
+                    else a)
+            else:
+                put(base + ["norm", "scale" if leaf == "weight" else "bias"], a)
+        elif parts[1] == "transpconvs":
+            put([f"decoder_transp_{parts[2]}", name],
+                a.transpose(2, 3, 4, 0, 1) if leaf == "weight" else a)
+        else:  # decoder.seg_layers.{d}
+            put([f"seg_output_{parts[2]}", "conv", name],
+                a.transpose(2, 3, 4, 1, 0) if leaf == "weight" else a)
+    return tree
+
+
+def write_model_folder(folder):
+    """A trained-model folder in the JAX package's layout, written with the
+    port's own code: plans.json, dataset.json and fold_0/checkpoint_final.npz
+    with a PlainConvUNet's weights from seed 0."""
+    os.makedirs(os.path.join(folder, "fold_0"))
+    plans = plain_unet_plans()
+    dataset_json = {"channel_names": {"0": "T1", "1": "T1ce", "2": "T2", "3": "FLAIR"},
+                    "labels": {"background": 0, "NCR": 1, "ED": 2, "ET": 3},
+                    "numTraining": 0, "file_ending": ".nii.gz"}
+    save_json(plans, os.path.join(folder, "plans.json"))
+    save_json(dataset_json, os.path.join(folder, "dataset.json"))
+    pm = PlansManager(plans)
+    net = build_network_from_plans(pm, pm.get_configuration("3d_fullres"), PLAIN_IN,
+                                   PLAIN_CLASSES, deep_supervision=False, device="cpu",
+                                   generator=torch.Generator().manual_seed(0))
+    tree = jax_layout(net.state_dict())
+    back = plain_unet_state_dict_from_jax(tree)
+    check(back.keys() == net.state_dict().keys()
+          and all(torch.equal(back[k], v) for k, v in net.state_dict().items()),
+          "the JAX-layout weights do not convert back to the network's")
+    save_checkpoint(os.path.join(folder, "fold_0", "checkpoint_final.npz"),
+                    {"network_weights": tree},
+                    {"configuration_name": "3d_fullres", "network_arch_name": "PlainConvUNet",
+                     "inference_allowed_mirroring_axes": [0, 1, 2]})
+    return sum(v.numel() for v in back.values())
+
+
+def write_raw_cases(folder):
+    """RAW_CASES as BraTS-sized raw cases: 4 int16 channel files of
+    240x240x155 each, a bright ellipsoid of BRAIN_MM semi-axes (a smooth
+    ramp plus noise, other on each channel) in zeros, so that crop_to_nonzero
+    acts."""
+    os.makedirs(folder)
+    rs = np.random.default_rng(1)
+    jobs = []
+    for i, (case, spacing) in enumerate(RAW_CASES):
+        centre = [n / 2 + 4 * (i - 1) for n in RAW_SHAPE]
+        axes = np.ogrid[tuple(slice(0, n) for n in RAW_SHAPE)]
+        inside = sum(((a - c) * sp / r) ** 2 for a, c, sp, r in
+                     zip(axes, centre, spacing, BRAIN_MM)) <= 1.0
+        ramp = (axes[0] + axes[1] + axes[2]).astype(np.int16)
+        for c in range(PLAIN_IN):
+            vol = 250 + 50 * c + ramp + rs.integers(0, 64, RAW_SHAPE, dtype=np.int16)
+            jobs.append((os.path.join(folder, f"{case}_{c:04d}.nii.gz"),
+                         np.where(inside, vol, 0).astype(np.int16), spacing))
+    with ThreadPoolExecutor(8) as pool:  # gzip releases the GIL
+        list(pool.map(lambda j: write_nifti(j[0], j[1], spacing_xyz=j[2]), jobs))
+
+
+def tiles_of(shape):
+    """Sliding-window tiles of a preprocessed (c, x, y, z) volume."""
+    padded = [max(int(n), t) for n, t in zip(shape[1:], PATCH)]
+    return math.prod(len(s) for s in compute_steps_for_sliding_window(padded, PATCH, 0.5))
+
+
+def files_phase(root):
+    """Prediction from raw files at full PlainConvUNet width: the folder and
+    the cases written, initialize_from_trained_model_folder, then
+    predict_from_files with 2 spawned preprocessing workers, bf16, 8-flip
+    TTA, tile batch 1 (the first case a warm-up). Checks every output's shape,
+    geometry and labels, the launches by kernel and variant against the site
+    tables (a tile: 7 kernel #1, 10 kernel #2 of which the C = 4 stem simple,
+    22 moments), and predict_single_npy_array on the resampled case against
+    its file; times the host split in-process of a 1 mm case and of the
+    resampled one. Returns the
+    launches, the predictor, the resampled case's preprocessed volume and
+    the tiles a case."""
+    model, raw, out = (os.path.join(root, d) for d in ("model", "raw", "out"))
+    t0 = time.perf_counter()
+    n_params = write_model_folder(model)
+    write_raw_cases(raw)
+    print(f"[files] wrote the model folder ({n_params} parameters) and {len(RAW_CASES)} raw "
+          f"cases of {PLAIN_IN} x {RAW_SHAPE} int16 .nii.gz in {time.perf_counter() - t0:.1f} s")
+    predictor = Predictor(tile_step_size=0.5, use_mirroring=True, tile_batch_size=1,
+                          dtype=torch.bfloat16, device="cuda")
+    predictor.initialize_from_trained_model_folder(model)
+    check(type(predictor.network).__name__ == "PlainConvUNet",
+          f"built {type(predictor.network).__name__}")
+    per_case = []
+    predict = predictor.predict_sliding_window_return_logits
+
+    def recording(data):  # the preprocessed shape, tiles and launches of each case
+        before = counts()
+        logits = predict(data)
+        per_case.append((data.shape, tiles_of(data.shape), since(before)))
+        return logits
+
+    predictor.predict_sliding_window_return_logits = recording
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # counts from here on belong to the file path
+    zero_counts()
+    t0 = time.perf_counter()
+    written = predictor.predict_from_files(raw, out, num_processes_preprocessing=2,
+                                           num_processes_segmentation_export=2)
+    wall = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    del predictor.predict_sliding_window_return_logits
+    check(written == [os.path.join(out, case) for case, _ in RAW_CASES], f"wrote {written}")
+    want = dict.fromkeys(COUNT_KEYS, 0)
+    for (case, spacing), (shape, tiles, n), timing in zip(RAW_CASES, per_case,
+                                                          predictor.case_timings):
+        want_case = {k: tiles * v for k, v in PLAIN_TILE_LAUNCHES.items()}
+        check(n == want_case, f"{case}: launches {n}, expected {want_case}")
+        want = {k: want[k] + want_case[k] for k in COUNT_KEYS}
+        seg, hdr = read_nifti(os.path.join(out, case + ".nii.gz"))
+        _, raw_hdr = read_nifti(os.path.join(raw, f"{case}_0000.nii.gz"))
+        labels = np.unique(seg)
+        check(seg.shape == RAW_SHAPE, f"{case}: segmentation {seg.shape}")
+        check(np.allclose(hdr["pixdim"][1:4], spacing)
+              and np.array_equal(hdr["affine"], raw_hdr["affine"]),
+              f"{case}: spacing {hdr['pixdim'][1:4]}, affine {hdr['affine']}")
+        check(set(labels.tolist()) <= set(range(PLAIN_CLASSES)), f"{case}: labels {labels}")
+        print(f"[files] {case} at {spacing} mm: preprocessed {tuple(shape)}, {tiles} tiles, "
+              f"fetch-wait {timing['fetch_wait']:.3f} s, sliding window "
+              f"{timing['sliding_window']:.3f} s, export {timing['export']:.3f} s; labels "
+              f"{dict(zip(*np.unique(seg, return_counts=True)))}; launches {n}")
+    check(launches == want, f"file path launches {launches}, expected {want}")
+    steady = predictor.case_timings[1:]
+    case_s = statistics.median(t["fetch_wait"] + t["sliding_window"] for t in steady)
+    tiles = statistics.median(t for _, t, _ in per_case)
+    print(f"[files] {len(RAW_CASES)} cases in {wall:.3f} s; {case_s:.3f} s a case on the main "
+          f"thread (median of {len(steady)} after the warm-up: fetch-wait + sliding window; "
+          f"export runs in its threads), {tiles} tiles a case; peak memory "
+          f"{peak / 2**30:.2f} GiB ({peak} bytes); launches {launches}")
+
+    # the host split in-process, one case at 1 mm and the resampled one: read,
+    # preprocess, sliding window, logits to segmentation, write
+    cm = predictor.configuration_manager
+    for case, spacing in RAW_CASES[1:]:
+        t0 = time.perf_counter()
+        image, props = NiftiIO().read_images(
+            [os.path.join(raw, f"{case}_{c:04d}.nii.gz") for c in range(PLAIN_IN)])
+        t1 = time.perf_counter()
+        pp_props = dict(props)
+        data, _ = cm.preprocessor_class().run_case_npy(image, None, pp_props,
+                                                       predictor.plans_manager, cm,
+                                                       predictor.dataset_json)
+        t2 = time.perf_counter()
+        logits = predictor.predict_sliding_window_return_logits(data)
+        t3 = time.perf_counter()
+        seg = convert_predicted_logits_to_segmentation_with_correct_shape(
+            logits, predictor.plans_manager, cm, predictor.label_manager, pp_props)
+        t4 = time.perf_counter()
+        NiftiIO().write_seg(seg, os.path.join(root, case + ".nii.gz"), pp_props)
+        t5 = time.perf_counter()
+        print(f"[files] {case} at {spacing} mm in-process: read {t1 - t0:.3f} s, preprocess "
+              f"(crop, normalize{', fp64 resampling' if spacing[2] != 1.0 else ''}) "
+              f"{t2 - t1:.3f} s, sliding window {t3 - t2:.3f} s, logits to segmentation"
+              f"{' (fp64 resampling back)' if spacing[2] != 1.0 else ''} {t4 - t3:.3f} s, "
+              f"write (gzip) {t5 - t4:.3f} s")
+    single = predictor.predict_single_npy_array(image, props)
+    from_file = NiftiIO().read_seg(os.path.join(out, case + ".nii.gz"))[0][0]
+    check(np.array_equal(single, from_file), f"{case}: predict_single_npy_array differs from "
+          f"its file on {int((single != from_file).sum())} voxels")
+    print(f"[files] {case}: predict_single_npy_array equals its file")
+    return launches, predictor, data, tiles
+
+
+def ladder_phase(predictor, data):
+    """The out-of-memory ladder on the card: one volume at tile batch 1 and 2
+    uncapped (peak reserved memory of each), then at tile batch 2 under a
+    torch.cuda.set_per_process_memory_fraction cap half way between the two
+    peaks, where tile batch 2 runs out and 1 fits. Checks that the
+    device-resident path ran out at 2 and finished at 1, and that the logits
+    match the uncapped tile batch 1 run's within 1e-3 relative."""
+    calls = []
+    resident = pred_mod.sliding_window_predict_device_resident
+
+    def recording(*args, tile_batch_size, **kw):
+        try:
+            out = resident(*args, tile_batch_size=tile_batch_size, **kw)
+        except RuntimeError as e:
+            calls.append((tile_batch_size, "out of memory" if is_oom_error(e) else repr(e)))
+            raise
+        calls.append((tile_batch_size, "ok"))
+        return out
+
+    pred_mod.sliding_window_predict_device_resident = recording
+    try:
+        peaks, logits = {}, {}
+        for tb in (1, 2):
+            predictor.tile_batch_size = tb
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            logits[tb] = predictor.predict_sliding_window_return_logits(data)
+            peaks[tb] = torch.cuda.max_memory_reserved()
+        check(calls == [(1, "ok"), (2, "ok")], f"uncapped calls {calls}")
+        check(peaks[2] >= 1.2 * peaks[1], f"peak reserved memory {peaks}: no room for a cap")
+        cap = (peaks[1] + peaks[2]) // 2
+        total = torch.cuda.get_device_properties(0).total_memory
+        calls.clear()
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(cap / total)
+        try:
+            capped = predictor.predict_sliding_window_return_logits(data)
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+    finally:
+        pred_mod.sliding_window_predict_device_resident = resident
+        predictor.tile_batch_size = 1
+    check(calls == [(2, "out of memory"), (1, "ok")], f"capped calls {calls}")
+    err = float(np.abs(capped - logits[1]).max() / np.abs(logits[1]).max())
+    check(math.isfinite(err) and err <= 1e-3, f"capped logits vs tile batch 1: rel err {err}")
+    print(f"[ladder] peak reserved memory: tile batch 1 {peaks[1] / 2**30:.2f} GiB, 2 "
+          f"{peaks[2] / 2**30:.2f} GiB; cap {cap / 2**30:.2f} GiB: device-resident calls "
+          f"{calls}; logits vs uncapped tile batch 1: rel err {err:.3e}")
+
+
 def kernel_record(name, source, replaces, launches_by_path, max_abs, max_rel, totals_by_path,
                   per, launches_by_variant=None):
     """totals_by_path: {path: TOTAL_KEYS totals}; launches_by_path: {path:
@@ -1160,11 +1521,13 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    conv_err, conv_rel, conv_step, conv_volume, conv_checked, k1_step, k1_infer = conv_phase(gen)
+    (conv_err, conv_rel, conv_step, conv_volume, conv_tile, conv_checked, k1_step,
+     k1_infer) = conv_phase(gen)
     torch.cuda.empty_cache()
-    zc_err, zc_rel, zc_step, zc_volume, zc_checked = zconcat_phase(gen, k1_step, k1_infer)
+    zc_err, zc_rel, zc_step, zc_volume, zc_tile, zc_checked = zconcat_phase(gen, k1_step,
+                                                                             k1_infer)
     torch.cuda.empty_cache()
-    mom_err, mom_rel, mom_step, mom_volume, mom_checked = moments_phase(gen)
+    mom_err, mom_rel, mom_step, mom_volume, mom_tile, mom_checked = moments_phase(gen)
     torch.cuda.empty_cache()
     zs_err, zs_rel, zs_probe, zs_variants = zslab_phase(gen)
     zc_err, zc_rel = max(zc_err, zs_err), max(zc_rel, zs_rel)
@@ -1179,16 +1542,26 @@ def main():
     inference = inference_phase()
     torch.cuda.empty_cache()
     trainer = trainer_phase(bare_step_ms)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        files, predictor, ladder_data, case_tiles = files_phase(root)
     for label, seen, checked in (("conv3x3", shapes.conv, conv_checked),
                                  ("zslab", shapes.zslab, zc_checked),
                                  ("moments", shapes.moments, mom_checked)):
         check(seen <= checked, f"{label} launches at unchecked shapes: {sorted(seen - checked)}")
     print(f"[paths] every launch ran at a checked shape: {len(shapes.conv)} kernel #1, "
           f"{len(shapes.zslab)} kernel #2, {len(shapes.moments)} moments shapes")
+    ladder_phase(predictor, ladder_data)  # tile batch 2 launches at B = 16: no path's
 
-    runs = {"pretrain": pretrain, "inference": inference, "pretrain_trainer": trainer}
-    per = ("one pretraining step (B = 4) plus one inference volume (18 tiles at B = 8); "
-           "by_path splits them; launches_by_path also counts the PretrainTrainer runs")
+    runs = {"pretrain": pretrain, "inference": inference, "pretrain_trainer": trainer,
+            "files": files}
+    per = ("one pretraining step (B = 4), one inference volume (18 STUNet-B tiles at B = 8) "
+           f"and one case of the file path ({case_tiles} PlainConvUNet tiles at B = 8); "
+           "by_path splits them; launches_by_path counts every launch of each path's run, "
+           "the PretrainTrainer runs' too")
+
+    def case(tile):  # one PlainConvUNet tile's totals -> one case's
+        return {k: case_tiles * v for k, v in tile.items()}
 
     def launches(kernel):
         return {path: kernel_launches(c, kernel) for path, c in runs.items()}
@@ -1199,7 +1572,7 @@ def main():
     zslab_record = kernel_record(
         "conv3d_zslab", "anatomask_torch/csrc/zslab_conv.cu",
         "anatomask_tpu/ops/pallas_zslab_conv.py:142", launches("zslab"), zc_err, zc_rel,
-        {"pretrain_step": zc_step, "inference_volume": zc_volume},
+        {"pretrain_step": zc_step, "inference_volume": zc_volume, "files_case": case(zc_tile)},
         per + "; the main paths' per-tap forwards through conv3d_zconcat", by_variant("zslab"))
     zslab_record["probe"] = {"launches_by_variant": zs_variants, **{
         k: zs_probe[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -1208,18 +1581,22 @@ def main():
     moments_record = kernel_record(
         "row_moments", "anatomask_torch/csrc/moments.cu", "probes/probe_rowstats.py:53",
         launches("moments"), mom_err, mom_rel,
-        {"pretrain_step": mom_step[0], "inference_volume": mom_volume[0]},
+        {"pretrain_step": mom_step[0], "inference_volume": mom_volume[0],
+         "files_case": case(mom_tile[0])},
         per + "; ms is the call (host and device, CUDA events), device_ms the kernel "
         "(torch.profiler)")
-    moments_record["device_ms"] = (None if None in (mom_step[1], mom_volume[1])
-                                   else mom_step[1] + mom_volume[1])
+    case_dev = None if mom_tile[1] is None else case_tiles * mom_tile[1]
+    moments_record["device_ms"] = (None if None in (mom_step[1], mom_volume[1], case_dev)
+                                   else mom_step[1] + mom_volume[1] + case_dev)
     moments_record["by_path"]["pretrain_step"]["device_ms"] = mom_step[1]
     moments_record["by_path"]["inference_volume"]["device_ms"] = mom_volume[1]
+    moments_record["by_path"]["files_case"]["device_ms"] = case_dev
     kernels = [
         kernel_record("conv3d_3x3", "anatomask_torch/csrc/conv3x3.cu",
                       "anatomask_tpu/ops/pallas_conv.py:108", launches("conv3x3"),
                       conv_err, conv_rel,
-                      {"pretrain_step": conv_step, "inference_volume": conv_volume}, per,
+                      {"pretrain_step": conv_step, "inference_volume": conv_volume,
+                       "files_case": case(conv_tile)}, per,
                       by_variant("conv3x3")),
         moments_record,
         zslab_record,

@@ -45,7 +45,11 @@ def test_package_has_the_mirrored_modules():
                 "ops.zslab_conv", "paths", "configuration", "utils.helpers",
                 "preprocessing.preprocessor", "data.dataset", "data.sampler",
                 "data.pipeline", "data.device_cache", "data.augment",
-                "training.schedules", "training.trainer"):
+                "training.schedules", "training.trainer", "models.plain_unet",
+                "inference.export", "preprocessing.cropping", "preprocessing.normalization",
+                "preprocessing.resampling", "imageio.base", "imageio.nifti",
+                "imageio.numpy_io", "imageio.meta_image", "imageio.natural_image",
+                "imageio.tiff_io", "imageio.minc_io", "imageio.registry"):
         assert f"anatomask_torch.{mod}" in names
 
 

@@ -96,8 +96,8 @@ def test_tta_tile_function_matches_jax(nets, axes):
 
 @pytest.mark.parametrize("path", ["device_resident", "streaming"])
 def test_sliding_window_matches_jax(nets, path):
-    """Four tiles in batches of 3: the port runs the last batch with one
-    tile, the JAX package pads it with zero-weight duplicates."""
+    """Four tiles in batches of 3: both packages pad the last batch with
+    zero-weight duplicates of its one tile."""
     jax_apply, port_apply = nets
     data = np.random.RandomState(63).rand(*VOLUME).astype(np.float32)
     axes = (0, 1, 2)

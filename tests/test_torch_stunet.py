@@ -1,7 +1,8 @@
 """anatomask_torch's STUNet against anatomask_tpu's on the CPU in float32, on
 carried weights: the full network with deep supervision, nearest upsampling,
-the weight conversion both ways, the plans-driven build, and the port's
-copies of the plans, label and checkpoint modules. Inputs and weights come
+the weight conversion both ways, the plans-driven build (the U-Nets too),
+and the port's copies of the plans (with their accessors), label and
+checkpoint modules. Inputs and weights come
 from numpy seeds and go to both."""
 import numpy as np
 import jax
@@ -17,7 +18,7 @@ from anatomask_tpu.plans.plans_handler import PlansManager as JaxPlansManager
 from anatomask_tpu.training.checkpoint import (convert_torch_stunet_state_dict, flatten_tree,
                                                load_checkpoint as jax_load_checkpoint,
                                                save_checkpoint)
-from anatomask_torch.convert import stunet_state_dict_from_jax
+from anatomask_torch.convert import state_dict_from_jax, stunet_state_dict_from_jax
 from anatomask_torch.models.build import build_network_from_plans
 from anatomask_torch.models.layers import upsample_nearest
 from anatomask_torch.models.stunet import STUNet, stunet_preset
@@ -121,10 +122,19 @@ def test_build_from_plans_matches_jax_tree(n_stages):
 
 @pytest.mark.parametrize("arch", ["PlainConvUNet", "ResidualEncoderUNet"])
 def test_build_refuses_architectures_not_ported(arch):
-    pm = PlansManager(_plans(3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_network_from_plans(pm, pm.get_configuration("3d_fullres"), 1, 2, arch_name=arch,
-                                 device="cpu")
+    """Both architectures are ported now: each builds from the plans as the
+    JAX package's does, and takes its parameters strictly."""
+    plans = _plans(3)
+    plans["configurations"]["base"].update(
+        UNet_base_num_features=4, unet_max_num_features=8, n_conv_per_stage_encoder=[1, 2, 1],
+        n_conv_per_stage_decoder=[1, 1])
+    jpm, pm = JaxPlansManager(plans), PlansManager(plans)
+    jnet = jax_build(jpm, jpm.get_configuration("3d_fullres"), 1, 2, arch_name=arch)
+    net = build_network_from_plans(pm, pm.get_configuration("3d_fullres"), 1, 2, arch_name=arch,
+                                   device="cpu")
+    assert type(net).__name__ == type(jnet).__name__ == arch
+    params = jax_random_params(jnet, (1, 16, 16, 16, 1), seed=56)
+    net.load_state_dict(state_dict_from_jax(arch, params), strict=True)
 
 
 def test_stunet_preset_checks(monkeypatch):
@@ -146,13 +156,25 @@ def test_plans_resolve_as_in_jax():
 @pytest.mark.parametrize("accessor", ["preprocessor_class", "resampling_fn_data",
                                       "image_reader_writer_class"])
 def test_accessors_of_modules_not_ported_raise(accessor):
+    """The three accessors reach ported modules now: each returns the port's
+    counterpart of the JAX package's class or function (with the same
+    kwargs), and raises nothing."""
     plans = dict(_plans(3), image_reader_writer="NibabelIO")
-    plans["configurations"]["base"].update(preprocessor_name="DefaultPreprocessor",
-                                           resampling_fn_data="resample_data_or_seg_to_shape")
-    pm = PlansManager(plans)
-    owner = pm if accessor == "image_reader_writer_class" else pm.get_configuration("3d_fullres")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(owner, accessor)
+    plans["configurations"]["base"].update(
+        preprocessor_name="DefaultPreprocessor",
+        resampling_fn_data="resample_data_or_seg_to_shape",
+        resampling_fn_data_kwargs={"is_seg": False, "order": 3, "force_separate_z": None})
+    pm, jpm = PlansManager(plans), JaxPlansManager(plans)
+    if accessor == "image_reader_writer_class":
+        owner, ref_owner = pm, jpm
+    else:
+        owner, ref_owner = pm.get_configuration("3d_fullres"), jpm.get_configuration("3d_fullres")
+    got, ref = getattr(owner, accessor), getattr(ref_owner, accessor)
+    if accessor == "resampling_fn_data":
+        assert got.keywords == ref.keywords
+        got, ref = got.func, ref.func
+    assert got.__name__ == ref.__name__
+    assert got.__module__ == ref.__module__.replace("anatomask_tpu", "anatomask_torch")
 
 
 @pytest.mark.parametrize("labels,order", [
