@@ -1,4 +1,5 @@
-"""JAX parameters -> the port's state_dicts.
+"""JAX parameters -> the port's state_dicts, and back for the segmentation
+networks.
 
 The input is a JAX package param tree as nested dicts of numpy arrays; the
 output uses the reference torch models' names, so the JAX package's
@@ -18,6 +19,11 @@ and `convert_torch_resenc_state_dict` of `resenc_state_dict_from_jax`.
   `convert_torch_plain_unet_state_dict` has none (`models/layers.py`
   `SubpixelConvTranspose` applies the weight mirrored, as the JAX layer);
 - mask tokens (C,) -> (1, C, 1, 1, 1); norm scale/bias -> weight/bias.
+
+`state_dict_to_jax` is `state_dict_from_jax`'s inverse for STUNet,
+PlainConvUNet and ResidualEncoderUNet, bit for bit: the supervised trainer
+writes its checkpoints in the JAX package's layout with it, so that both
+packages' predictors read them.
 """
 from __future__ import annotations
 
@@ -174,3 +180,65 @@ def state_dict_from_jax(arch_name: str, params: Mapping) -> Dict[str, torch.Tens
     if arch_name == "ResidualEncoderUNet":
         return resenc_state_dict_from_jax(params)
     raise RuntimeError(f"Unknown network architecture {arch_name!r}")
+
+
+# --- the port's state_dicts -> JAX parameters ------------------------------------
+
+def _leaf(layer: str, param: str, value: np.ndarray):
+    """(path tail, array) of one conv or norm tensor: a conv's OIDHW weight ->
+    conv/kernel DHWIO, its bias -> conv/bias; a norm's weight/bias ->
+    scale/bias."""
+    if layer.startswith("norm"):
+        return [layer, "scale" if param == "weight" else "bias"], value
+    if param == "weight":
+        return [layer, "conv", "kernel"], value.transpose(2, 3, 4, 1, 0)
+    return [layer, "conv", "bias"], value
+
+
+def _jax_path(arch: str, key: str, value: np.ndarray):
+    """The JAX tree path and array of one state_dict entry (the inverse of the
+    *_state_dict_from_jax functions above)."""
+    parts = key.split(".")
+    param = parts[-1]
+    if arch == "STUNet":
+        if parts[0] in ("conv_blocks_context", "conv_blocks_localization"):
+            tail, v = _leaf(parts[3], param, value)
+            return [f"{parts[0]}_{parts[1]}", f"block{parts[2]}", *tail], v
+        if parts[0] == "upsample_layers":
+            tail, v = _leaf("conv", param, value)
+            return [f"upsample_layers_{parts[1]}", *tail], v
+        if parts[0] == "seg_outputs":
+            tail, v = _leaf("conv", param, value)
+            return [f"seg_outputs_{parts[1]}", *tail[1:]], v
+    elif parts[:2] == ["decoder", "transpconvs"]:
+        return [f"decoder_transp_{parts[2]}", "kernel" if param == "weight" else "bias"], (
+            value.transpose(2, 3, 4, 0, 1) if param == "weight" else value)
+    elif parts[:2] == ["decoder", "seg_layers"]:
+        tail, v = _leaf("conv", param, value)
+        return [f"seg_output_{parts[2]}", *tail[1:]], v
+    elif parts[1:2] == ["stages"] and parts[3] == "convs":
+        # {encoder,decoder}.stages.{s}.convs.{i}.{conv,norm}.{weight,bias}
+        tail, v = _leaf(parts[5], param, value)
+        return [f"{parts[0]}_stage_{parts[2]}", f"conv{parts[4]}", *tail], v
+    elif arch == "ResidualEncoderUNet" and parts[:2] == ["encoder", "stages"]:
+        # encoder.stages.{s}.blocks.{b}.{conv1..3,norm1,2}.{weight,bias}
+        tail, v = _leaf(parts[5], param, value)
+        return [f"encoder_stage_{parts[2]}_block_{parts[4]}", *tail], v
+    raise ValueError(f"not a {arch} parameter: {key}")
+
+
+def state_dict_to_jax(arch_name: str, state_dict: Mapping) -> dict:
+    """The port's state_dict of a network built by `build_network_from_plans`
+    for `arch_name` -> the JAX package's parameter tree (nested dicts of fp32
+    numpy arrays), the inverse of `state_dict_from_jax`."""
+    arch = "STUNet" if arch_name.lower().startswith("stunet") else arch_name
+    if arch not in ("STUNet", "PlainConvUNet", "ResidualEncoderUNet"):
+        raise RuntimeError(f"Unknown network architecture {arch_name!r}")
+    tree: dict = {}
+    for key, t in state_dict.items():
+        path, v = _jax_path(arch, key, t.detach().cpu().numpy())
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(v, np.float32)
+    return tree

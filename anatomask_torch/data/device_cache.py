@@ -1,5 +1,5 @@
-"""GPU-resident case cache: device-side patch extraction for pretraining.
-Counterpart of anatomask_tpu/data/device_cache.py.
+"""GPU-resident case cache: device-side patch extraction for pretraining and
+supervised training. Counterpart of anatomask_tpu/data/device_cache.py.
 
 - A window of preprocessed cases lives on the device as ONE (S, X, Y, Z, C)
   tensor (bf16), each slot holding a case (or a random window of a large
@@ -10,6 +10,11 @@ Counterpart of anatomask_tpu/data/device_cache.py.
 - Per step the HOST draws only (slot, origin) pairs with numpy, by the
   sampler's bbox and oversampling formulas against the slot geometry; the
   patches are sliced out of the cache on the device (`extract`).
+- With `include_seg` (supervised training) the seg channels are stacked after
+  the data channels of the same slot tensor, the margin outside the case
+  filled with -1 (the sampler's seg pad) where the data pads with 0; `extract_split` splits them off as int16. Labels live in the cache
+  dtype: bf16 holds integers exactly only up to 256, which the trainer
+  checks.
 - Slots refill in the background: a host thread prepares the next case and
   copies it to the device; the train loop applies at most one staged slot
   between steps, in place (JAX donates the cache and writes a new array; here
@@ -27,6 +32,7 @@ import torch
 from anatomask_torch.data.dataset import CaseDataset
 
 MAX_CLASS_LOCS = 5000  # foreground voxels kept a class and slot for oversampling
+SEG_FILL = -1.0        # seg outside the case, as the sampler pads it
 
 
 class _SlotMeta:
@@ -67,6 +73,8 @@ class DeviceCaseCache:
         seed: Optional[int] = None,
         whole_dataset_mode: bool = False,
         device="cuda",
+        probabilistic_oversampling: bool = False,
+        include_seg: bool = False,
     ):
         self.dataset = dataset
         self.keys = sorted(dataset.keys())
@@ -74,6 +82,7 @@ class DeviceCaseCache:
         self.final_patch = np.asarray(final_patch, int)
         self.batch_size = batch_size
         self.oversample_foreground_percent = oversample_foreground_percent
+        self.probabilistic_oversampling = probabilistic_oversampling
         self.annotated_classes_key = annotated_classes_key
         self.has_ignore = has_ignore
         self.rng = np.random.RandomState(seed)
@@ -83,10 +92,15 @@ class DeviceCaseCache:
         self.refill_rng = np.random.RandomState(None if seed is None else seed + 9173)
         self.dtype = dtype
         self.device = torch.device(device)
+        self.include_seg = include_seg
 
         # survey every case's shape from the npy/npz headers only
         shapes = [tuple(dataset.case_shape(k)) for k in self.keys]
-        self.num_channels = shapes[0][0]
+        self.num_data_channels = shapes[0][0]
+        # seg channels from one (memory-mapped) load
+        self.num_seg_channels = (dataset.load_case(self.keys[0])[1].shape[0]
+                                 if include_seg else 0)
+        self.num_channels = self.num_data_channels + self.num_seg_channels
         max_shape = np.max(np.asarray([s[1:] for s in shapes], int), axis=0)
         # a slot holds at most twice the initial patch of a case
         self.window = np.minimum(max_shape, self.initial_patch * 2)
@@ -138,7 +152,7 @@ class DeviceCaseCache:
 
     def _prepare_slot_host(self) -> Tuple[np.ndarray, _SlotMeta]:
         key = self._next_key()
-        data, _, props = self.dataset.load_case(key)
+        data, seg, props = self.dataset.load_case(key)
         case_shape = np.asarray(data.shape[1:], int)
         win = np.minimum(case_shape, self.window)
         # random window for oversized cases (re-randomised each refill)
@@ -146,9 +160,15 @@ class DeviceCaseCache:
                        for c, w in zip(case_shape, win)])
         offset = ((np.asarray(self.slot_shape) - win) // 2).astype(int)
         slot = np.zeros((*self.slot_shape, self.num_channels), np.float32)
+        slot[..., self.num_data_channels:] = SEG_FILL
         sl_src = tuple(slice(int(l), int(l + w)) for l, w in zip(lo, win))
         sl_dst = tuple(slice(int(o), int(o + w)) for o, w in zip(offset, win))
-        slot[sl_dst] = np.moveaxis(np.asarray(data[(slice(None), *sl_src)]), 0, -1)
+        nd = self.num_data_channels
+        slot[sl_dst + (slice(0, nd),)] = np.moveaxis(np.asarray(data[(slice(None), *sl_src)]),
+                                                     0, -1)
+        if self.include_seg:
+            slot[sl_dst + (slice(nd, None),)] = np.moveaxis(
+                np.asarray(seg[(slice(None), *sl_src)]), 0, -1)
 
         # translate class_locations into slot coordinates, window-filtered
         cls_locs: Dict = {}
@@ -169,6 +189,8 @@ class DeviceCaseCache:
 
     # --- sampling -------------------------------------------------------------
     def _do_oversample(self, i: int) -> bool:
+        if self.probabilistic_oversampling:
+            return bool(self.rng.uniform() < self.oversample_foreground_percent)
         return not i < round(self.batch_size * (1 - self.oversample_foreground_percent))
 
     def _bbox_for_slot(self, meta: _SlotMeta, force_fg: bool) -> np.ndarray:
@@ -210,6 +232,13 @@ class DeviceCaseCache:
     def extract(self, slots: np.ndarray, origins: np.ndarray) -> torch.Tensor:
         """Device-side gather -> (B, *initial_patch, C) in the cache dtype."""
         return extract_patches(self.cache, slots, origins, self.initial_patch)
+
+    def extract_split(self, slots: np.ndarray,
+                      origins: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+        """With include_seg: (data (B, *initial_patch, C) in the cache dtype,
+        seg (B, *initial_patch, S) int16)."""
+        pat = self.extract(slots, origins)
+        return pat[..., :self.num_data_channels], pat[..., self.num_data_channels:].to(torch.int16)
 
     # --- background refill ----------------------------------------------------
     def start_refill(self, steps_per_slot: Optional[int] = None):

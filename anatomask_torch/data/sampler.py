@@ -1,8 +1,9 @@
 """Patch sampling with foreground oversampling. The port's own copy of
 anatomask_tpu/data/sampler.py: numpy's RandomState draws, so one seed gives
-the same boxes as the JAX package's sampler. The cascade corruption, the
-probabilistic oversampling, per-case sampling probabilities and extra side
-padding are not copied: the PretrainTrainer uses none of them.
+the same boxes as the JAX package's sampler, with the forced-foreground tail
+of the batch or, with `probabilistic_oversampling`, a draw per sample. The
+cascade corruption, per-case sampling probabilities and extra side padding
+are not copied: no path of the port uses them.
 
 Output is channels-LAST (B, x, y, z, c) float32 data + (B, x, y, z) int16 seg,
 ready for the on-device augmentation.
@@ -28,6 +29,7 @@ class PatchSampler:
         has_ignore: bool = False,
         seed: Optional[int] = None,
         load_seg: bool = True,
+        probabilistic_oversampling: bool = False,
     ):
         self.dataset = dataset
         self.indices = list(dataset.keys())
@@ -36,6 +38,7 @@ class PatchSampler:
         final = np.asarray(final_patch_size if final_patch_size is not None else patch_size, dtype=int)
         self.need_to_pad = (self.patch_size - final).astype(int)
         self.oversample_foreground_percent = oversample_foreground_percent
+        self.probabilistic_oversampling = probabilistic_oversampling
         self.annotated_classes_key = annotated_classes_key
         self.has_ignore = has_ignore
         # SSL pretraining: labels feed only the fg-oversampling bbox logic
@@ -44,6 +47,8 @@ class PatchSampler:
         self.rng = np.random.RandomState(seed)
 
     def _do_oversample(self, sample_idx: int) -> bool:
+        if self.probabilistic_oversampling:
+            return bool(self.rng.uniform() < self.oversample_foreground_percent)
         # last X% of the batch is forced-foreground (reference
         # _oversample_last_XX_percent). With mesh data parallelism the "batch"
         # here is the per-shard batch; use oversample_percent already adjusted

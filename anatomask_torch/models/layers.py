@@ -185,8 +185,13 @@ class SubpixelConvTranspose(nn.Module):
         w1 = self.weight.to(dt).flip(2, 3, 4).permute(0, 2, 3, 4, 1).reshape(C, -1)
         xn = x.to(dt).contiguous(memory_format=CL3D).permute(0, 2, 3, 4, 1)
         phases = (xn.reshape(-1, C) @ w1).view(B, D, H, W, s1, s2, s3, F)
+        shuffled = phases.permute(0, 1, 4, 2, 5, 3, 6, 7)
+        if torch.is_grad_enabled() and (shuffled.requires_grad or self.bias.requires_grad):
+            # training: autograd takes no out= argument (one copy more)
+            y = shuffled.reshape(B, D * s1, H * s2, W * s3, F) + self.bias.to(dt)
+            return y.permute(0, 4, 1, 2, 3)
         y = torch.empty((B, D, s1, H, s2, W, s3, F), dtype=dt, device=x.device)
-        torch.add(phases.permute(0, 1, 4, 2, 5, 3, 6, 7), self.bias.to(dt), out=y)
+        torch.add(shuffled, self.bias.to(dt), out=y)
         return y.view(B, D * s1, H * s2, W * s3, F).permute(0, 4, 1, 2, 3)
 
 

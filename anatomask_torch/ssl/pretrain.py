@@ -17,6 +17,9 @@ split, the foreground-oversampling patch sampler, the GPU-resident case cache
 initial patch, the warmup-cosine LR, the per-epoch EMA decay and easy-to-hard
 keep ratio, validation, the non-finite-loss abort, and checkpoints with
 resume. JAX's chunked `lax.scan` over steps is a plain Python loop here.
+
+`load_ssl_encoder_into_trainer` starts AnatoMask's finetuning: the pretrained
+encoder goes into a supervised Trainer's STUNet.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import torch
 import torch.nn as nn
 
 from anatomask_torch.configuration import get_allowed_n_proc_DA
+from anatomask_torch.convert import stunet_state_dict_from_jax
 from anatomask_torch.data.augment import (AugmentConfig, IntensityAugmentConfig,
                                           SpatialAugmentConfig, make_train_augment_fn,
                                           rotation_ranges_and_initial_patch_size)
@@ -51,7 +55,7 @@ from anatomask_torch.ssl.spark import SparK, random_keep_mask, spark_loss
 from anatomask_torch.ssl.sparse import SparseSTUNetEncoder
 from anatomask_torch.training import checkpoint as ckpt_lib
 from anatomask_torch.training.schedules import linear_warmup_cosine_schedule
-from anatomask_torch.training.trainer import generate_crossval_split
+from anatomask_torch.training.trainer import clip_by_global_norm_, generate_crossval_split
 
 STUNET_B_DIMS = (32, 64, 128, 256, 512)
 MODEL_SIZE = "B"  # the encoder head the port builds (names the output folder)
@@ -124,18 +128,6 @@ def make_optimizer(model: nn.Module) -> torch.optim.AdamW:
         {"params": [p for n, p in params.items() if not decay[n]], "weight_decay": 0.0},
     ]
     return torch.optim.AdamW(groups, lr=LR, betas=(0.9, 0.999), eps=1e-8)
-
-
-@torch.no_grad()
-def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
-    """optax.clip_by_global_norm: where the global norm is >= max_norm, every
-    gradient becomes g / norm * max_norm. (torch's clip_grad_norm_ adds 1e-6 to
-    the norm.) Runs on the device without a host sync; returns the norm."""
-    grads = list(grads)
-    norm = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
-    for g in grads:
-        g.copy_(torch.where(norm < max_norm, g, g / norm.to(g.dtype) * max_norm))
-    return norm
 
 
 def _update(student: SparK, optimizer: torch.optim.Optimizer, loss: torch.Tensor,
@@ -622,3 +614,23 @@ class PretrainTrainer:
         ax.legend()
         fig.savefig(os.path.join(self.output_folder, "progress.png"))
         plt.close(fig)
+
+
+def load_ssl_encoder_into_trainer(trainer, checkpoint: str, verbose: bool = True):
+    """The pretrained sparse encoder of `checkpoint` into the supervised
+    `trainer`'s STUNet (`training/checkpoint.py` `transfer_ssl_encoder_weights`):
+    a JAX pretraining checkpoint (.npz, the `sparse_encoder` subtree of its
+    network_weights) or this module's PretrainTrainer's (.pt, the student's
+    state_dict). Initializes the trainer first if it has no network yet."""
+    if checkpoint.endswith(".npz"):
+        arrays, _ = ckpt_lib.load_checkpoint(checkpoint)
+        params = arrays.get("network_weights", arrays)
+        encoder = stunet_state_dict_from_jax(params.get("sparse_encoder", params))
+    else:
+        state, _ = ckpt_lib.load_trainer_checkpoint(checkpoint)
+        encoder = state["network_weights"]
+    if trainer.network is None:
+        trainer.initialize()
+    trainer.network.load_state_dict(ckpt_lib.transfer_ssl_encoder_weights(
+        trainer.network.state_dict(), encoder, verbose=verbose))
+    return trainer

@@ -8,6 +8,10 @@
   format for the PretrainTrainer's state (student, teacher, optimizer,
   metadata with the epoch, the SparK and Pretrain configs), written with
   `torch.save` and read back with `weights_only=True`.
+- `load_pretrained_weights` and `transfer_ssl_encoder_weights` are the JAX
+  functions' counterparts on the port's state_dicts: a name- and
+  shape-matched merge without the segmentation heads, and AnatoMask's
+  encoder transfer into a STUNet.
 """
 from __future__ import annotations
 
@@ -89,3 +93,62 @@ def load_trainer_checkpoint(path: str, map_location="cpu") -> Tuple[dict, dict]:
     """Returns (state, metadata dict) of a file written by save_trainer_checkpoint."""
     blob = torch.load(path, map_location=map_location, weights_only=True)
     return blob["state"], json.loads(blob["metadata"])
+
+
+def _is_seg_head(key: str) -> bool:
+    return "seg_outputs" in key or "seg_layers" in key
+
+
+def load_pretrained_weights(state_dict: dict, pretrained: dict, verbose: bool = False) -> dict:
+    """`state_dict` with every tensor of `pretrained` that it shares by name,
+    the segmentation heads excepted. A shared name of another shape raises
+    ValueError (the JAX function asserts); names on one side only are
+    skipped."""
+    out = dict(state_dict)
+    loaded, skipped = [], []
+    for k, v in pretrained.items():
+        if _is_seg_head(k):
+            skipped.append(k)
+            continue
+        if k in out:
+            if tuple(out[k].shape) != tuple(v.shape):
+                raise ValueError(
+                    f"Shape mismatch for {k}: model {tuple(out[k].shape)} vs pretrained "
+                    f"{tuple(v.shape)}. Pretrained weights must match the architecture.")
+            out[k] = torch.as_tensor(v).to(out[k].dtype)
+            loaded.append(k)
+    if verbose:
+        print(f"loaded {len(loaded)} tensors, skipped seg heads: {skipped}")
+    return out
+
+
+def encoder_key(key: str) -> str:
+    """A pretraining key in a STUNet's names: whatever precedes 'sp_cnn.' and
+    any 'module.' prefix dropped."""
+    key = key.split("sp_cnn.")[-1]
+    while key.startswith("module."):
+        key = key[len("module."):]
+    return key
+
+
+def transfer_ssl_encoder_weights(stunet_state_dict: dict, ssl_state_dict: dict,
+                                 verbose: bool = False) -> dict:
+    """AnatoMask's finetuning start: every encoder tensor
+    (conv_blocks_context.*) of the pretrained sparse encoder that the STUNet
+    has at the same shape replaces the STUNet's; the decoder and the heads
+    keep their initialisation."""
+    out = dict(stunet_state_dict)
+    worked, not_worked = [], []
+    for k, v in ssl_state_dict.items():
+        k = encoder_key(k)
+        if "conv_blocks_context" not in k:
+            continue
+        if k in out and tuple(out[k].shape) == tuple(v.shape):
+            out[k] = torch.as_tensor(v).to(out[k].dtype)
+            worked.append(k)
+        else:
+            not_worked.append(k)
+    if verbose:
+        print(f"ssl transfer: {len(worked)} loaded, {len(not_worked)} unmatched: "
+              f"{not_worked[:10]}")
+    return out

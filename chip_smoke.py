@@ -97,17 +97,37 @@ Phases, each of which raises on a failed check:
    22 moments), and predict_single_npy_array against the resampled case's
    file; printing seconds a case split into fetch-wait, sliding window and
    export, tiles a case, peak memory, and that case's host split in-process;
-11. the out-of-memory ladder: one volume at tile batch 2 under a
+11. supervised training (Trainer, STUNetTrainer_base_ft: STUNet-B, patch
+   128^3 from a 205^3 initial patch, batch 2, bf16, 5 deep-supervision
+   heads, AdamW + cosine, the default augmentation with per-label seg warps)
+   on 6 synthetic 1 x 160^3 cases with labels {0, 1, 2} written with the
+   port's own code: load_ssl_encoder_into_trainer from phase 9's
+   checkpoint_final.pt (every encoder tensor the pretrained one's, the rest
+   untouched), run_training for 2 epochs x 5 iterations + 2 validation
+   iterations through the GPU case cache, a resume for one epoch through the
+   host pipeline, perform_actual_validation (summary.json with a finite
+   Dice per class), checkpoint_final.npz through the Predictor against the
+   trainer's network (<= 1e-3), the bare step (median of steps 3-5, with a
+   torch.profiler split of 3 more by kernel group) and a validation step,
+   then 3 bare ATKTrainer steps of phase 10's PlainConvUNet (SGD); checking
+   the launches of every run (a training step 23 kernel #1, 9 + 1 kernel
+   #2, 22 moments; a validation step 7, 9 + 1, 22) and printing seconds an
+   epoch split, each training step between synchronizations, peak memory.
+   Its new launch shapes (the steps at B = 2, the final validation's
+   forwards at B = 16 = tile batch 2 x 8 flips) are held against the plain
+   versions, with the gates above, before the main paths run;
+12. the out-of-memory ladder: one volume at tile batch 2 under a
    torch.cuda.set_per_process_memory_fraction cap between the uncapped tile
    batch 1 and 2 peaks: the device-resident path must run out at 2, finish
    at 1, and match the uncapped tile batch 1 logits within 1e-3 relative.
 
 A kernel's time is the median of three runs of back-to-back calls, each
-run timed with CUDA events, after a warm-up call. Each main path (7, 8, 9,
-10) runs with the launch counts set to 0 just before it and read just after,
-and every launch it makes must be at a shape that phases 3 and 4 held
-against the plain version (kernel #2's: its path shapes in phase 3); phase
-11 runs after that check, as its tile batch 2 launches at B = 16. The last three
+run timed with CUDA events, after a warm-up call. Each main path (7-11)
+runs with the launch counts set to 0 just before it and read just after,
+and every launch it makes must be at a shape that phases 3 and 4 (and 11's
+gates) held against the plain version (kernel #2's: its path shapes in
+phase 3); phase 12 runs after that check, as its tile batch 2 launches at
+B = 16 on the PlainConvUNet. The last three
 lines of standard output are the nvidia-smi line, one JSON object {"kernels": [...]}, and
 {"ok": true, "device": {...}}.
 """
@@ -116,6 +136,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -129,7 +150,8 @@ import numpy as np
 import torch
 import torch.nn.functional as fn
 
-from anatomask_torch.convert import plain_unet_state_dict_from_jax
+from anatomask_torch.convert import plain_unet_state_dict_from_jax, state_dict_to_jax
+from anatomask_torch.data.dataset import CaseDataset
 from anatomask_torch.imageio.nifti import NiftiIO, read_nifti, write_nifti
 from anatomask_torch.inference import predictor as pred_mod
 from anatomask_torch.inference.export import (
@@ -156,10 +178,13 @@ from anatomask_torch.ops.zslab_conv import (conv3d_zconcat, conv3d_zslab, conv3d
 from anatomask_torch.plans.plans_handler import PlansManager, save_json
 from anatomask_torch.preprocessing.preprocessor import save_properties
 from anatomask_torch.ssl.pretrain import (PretrainConfig, PretrainTrainer, anatomask_train_step,
-                                          build_spark_model, make_optimizer, make_teacher)
+                                          build_spark_model, load_ssl_encoder_into_trainer,
+                                          make_optimizer, make_teacher)
 from anatomask_torch.ssl.sparse import mask_to_resolution
 from anatomask_torch.ssl.spark import random_keep_mask
-from anatomask_torch.training.checkpoint import save_checkpoint
+from anatomask_torch.training.checkpoint import (load_trainer_checkpoint, save_checkpoint,
+                                                 save_trainer_checkpoint)
+from anatomask_torch.training.trainer import Trainer, get_trainer_config
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12   # H100 SXM fp32 rate outside the tensor cores
@@ -266,6 +291,11 @@ TRAINER_DATASET, TRAINER_CASES, TRAINER_CASE_SHAPE = "Dataset950_ChipSmoke", 8, 
 TRAINER_EPOCHS, TRAINER_ITERS = 2, 5
 # the refill run: 3 slots of 349x339x356 bf16 (80 MiB each) for 5 training cases
 REFILL_CACHE_MB, REFILL_ITERS = 256, 6
+# the supervised phase: STUNetTrainer_base_ft on 6 synthetic cases of 1 x
+# 160^3 with labels {0, 1, 2}, 2 epochs x 5 iterations + 2 validation
+# iterations, then a resume for one epoch; 3 bare ATKTrainer steps after it
+SUP_DATASET, SUP_CASES, SUP_CASE_SHAPE = "Dataset952_ChipSmokeSup", 6, (160, 160, 160)
+SUP_EPOCHS, SUP_ITERS, SUP_VAL_ITERS, PLAIN_STEPS = 2, 5, 2, 3
 STEPS, WARMUP = 5, 2
 FMAP, LEN_KEEP = (7, 7, 8), 157  # the step's patch grid and visible patches
 # bench_inference.py's configuration
@@ -368,10 +398,10 @@ def path_launches(sites, norms, forwards, backward):
     `backward`, one backward (dx at every site but the stem, whose input
     carries no gradient; the norms' backward is elementwise)."""
     want = dict.fromkeys(COUNT_KEYS, 0)
-    for name, C, F, vol in sites:
+    for i, (name, C, F, vol) in enumerate(sites):  # sites[0] is the stem
         variant = "hopper" if C % 32 == 0 and F % 32 == 0 else "simple"
         want[f"{'zslab' if per_tap(vol) else 'conv3x3'}.{variant}"] += forwards
-        if backward and name != "enc0.conv1":
+        if backward and i > 0:
             want[f"conv3x3.{variant}"] += 1
     want["moments"] = forwards * len(norms)
     return want
@@ -383,6 +413,15 @@ STEP_LAUNCHES = path_launches(SITES, PRETRAIN_NORMS, 2, True)
 VAL_LAUNCHES = path_launches(SITES, PRETRAIN_NORMS, 1, False)
 TILE_LAUNCHES = path_launches(INFER_SITES, INFER_NORMS, 1, False)
 PLAIN_TILE_LAUNCHES = path_launches(PLAIN_INFER_SITES, PLAIN_INFER_NORMS, 1, False)
+# the supervised paths: a STUNet-B finetuning step (one forward, dx everywhere
+# but the stem) and validation step at B = 2 over the tile's site tables (the
+# same network at the same 128^3 patch), the final validation's forwards at
+# B = 16 (tile batch 2 x 8 mirror flips), and an ATKTrainer step of the
+# PlainConvUNet at B = 2
+SUP_BATCH, VAL_TTA_BATCH = 2, 16
+SUP_STEP_LAUNCHES = path_launches(INFER_SITES, INFER_NORMS, 1, True)
+SUP_VAL_LAUNCHES = path_launches(INFER_SITES, INFER_NORMS, 1, False)
+PLAIN_STEP_LAUNCHES = path_launches(PLAIN_INFER_SITES, PLAIN_INFER_NORMS, 1, True)
 
 
 def kernel_launches(c, kernel):
@@ -444,11 +483,11 @@ def check_site(C, F, vol, dtype, gen, tol):
     return abs_err, max(errs)
 
 
-def time_site(C, F, vol, gen, batch):
+def time_site(C, F, vol, gen, batch, timed=True):
     """At a main path's batch in bf16: the kernel against the plain version
-    (relative max error <= 1e-2), then the ms of the kernel, the plain version
-    and F.conv3d. Returns (ms, plain ms, F.conv3d ms), (max abs err, rel err)
-    and the kernel's variant."""
+    (relative max error <= 1e-2), then where `timed` the ms of the kernel,
+    the plain version and F.conv3d. Returns (ms, plain ms, F.conv3d ms) or
+    None, (max abs err, rel err) and the kernel's variant."""
     x, w = conv_inputs(C, F, vol, batch, torch.bfloat16, gen)
     y_k, y_p = conv3d_3x3_forward(x, w), conv3d_3x3_plain(x, w)
     err = rel_err(y_k, y_p)
@@ -456,6 +495,8 @@ def time_site(C, F, vol, gen, batch):
           f"kernel vs plain {C}->{F} @{vol} B={batch}: rel error {err} > 1e-2")
     abs_err = (y_k.float() - y_p.float()).abs().max().item()
     del y_k, y_p
+    if not timed:
+        return None, (abs_err, err), igemm_variant(x, w)
     xc = x.permute(0, 4, 1, 2, 3)  # NCDHW view, channels_last_3d memory
     wc = w.permute(4, 3, 0, 1, 2).contiguous()
     ms = time_ms(lambda: conv3d_3x3_forward(x, w), 3)
@@ -810,58 +851,74 @@ def moments_phase(gen):
             (plain_tile, plain_tile_dev), checked)
 
 
+def zconcat_site(C, F, vol, batch, gen, dx, timed=True):
+    """Kernel #2's forward at one path shape, and with `dx` the dx through
+    conv3d_zconcat (kernel #1, rounded once), against the plain versions:
+    rel. max error <= 1e-2, bit-equal to plain on >= 95% of the elements,
+    kernel #1's forward (one rounding) at least 10 points fewer. Returns max
+    abs err, max rel err, the bit-equal shares (fwd[, dx]), kernel #1's
+    share, the variant, and (ms, plain ms, F.conv3d ms) where `timed`, else
+    None."""
+    x, w = conv_inputs(C, F, vol, batch, torch.bfloat16, gen)
+    variant = igemm_variant(x, w)
+    y_k, y_p = conv3d_zslab_forward(x, w), conv3d_zslab_plain(x, w)
+    once = (conv3d_3x3_forward(x, w) == y_p).float().mean().item()
+    errs, shares = [rel_err(y_k, y_p)], [(y_k == y_p).float().mean().item()]
+    abs_err = (y_k.float() - y_p.float()).abs().max().item()
+    del y_k, y_p
+    if dx:
+        g = torch.randn((batch, *vol, F), generator=gen, device="cuda").to(torch.bfloat16)
+        xg = x.detach().requires_grad_(True)
+        dx_k, = torch.autograd.grad(conv3d_zconcat(xg, w), xg, g)
+        dx_p = conv3d_3x3_plain(g, flip_weight(w))
+        errs.append(rel_err(dx_k, dx_p))
+        shares.append((dx_k == dx_p).float().mean().item())
+        abs_err = max(abs_err, (dx_k.float() - dx_p.float()).abs().max().item())
+        del g, xg, dx_k, dx_p
+    torch.cuda.synchronize()
+    check(all(math.isfinite(e) and e <= 1e-2 for e in errs),
+          f"zslab {C}->{F} @{vol} B={batch}: rel errors {errs} > 1e-2")
+    check(min(shares) >= 0.95 and once <= shares[0] - 0.1,
+          f"zslab {C}->{F} @{vol} B={batch}: bit-equal shares (fwd, dx) {shares}, "
+          f"kernel #1 fwd {once}")
+    times = None
+    if timed:
+        xc, wc = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous()
+        times = (time_ms(lambda: conv3d_zslab_forward(x, w), 3),
+                 time_ms(lambda: conv3d_zslab_plain(x, w), 1),
+                 time_ms(lambda: fn.conv3d(xc, wc, None, 1, 1), 3))
+        del xc, wc
+    del x, w
+    torch.cuda.empty_cache()
+    return abs_err, max(errs), shares, once, variant, times
+
+
 def zconcat_phase(gen, k1_step, k1_infer):
     """Kernel #2 at every shape where the main paths run it (ConvND's per-tap
     forwards, >= MIN_VOLUME output voxels): at the step's B = 4 the forward
     and dx through conv3d_zconcat (dx is kernel #1, rounded once) against
-    the plain versions, at inference's B = 8 the forward; rel. max error <=
-    1e-2 and bit-equal to plain on >= 95% of the elements, where kernel #1's
-    forward (one rounding) must match on at least 10 points fewer. Then the
-    forward's time beside kernel #1's at the same shape (conv phase), the
-    bound, the plain version's and F.conv3d's. Returns max abs err, max rel
-    err, the totals of one step, one volume and one PlainConvUNet tile
-    (kernel #2's forwards) and the launch shapes it checked."""
+    the plain versions, at inference's B = 8 the forward (zconcat_site's
+    gates). Then the forward's time beside kernel #1's at the same shape
+    (conv phase), the bound, the plain version's and F.conv3d's. Returns max
+    abs err, max rel err, the totals of one step, one volume and one
+    PlainConvUNet tile (kernel #2's forwards) and the launch shapes it
+    checked."""
     max_abs, max_rel, timed = 0.0, 0.0, {}
     for batch, sites, k1 in ((BATCH, SITES, k1_step),
                              (TTA_BATCH, INFER_SITES + PLAIN_INFER_SITES, k1_infer)):
         for C, F, vol in sorted({(C, F, vol) for _, C, F, vol in sites if per_tap(vol)}):
-            x, w = conv_inputs(C, F, vol, batch, torch.bfloat16, gen)
-            y_k, y_p = conv3d_zslab_forward(x, w), conv3d_zslab_plain(x, w)
-            once = (conv3d_3x3_forward(x, w) == y_p).float().mean().item()
-            errs, shares = [rel_err(y_k, y_p)], [(y_k == y_p).float().mean().item()]
-            abs_err = (y_k.float() - y_p.float()).abs().max().item()
-            del y_k, y_p
-            if batch == BATCH and C > 1:  # dx, where the step takes it
-                g = torch.randn((batch, *vol, F), generator=gen, device="cuda").to(torch.bfloat16)
-                xg = x.detach().requires_grad_(True)
-                dx_k, = torch.autograd.grad(conv3d_zconcat(xg, w), xg, g)
-                dx_p = conv3d_3x3_plain(g, flip_weight(w))
-                errs.append(rel_err(dx_k, dx_p))
-                shares.append((dx_k == dx_p).float().mean().item())
-                abs_err = max(abs_err, (dx_k.float() - dx_p.float()).abs().max().item())
-                del g, xg, dx_k, dx_p
-            torch.cuda.synchronize()
-            check(all(math.isfinite(e) and e <= 1e-2 for e in errs),
-                  f"zslab {C}->{F} @{vol} B={batch}: rel errors {errs} > 1e-2")
-            check(min(shares) >= 0.95 and once <= shares[0] - 0.1,
-                  f"zslab {C}->{F} @{vol} B={batch}: bit-equal shares (fwd, dx) {shares}, "
-                  f"kernel #1 fwd {once}")
-            max_abs, max_rel = max(max_abs, abs_err), max(max_rel, max(errs))
-            xc, wc = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous()
-            ms = time_ms(lambda: conv3d_zslab_forward(x, w), 3)
-            plain = time_ms(lambda: conv3d_zslab_plain(x, w), 1)
-            lib = time_ms(lambda: fn.conv3d(xc, wc, None, 1, 1), 3)
+            abs_err, err, shares, once, variant, (ms, plain, lib) = zconcat_site(
+                C, F, vol, batch, gen, dx=batch == BATCH and C > 1)
+            max_abs, max_rel = max(max_abs, abs_err), max(max_rel, err)
             timed[(batch, C, F, vol)] = (ms, plain, lib)
             flop_ms, byte_ms = bound_ms(C, F, vol, batch)
             tflops = 2 * batch * math.prod(vol) * 27 * C * F / ms / 1e9
-            print(f"[zslab] path B={batch} {C:>3}->{F:<3} @{vol} ({igemm_variant(x, w)}): rel err "
-                  f"{max(errs):.3e}, bit-equal to plain fwd {shares[0]:.6f}"
+            print(f"[zslab] path B={batch} {C:>3}->{F:<3} @{vol} ({variant}): rel err "
+                  f"{err:.3e}, bit-equal to plain fwd {shares[0]:.6f}"
                   f"{f', dx {shares[1]:.6f}' if len(shares) > 1 else ''}, kernel #1 fwd "
                   f"{once:.6f}; fwd {ms:.3f} ms ({tflops:.1f} TFLOP/s), kernel #1 "
                   f"{k1[(C, F, vol)][0]:.3f} ms, bound {max(flop_ms, byte_ms):.3f} ms, plain "
                   f"{plain:.3f} ms, F.conv3d {lib:.3f} ms")
-            del x, w, xc, wc
-            torch.cuda.empty_cache()
     step, volume, plain_tile = (dict.fromkeys(TOTAL_KEYS, 0.0) for _ in range(3))
     for batch, sites, totals, n in ((BATCH, SITES, step, 2),
                                     (TTA_BATCH, INFER_SITES, volume, TILES),
@@ -1139,12 +1196,13 @@ def check_cache_slots(cache):
         check(torch.equal(cache.cache[s].cpu(), want), f"slot {s} does not hold {meta.key}")
 
 
-def trainer_phase(bare_step_ms):
+def trainer_phase(bare_step_ms, keep):
     """PretrainTrainer.run_pretraining at full STUNet-B width: 2 epochs x 5
     iterations with the GPU case cache, then a resume from checkpoint_latest
     for 1 epoch x 2 iterations through the host pipeline, then one for 1
     epoch x 6 iterations with a case cache that refills. Returns the launch
-    counts of the three runs."""
+    counts of the three runs; the last run's checkpoint_final.pt is copied to
+    `keep` for the supervised phase."""
     with tempfile.TemporaryDirectory() as root:
         write_trainer_dataset(root)
         for which in ("preprocessed", "results"):
@@ -1201,6 +1259,7 @@ def trainer_phase(bare_step_ms):
               f"holds its case; {e['total']:.3f} s (train {e['train']:.3f} s, fetch-wait "
               f"{e['fetch_wait']:.3f} s, val {e['val']:.3f} s); losses {history3}; peak memory "
               f"{peak3 / 2**30:.2f} GiB; launches {launches3}")
+        shutil.copy(os.path.join(t3.output_folder, "checkpoint_final.pt"), keep)
     return {k: launches[k] + launches2[k] + launches3[k] for k in COUNT_KEYS}
 
 
@@ -1237,38 +1296,6 @@ def plain_unet_plans():
             "resampling_fn_probabilities_kwargs": dict(kw_data, order=1), "batch_dice": True}}}
 
 
-def jax_layout(state_dict):
-    """A PlainConvUNet state_dict in the JAX package's parameter layout (the
-    inverse of convert.plain_unet_state_dict_from_jax): conv OIDHW -> DHWIO,
-    the transposed conv (I, O, s, s, s) -> (s, s, s, I, O), norms scale/bias."""
-    tree = {}
-
-    def put(path, value):
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = value
-
-    for key, value in state_dict.items():
-        a = value.detach().cpu().numpy()
-        *parts, leaf = key.split(".")
-        name = "kernel" if leaf == "weight" else "bias"
-        if parts[1] == "stages":  # {encoder,decoder}.stages.{s}.convs.{i}.{conv,norm}
-            base = [f"{parts[0]}_stage_{parts[2]}", f"conv{parts[4]}"]
-            if parts[5] == "conv":
-                put(base + ["conv", "conv", name], a.transpose(2, 3, 4, 1, 0) if leaf == "weight"
-                    else a)
-            else:
-                put(base + ["norm", "scale" if leaf == "weight" else "bias"], a)
-        elif parts[1] == "transpconvs":
-            put([f"decoder_transp_{parts[2]}", name],
-                a.transpose(2, 3, 4, 0, 1) if leaf == "weight" else a)
-        else:  # decoder.seg_layers.{d}
-            put([f"seg_output_{parts[2]}", "conv", name],
-                a.transpose(2, 3, 4, 1, 0) if leaf == "weight" else a)
-    return tree
-
-
 def write_model_folder(folder):
     """A trained-model folder in the JAX package's layout, written with the
     port's own code: plans.json, dataset.json and fold_0/checkpoint_final.npz
@@ -1284,7 +1311,7 @@ def write_model_folder(folder):
     net = build_network_from_plans(pm, pm.get_configuration("3d_fullres"), PLAIN_IN,
                                    PLAIN_CLASSES, deep_supervision=False, device="cpu",
                                    generator=torch.Generator().manual_seed(0))
-    tree = jax_layout(net.state_dict())
+    tree = state_dict_to_jax("PlainConvUNet", net.state_dict())
     back = plain_unet_state_dict_from_jax(tree)
     check(back.keys() == net.state_dict().keys()
           and all(torch.equal(back[k], v) for k, v in net.state_dict().items()),
@@ -1479,6 +1506,433 @@ def ladder_phase(predictor, data):
           f"{calls}; logits vs uncapped tile batch 1: rel err {err:.3e}")
 
 
+def supervised_gate_phase(gen):
+    """Every launch shape that the supervised paths add, against the plain
+    versions with the gates of the phases above: the STUNet-B finetuning step
+    and the ATKTrainer PlainConvUNet step at B = 2 (kernel #1: forwards below
+    MIN_VOLUME and every dx but the stem's; kernel #2: the per-tap forwards,
+    with their dx through conv3d_zconcat; the moments of every norm,
+    square_in_dtype with and without), timed there; the final validation's
+    forwards at B = 16, checked only. Returns per kernel (max abs err, max rel
+    err), the totals of one STUNet-B step and of one PlainConvUNet step at B
+    = 2, and the launch shapes checked, each in LaunchShapes' form."""
+    errs = {k: [0.0, 0.0] for k in ("conv3x3", "zslab", "moments")}
+    checked = {k: set() for k in errs}
+    k1, k2, mom = {}, {}, {}
+
+    def note(kernel, a, r):
+        errs[kernel] = [max(errs[kernel][0], a), max(errs[kernel][1], r)]
+
+    for batch, nets in ((SUP_BATCH, (INFER_SITES, PLAIN_INFER_SITES)),
+                        (VAL_TTA_BATCH, (INFER_SITES,))):
+        for sites in nets:
+            for i, (name, C, F, vol) in enumerate(sites):
+                keys = [] if per_tap(vol) else [(C, F, vol)]
+                if batch == SUP_BATCH and i > 0:
+                    keys.append((F, C, vol))  # dx: kernel #1 on the flipped weight
+                for c, f, v in keys:
+                    shape = (batch, *v, c, f)
+                    if shape in checked["conv3x3"]:
+                        continue
+                    times, (a, r), variant = time_site(c, f, v, gen, batch,
+                                                       timed=batch == SUP_BATCH)
+                    if times is not None:
+                        k1[(c, f, v)] = times
+                    torch.cuda.empty_cache()
+                    note("conv3x3", a, r)
+                    checked["conv3x3"].add(shape)
+                    print(f"[supervised] kernel #1 bf16 B={batch} {c:>4}->{f:<3} @{v}: rel err "
+                          f"{r:.3e} ({variant})")
+                shape = (batch, *vol, C, F)
+                if per_tap(vol) and shape not in checked["zslab"]:
+                    a, r, shares, once, variant, times = zconcat_site(
+                        C, F, vol, batch, gen, dx=batch == SUP_BATCH and i > 0,
+                        timed=batch == SUP_BATCH)
+                    note("zslab", a, r)
+                    checked["zslab"].add(shape)
+                    if times is not None:
+                        k2[(C, F, vol)] = times
+                    print(f"[supervised] kernel #2 B={batch} {C:>3}->{F:<3} @{vol} ({variant}): "
+                          f"rel err {r:.3e}, bit-equal to plain {shares}, kernel #1 fwd "
+                          f"{once:.6f}" + (f"; fwd {times[0]:.3f} ms, plain {times[1]:.3f} ms, "
+                                           f"F.conv3d {times[2]:.3f} ms" if times else ""))
+    for batch, norms in ((SUP_BATCH, INFER_NORMS + PLAIN_INFER_NORMS),
+                         (VAL_TTA_BATCH, INFER_NORMS)):
+        for _, vol, C, _ in norms:
+            shape = (batch, *vol, C, False, True)
+            if shape in checked["moments"]:
+                continue
+            x, _ = moments_inputs(batch, vol, C, False, torch.bfloat16, gen)
+            for square in (False, True):
+                a, r = moments_err(x, None, square)
+                check(math.isfinite(r) and r <= 1e-5,
+                      f"moments B={batch} {vol} C={C} square_in_dtype={square}: rel error {r}")
+                note("moments", a, r)
+            line = ""
+            if batch == SUP_BATCH:
+                mom[(vol, C)] = (time_ms(lambda: row_moments_forward(x, None, True), 20),
+                                 time_ms(lambda: row_moments_plain(x, None, True), 3),
+                                 time_ms(lambda: torch.var_mean(x, dim=(1, 2, 3),
+                                                                correction=0), 5))
+                line = (f"; call {mom[(vol, C)][0]:.4f} ms, plain {mom[(vol, C)][1]:.4f} ms, "
+                        f"var_mean {mom[(vol, C)][2]:.4f} ms")
+            checked["moments"].add(shape)
+            print(f"[supervised] moments bf16 B={batch} {vol} C={C}: rel err {r:.3e}, two calls "
+                  f"bit-equal{line}")
+            del x
+            torch.cuda.empty_cache()
+
+    def step_totals(sites, norms):
+        t = {k: dict.fromkeys(TOTAL_KEYS, 0.0) for k in errs}
+        for i, (_, C, F, vol) in enumerate(sites):
+            if per_tap(vol):
+                add_totals(t["zslab"], 1, *k2[(C, F, vol)], *bound_ms(C, F, vol, SUP_BATCH))
+            else:
+                add_totals(t["conv3x3"], 1, *k1[(C, F, vol)], *bound_ms(C, F, vol, SUP_BATCH))
+            if i > 0:
+                add_totals(t["conv3x3"], 1, *k1[(F, C, vol)], *bound_ms(F, C, vol, SUP_BATCH))
+        for _, vol, C, _ in norms:
+            voxels = SUP_BATCH * math.prod(vol)
+            add_totals(t["moments"], 1, *mom[(vol, C)],
+                       *moments_bound_ms(SUP_BATCH, vol, C, False, voxels))
+        return t
+
+    stunet, plain = step_totals(INFER_SITES, INFER_NORMS), step_totals(PLAIN_INFER_SITES,
+                                                                       PLAIN_INFER_NORMS)
+    for label, t in (("STUNet-B", stunet), ("PlainConvUNet", plain)):
+        print(f"[supervised] one {label} training step at B={SUP_BATCH}: " + "; ".join(
+            f"{k} {v['ms']:.3f} ms (bound {v['bound_ms']:.3f}, plain {v['plain_ms']:.3f}, "
+            f"library {v['library_ms']:.3f})" for k, v in t.items()))
+    return errs, stunet, plain, checked
+
+
+def write_supervised_dataset(root):
+    """A preprocessed dataset as the preprocessor leaves it, written with the
+    port's own code: SUP_CASES cases of 1 x 160^3 fp32 (noise, a sphere
+    brighter by 2 labelled 1 and one brighter by 4 labelled 2) with the
+    properties the sampler and the export read, gt_segmentations as .nii.gz,
+    dataset.json, and ATKPlans.json: the files phase's 3d_fullres plans
+    (patch 128^3, batch 2, 6 stages) for one CT channel. Returns the plans
+    file and dataset.json."""
+    base = os.path.join(root, "preprocessed", SUP_DATASET)
+    folder, gt = os.path.join(base, "ATKPlans_3d_fullres"), os.path.join(base, "gt_segmentations")
+    os.makedirs(folder)
+    os.makedirs(gt)
+    rs = np.random.default_rng(2)
+    axes = np.ogrid[tuple(slice(0, s) for s in SUP_CASE_SHAPE)]
+    labels = []
+    for i in range(SUP_CASES):
+        data = rs.standard_normal((1, *SUP_CASE_SHAPE), dtype=np.float32)
+        seg = np.zeros((1, *SUP_CASE_SHAPE), np.int8)
+        for label, boost in ((1, 2.0), (2, 4.0)):
+            c, r = rs.integers(40, 120, 3), rs.integers(12, 25)
+            blob = sum((a - ci) ** 2 for a, ci in zip(axes, c)) < r ** 2
+            data[0][blob] += boost
+            seg[0][blob] = label
+        key = os.path.join(folder, f"case_{i:03d}")
+        np.savez(key + ".npz", data=data, seg=seg)
+        locs = {}
+        for label in (1, 2):
+            where = np.argwhere(seg == label)
+            locs[label] = where[rs.choice(len(where), min(len(where), 10000), replace=False)]
+        n = list(SUP_CASE_SHAPE)
+        save_properties({"spacing": [1.0] * 3, "shape_before_cropping": n,
+                         "bbox_used_for_cropping": [[0, v] for v in n],
+                         "shape_after_cropping_and_before_resampling": n,
+                         "class_locations": locs}, key)
+        labels.append((seg[0], os.path.join(gt, f"case_{i:03d}.nii.gz")))
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda j: NiftiIO().write_seg(j[0], j[1], {"spacing": [1.0] * 3}),
+                      labels))
+    dataset_json = {"channel_names": {"0": "CT"}, "labels": {"background": 0, "a": 1, "b": 2},
+                    "numTraining": SUP_CASES, "file_ending": ".nii.gz"}
+    save_json(dataset_json, os.path.join(base, "dataset.json"))
+    plans = plain_unet_plans()
+    plans["dataset_name"] = SUP_DATASET
+    plans["foreground_intensity_properties_per_channel"] = {
+        "0": plans["foreground_intensity_properties_per_channel"]["0"]}
+    cfg = plans["configurations"]["3d_fullres"]
+    cfg["normalization_schemes"], cfg["use_mask_for_norm"] = ["ZScoreNormalization"], [False]
+    plans_file = os.path.join(base, "ATKPlans.json")
+    save_json(plans, plans_file)
+    return plans_file, dataset_json
+
+
+PROFILED_STEPS = 3
+
+
+def kernel_group(name):
+    """A device kernel's group in a step's split: the port's three kernels
+    (the conv's PER_TAP instantiations are kernel #2), the library's
+    convolutions and matmuls (cuDNN, cuBLAS), the rest by what it does."""
+    if "conv3x3_wgmma" in name or "conv3x3_kernel" in name:  # PER_TAP: kernel #2
+        return "kernel #2" if "Lb1E" in name or "true>" in name else "kernel #1"
+    rules = (("moments", "kernel #3"), ("xmma", "cuDNN/cuBLAS conv and matmul"),
+             ("gemm", "cuDNN/cuBLAS conv and matmul"), ("conv", "cuDNN/cuBLAS conv and matmul"),
+             ("cutlass", "cuDNN/cuBLAS conv and matmul"), ("index", "gather/scatter (warps)"),
+             ("gather", "gather/scatter (warps)"), ("scatter", "gather/scatter (warps)"),
+             ("reduce", "reductions"), ("Reduce", "reductions"), ("copy", "copies"),
+             ("Copy", "copies"), ("cat", "copies"), ("elementwise", "elementwise"),
+             ("Elementwise", "elementwise"), ("foreach", "optimizer (foreach)"),
+             ("multi_tensor", "optimizer (foreach)"))
+    return next((g for key, g in rules if key in name), "other")
+
+
+def profile_steps(step, n):
+    """torch.profiler over n calls of `step` after a synchronize: device ms a
+    call by kernel group, the device's busy ms a call (the sum of its
+    kernels), and the host's wall ms a call."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    groups = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            g = kernel_group(e.name)
+            groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+    busy = sum(groups.values())
+    top = sorted(groups.items(), key=lambda kv: -kv[1])
+    return (f"wall {wall:.1f} ms a step, device busy {busy:.1f} ms ({busy / wall:.0%}); "
+            + ", ".join(f"{g} {ms:.2f}" for g, ms in top))
+
+
+def sup_run(trainer, **kw):
+    """trainer.run_training with the counts at 0, each training step timed
+    between two synchronizations; returns the launches, the peak memory and
+    the steps' (ms, whether a checkpoint writer thread was running)."""
+    step, steps = trainer.train_step, []
+
+    def timed(data, seg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(data, seg)
+        torch.cuda.synchronize()
+        writer = trainer._ckpt_thread
+        steps.append(((time.perf_counter() - t0) * 1e3, writer is not None and writer.is_alive()))
+        return loss
+
+    trainer.train_step = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    try:
+        trainer.run_training(**kw)
+    finally:
+        del trainer.train_step
+    return counts(), torch.cuda.max_memory_allocated(), steps
+
+
+def print_epochs(trainer, label, steps):
+    per_epoch = len(steps) // len(trainer.epoch_timings)
+    for i, e in enumerate(trainer.epoch_timings):
+        mine = steps[i * per_epoch:(i + 1) * per_epoch]
+        print(f"[supervised] {label} epoch {e['epoch']}: {e['total']:.3f} s (train "
+              f"{e['train']:.3f} s, fetch-wait {e['fetch_wait']:.3f} s, val {e['val']:.3f} s, "
+              f"checkpoint {e['ckpt']:.3f} s); steps "
+              f"{[round(ms, 1) for ms, _ in mine]} ms, a checkpoint writer running during "
+              f"{sum(w for _, w in mine)} of them")
+
+
+def supervised_phase(root, pretrain_checkpoint):
+    """STUNetTrainer_base_ft at full STUNet-B width (patch 128^3 from a 205^3
+    initial patch, batch 2, bf16, 5 deep-supervision heads, AdamW + cosine,
+    the default augmentation) on write_supervised_dataset's cases: the
+    encoder transfer from `pretrain_checkpoint` (the PretrainTrainer's),
+    run_training for 2 epochs x 5 iterations + 2 validation iterations through
+    the GPU case cache, a resume for one epoch through the host pipeline,
+    perform_actual_validation, checkpoint_final.npz through the Predictor
+    against the trainer's network, the bare step, and 3 bare ATKTrainer
+    steps of the files phase's PlainConvUNet. Checks the launches by kernel
+    and variant of every run. Returns the launches of the supervised runs and
+    of the PlainConvUNet steps."""
+    plans_file, dataset_json = write_supervised_dataset(root)
+    for which in ("preprocessed", "results"):
+        os.environ[f"ATK_{which}"] = os.path.join(root, which)
+    cfg = replace(get_trainer_config("STUNetTrainer_base_ft"), num_epochs=SUP_EPOCHS,
+                  num_iterations_per_epoch=SUP_ITERS, num_val_iterations_per_epoch=SUP_VAL_ITERS,
+                  save_every=1)
+    out = os.path.join(root, "results", "finetune")
+
+    def trainer(c):
+        return Trainer(plans_file, "3d_fullres", 0, dataset_json, c, output_folder=out,
+                       device="cuda")
+
+    # 1. the encoder transfer
+    t = trainer(cfg)
+    t.initialize()
+    n_params = sum(p.numel() for p in t.network.parameters())
+    before = {k: v.clone() for k, v in t.network.state_dict().items()}
+    load_ssl_encoder_into_trainer(t, pretrain_checkpoint, verbose=False)
+    encoder = load_trainer_checkpoint(pretrain_checkpoint)[0]["network_weights"]
+    moved = 0
+    for k, v in t.network.state_dict().items():
+        src = encoder.get(f"sparse_encoder.sp_cnn.{k}")
+        if src is not None:
+            check(torch.equal(v.cpu(), src), f"transfer: {k} is not the pretrained encoder's")
+            moved += 1
+        else:
+            check(torch.equal(v, before[k]), f"transfer: {k} moved")
+    n_enc = sum(k.startswith("sparse_encoder.sp_cnn.conv_blocks_context.") for k in encoder)
+    check(moved == n_enc > 0, f"transfer: {moved} tensors of {n_enc} encoder tensors")
+    print(f"[supervised] STUNet-B, {n_params} parameters, 5 heads; the pretrained encoder's "
+          f"{moved} tensors (stages 0-4) transferred, the 6th stage, decoder and heads as "
+          f"initialised")
+    del before
+
+    # 2. training through the case cache, then a resume through the host pipeline
+    launches, peak, steps = sup_run(t)
+    lg = t.logger.logging
+    check(all(math.isfinite(v) for k in ("train_losses", "val_losses") for v in lg[k])
+          and all(math.isfinite(d) for ds in lg["dice_per_class_or_region"] for d in ds),
+          f"non-finite losses or Dice {lg}")
+    cache = t.device_cache_train
+    check(cache is not None and cache.whole_dataset_resident,
+          "the training cases are not all resident in the case cache")
+    want = {k: SUP_EPOCHS * (SUP_ITERS * SUP_STEP_LAUNCHES[k] + SUP_VAL_ITERS
+                             * SUP_VAL_LAUNCHES[k]) for k in COUNT_KEYS}
+    check(launches == want, f"finetuning launches {launches}, expected {want}")
+    for f in ("checkpoint_best.npz", "checkpoint_final.npz", "debug.json", "../plans.json"):
+        check(os.path.isfile(os.path.join(t.output_folder, f)), f"no {f}")
+    print(f"[supervised] patch {tuple(t.configuration_manager.patch_size)} from initial patch "
+          f"{t.initial_patch_size}, batch {SUP_BATCH}, bf16, {len(t.do_split()[0])} training "
+          f"cases in {cache.num_slots} cache slots of {cache.slot_shape}; train losses "
+          f"{lg['train_losses']}, val losses {lg['val_losses']}, pseudo-Dice "
+          f"{lg['dice_per_class_or_region']}; peak memory {peak / 2**30:.2f} GiB ({peak} "
+          f"bytes); launches {launches}")
+    print_epochs(t, "cache", steps)
+    last = t.epoch_timings[-1]
+    trainer_step_ms = last["train"] / SUP_ITERS * 1e3
+    timed_ms = statistics.median(ms for ms, _ in steps[SUP_ITERS:])
+    shutil.copy(os.path.join(t.output_folder, "checkpoint_final.npz"),
+                os.path.join(t.output_folder, "checkpoint_latest.npz"))
+    t2 = trainer(replace(cfg, num_epochs=SUP_EPOCHS + 1, device_cache=False))
+    launches2, peak2, steps2 = sup_run(t2, continue_training=True)
+    check(t2.current_epoch == SUP_EPOCHS and [e["epoch"] for e in t2.epoch_timings] == [SUP_EPOCHS]
+          and t2.step_counter == (SUP_EPOCHS + 1) * SUP_ITERS,
+          f"resume ran epochs {[e['epoch'] for e in t2.epoch_timings]}, step {t2.step_counter}")
+    want2 = {k: SUP_ITERS * SUP_STEP_LAUNCHES[k] + SUP_VAL_ITERS * SUP_VAL_LAUNCHES[k]
+             for k in COUNT_KEYS}
+    check(launches2 == want2, f"resume launches {launches2}, expected {want2}")
+    check(all(math.isfinite(v) for v in t2.logger.logging["train_losses"]), "resume: loss")
+    print_epochs(t2, "host pipeline (resumed)", steps2)
+    print(f"[supervised] resumed at epoch {SUP_EPOCHS} from checkpoint_latest; peak memory "
+          f"{peak2 / 2**30:.2f} GiB; launches {launches2}")
+
+    # 3. the final validation
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    metrics = t2.perform_actual_validation()
+    val_s = time.perf_counter() - t0
+    launches3 = counts()
+    _, val_keys = t2.do_split()
+    ds_val = CaseDataset(t2.preprocessed_dataset_folder, val_keys)
+    forwards = sum(math.ceil(tiles_of(ds_val.case_shape(k)) / 2) for k in val_keys)
+    want3 = {k: forwards * SUP_VAL_LAUNCHES[k] for k in COUNT_KEYS}
+    check(launches3 == want3, f"final validation launches {launches3}, expected {want3}")
+    summary = os.path.join(t2.output_folder, "validation", "summary.json")
+    check(os.path.isfile(summary), "no summary.json")
+    dice = {k: v["Dice"] for k, v in metrics["mean"].items()}
+    check(set(dice) == {1, 2} and all(math.isfinite(v) for v in dice.values()),
+          f"final validation Dice {dice}")
+    print(f"[supervised] final validation of {len(val_keys)} cases ({forwards} forwards of "
+          f"B={VAL_TTA_BATCH}): {val_s:.3f} s, mean Dice per class {dice}; launches {launches3}")
+
+    # 4. checkpoint_final.npz through the Predictor against the trainer's network
+    case = np.asarray(ds_val.load_case(val_keys[0])[0])
+    p1 = Predictor(tile_batch_size=1, dtype=torch.bfloat16, device="cuda")
+    p1.initialize_from_trained_model_folder(t2.output_folder_base, use_folds=[0])
+    p2 = Predictor(tile_batch_size=1, dtype=torch.bfloat16, device="cuda")
+    p2.manual_initialization(t2._build_network(False), t2.plans_manager, t2.configuration_manager,
+                             [t2.network.state_dict()], dataset_json,
+                             t2.inference_allowed_mirroring_axes)
+    zero_counts()
+    a, b = (p.predict_sliding_window_return_logits(case) for p in (p1, p2))
+    launches4 = counts()
+    err = float(np.abs(a - b).max() / np.abs(b).max())
+    check(np.isfinite(a).all() and a.shape == (3, *SUP_CASE_SHAPE) and err <= 1e-3,
+          f"checkpoint_final.npz through the Predictor: shape {a.shape}, rel err {err}")
+    print(f"[supervised] checkpoint_final.npz through the Predictor vs the trainer's network "
+          f"(tile batch 1): rel err {err:.3e}")
+    del p1, p2, a, b
+
+    # 5. the bare step and validation step on a batch from the case cache
+    data, seg = cache.extract_split(*cache.sample_batch())
+    vdata, vseg = t.device_cache_val.extract_split(*t.device_cache_val.sample_batch())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times, losses = [], []
+    for step in range(STEPS):
+        before_n = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(t.train_step(data, seg).item())
+        times.append((time.perf_counter() - t0) * 1e3)
+        n = since(before_n)
+        check(math.isfinite(losses[-1]) and n == SUP_STEP_LAUNCHES,
+              f"bare step {step}: loss {losses[-1]}, launches {n}, expected {SUP_STEP_LAUNCHES}")
+    split = profile_steps(lambda: t.train_step(data, seg), PROFILED_STEPS)
+    before_n = counts()
+    loss, tp, fp, fn_ = t.val_step(vdata, vseg)
+    check(math.isfinite(loss.item()), f"val step loss {loss.item()}")
+    n_val = since(before_n)
+    check(n_val == SUP_VAL_LAUNCHES, f"val step launches {n_val}, expected {SUP_VAL_LAUNCHES}")
+    launches5 = counts()
+    step_ms = statistics.median(times[WARMUP:])
+    peak5 = torch.cuda.max_memory_allocated()
+    print(f"[supervised] bare step {step_ms:.1f} ms (median of steps {WARMUP + 1}-{STEPS}: "
+          f"{[round(v, 1) for v in times]}), {SUP_BATCH / step_ms * 1e3:.3f} patches/s; step "
+          f"through the trainer {trainer_step_ms:.1f} ms (epoch {last['epoch']}: {last['train']:.3f} "
+          f"s for {SUP_ITERS} steps; the median step of that epoch between two "
+          f"synchronizations {timed_ms:.1f} ms); peak memory {peak5 / 2**30:.2f} GiB ({peak5} bytes); "
+          f"launches a training step {SUP_STEP_LAUNCHES}, a validation step {n_val}; losses "
+          f"{losses}")
+    print(f"[supervised] where a bare step's time goes (torch.profiler, {PROFILED_STEPS} steps): "
+          f"{split}")
+    del t, t2, data, seg, vdata, vseg
+    torch.cuda.empty_cache()
+
+    # 6. ATKTrainer steps of the files phase's PlainConvUNet (SGD, poly, bf16)
+    tp_ = Trainer(plain_unet_plans(), "3d_fullres", 0,
+                  {"channel_names": {str(c): f"MR{c}" for c in range(PLAIN_IN)},
+                   "labels": {"background": 0, "a": 1, "b": 2, "c": 3}, "file_ending": ".nii.gz"},
+                  get_trainer_config("ATKTrainer"), output_folder=os.path.join(root, "atk"),
+                  preprocessed_dataset_folder_base=os.path.join(root, "atk_pp"), device="cuda")
+    tp_.initialize()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    data = torch.randn((SUP_BATCH, *tp_.initial_patch_size, PLAIN_IN), generator=gen,
+                       device="cuda")
+    seg = torch.randint(0, PLAIN_CLASSES, (SUP_BATCH, *tp_.initial_patch_size, 1), generator=gen,
+                        device="cuda").to(torch.int16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times = []
+    for step in range(PLAIN_STEPS):
+        before_n = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = tp_.train_step(data, seg).item()
+        times.append((time.perf_counter() - t0) * 1e3)
+        n = since(before_n)
+        check(math.isfinite(loss) and n == PLAIN_STEP_LAUNCHES,
+              f"ATKTrainer step {step}: loss {loss}, launches {n}, expected {PLAIN_STEP_LAUNCHES}")
+    plain_launches = counts()
+    peak6 = torch.cuda.max_memory_allocated()
+    print(f"[supervised] ATKTrainer PlainConvUNet ({PLAIN_IN} channels, {PLAIN_CLASSES} labels, "
+          f"patch 128^3 from {tp_.initial_patch_size}, batch {SUP_BATCH}, bf16, SGD): steps "
+          f"{[round(v, 1) for v in times]} ms, peak memory {peak6 / 2**30:.2f} GiB; launches a "
+          f"step {PLAIN_STEP_LAUNCHES}")
+    runs = (launches, launches2, launches3, launches4, launches5)
+    return {k: sum(r[k] for r in runs) for k in COUNT_KEYS}, plain_launches
+
+
 def kernel_record(name, source, replaces, launches_by_path, max_abs, max_rel, totals_by_path,
                   per, launches_by_variant=None):
     """totals_by_path: {path: TOTAL_KEYS totals}; launches_by_path: {path:
@@ -1521,6 +1975,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
+    work = tempfile.TemporaryDirectory()
+    pretrained = os.path.join(work.name, "pretrain_checkpoint_final.pt")
     (conv_err, conv_rel, conv_step, conv_volume, conv_tile, conv_checked, k1_step,
      k1_infer) = conv_phase(gen)
     torch.cuda.empty_cache()
@@ -1532,6 +1988,13 @@ def main():
     zs_err, zs_rel, zs_probe, zs_variants = zslab_phase(gen)
     zc_err, zc_rel = max(zc_err, zs_err), max(zc_rel, zs_rel)
     torch.cuda.empty_cache()
+    sup_errs, sup_step, plain_step, sup_checked = supervised_gate_phase(gen)
+    conv_err, conv_rel = max(conv_err, sup_errs["conv3x3"][0]), max(conv_rel,
+                                                                     sup_errs["conv3x3"][1])
+    zc_err, zc_rel = max(zc_err, sup_errs["zslab"][0]), max(zc_rel, sup_errs["zslab"][1])
+    mom_err, mom_rel = max(mom_err, sup_errs["moments"][0]), max(mom_rel,
+                                                                 sup_errs["moments"][1])
+    torch.cuda.empty_cache()
 
     reference_phase()
     inference_reference_phase()
@@ -1541,24 +2004,32 @@ def main():
     torch.cuda.empty_cache()
     inference = inference_phase()
     torch.cuda.empty_cache()
-    trainer = trainer_phase(bare_step_ms)
+    trainer = trainer_phase(bare_step_ms, pretrained)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         files, predictor, ladder_data, case_tiles = files_phase(root)
-    for label, seen, checked in (("conv3x3", shapes.conv, conv_checked),
-                                 ("zslab", shapes.zslab, zc_checked),
-                                 ("moments", shapes.moments, mom_checked)):
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        supervised, plain_trainer = supervised_phase(root, pretrained)
+    work.cleanup()
+    torch.cuda.empty_cache()
+    for label, seen, checked in (("conv3x3", shapes.conv, conv_checked | sup_checked["conv3x3"]),
+                                 ("zslab", shapes.zslab, zc_checked | sup_checked["zslab"]),
+                                 ("moments", shapes.moments,
+                                  mom_checked | sup_checked["moments"])):
         check(seen <= checked, f"{label} launches at unchecked shapes: {sorted(seen - checked)}")
     print(f"[paths] every launch ran at a checked shape: {len(shapes.conv)} kernel #1, "
           f"{len(shapes.zslab)} kernel #2, {len(shapes.moments)} moments shapes")
     ladder_phase(predictor, ladder_data)  # tile batch 2 launches at B = 16: no path's
 
     runs = {"pretrain": pretrain, "inference": inference, "pretrain_trainer": trainer,
-            "files": files}
-    per = ("one pretraining step (B = 4), one inference volume (18 STUNet-B tiles at B = 8) "
-           f"and one case of the file path ({case_tiles} PlainConvUNet tiles at B = 8); "
-           "by_path splits them; launches_by_path counts every launch of each path's run, "
-           "the PretrainTrainer runs' too")
+            "files": files, "supervised": supervised, "plain_trainer": plain_trainer}
+    per = ("one pretraining step (B = 4), one inference volume (18 STUNet-B tiles at B = 8), "
+           f"one case of the file path ({case_tiles} PlainConvUNet tiles at B = 8), one "
+           "STUNet-B finetuning step and one ATKTrainer PlainConvUNet step (B = 2); by_path "
+           "splits them; launches_by_path counts every launch of each path's run, the "
+           "PretrainTrainer runs', the supervised runs' (training, resume, final validation, "
+           "checkpoint round trip, bare steps) and the ATKTrainer steps' too")
 
     def case(tile):  # one PlainConvUNet tile's totals -> one case's
         return {k: case_tiles * v for k, v in tile.items()}
@@ -1572,7 +2043,8 @@ def main():
     zslab_record = kernel_record(
         "conv3d_zslab", "anatomask_torch/csrc/zslab_conv.cu",
         "anatomask_tpu/ops/pallas_zslab_conv.py:142", launches("zslab"), zc_err, zc_rel,
-        {"pretrain_step": zc_step, "inference_volume": zc_volume, "files_case": case(zc_tile)},
+        {"pretrain_step": zc_step, "inference_volume": zc_volume, "files_case": case(zc_tile),
+         "supervised_step": sup_step["zslab"], "plain_trainer_step": plain_step["zslab"]},
         per + "; the main paths' per-tap forwards through conv3d_zconcat", by_variant("zslab"))
     zslab_record["probe"] = {"launches_by_variant": zs_variants, **{
         k: zs_probe[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -1582,7 +2054,8 @@ def main():
         "row_moments", "anatomask_torch/csrc/moments.cu", "probes/probe_rowstats.py:53",
         launches("moments"), mom_err, mom_rel,
         {"pretrain_step": mom_step[0], "inference_volume": mom_volume[0],
-         "files_case": case(mom_tile[0])},
+         "files_case": case(mom_tile[0]), "supervised_step": sup_step["moments"],
+         "plain_trainer_step": plain_step["moments"]},
         per + "; ms is the call (host and device, CUDA events), device_ms the kernel "
         "(torch.profiler)")
     case_dev = None if mom_tile[1] is None else case_tiles * mom_tile[1]
@@ -1596,7 +2069,8 @@ def main():
                       "anatomask_tpu/ops/pallas_conv.py:108", launches("conv3x3"),
                       conv_err, conv_rel,
                       {"pretrain_step": conv_step, "inference_volume": conv_volume,
-                       "files_case": case(conv_tile)}, per,
+                       "files_case": case(conv_tile), "supervised_step": sup_step["conv3x3"],
+                       "plain_trainer_step": plain_step["conv3x3"]}, per,
                       by_variant("conv3x3")),
         moments_record,
         zslab_record,

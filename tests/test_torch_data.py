@@ -83,6 +83,21 @@ def test_patch_sampler_matches_jax(folder, load_seg):
             np.testing.assert_array_equal(a[k], b[k])
 
 
+def test_probabilistic_oversampling_matches_jax(folder):
+    """A per-sample foreground draw in place of the batch's tail: the same
+    boxes, data and seg from one seed."""
+    kw = dict(batch_size=3, patch_size=INITIAL, final_patch_size=FINAL,
+              oversample_foreground_percent=0.5, annotated_classes_key=(1, 2), seed=8,
+              probabilistic_oversampling=True)
+    ours = PatchSampler(CaseDataset(folder), **kw)
+    theirs = JaxPatchSampler(JaxCaseDataset(folder), **kw)
+    for _ in range(4):
+        a, b = ours.generate_batch(), theirs.generate_batch()
+        assert a["keys"] == b["keys"]
+        for k in ("data", "seg"):
+            np.testing.assert_array_equal(a[k], b[k])
+
+
 def _caches(folder, **kw):
     kw = dict(initial_patch=INITIAL, final_patch=FINAL, oversample_foreground_percent=0.33,
               annotated_classes_key=(1, 2), batch_size=3, seed=11, **kw)
@@ -111,6 +126,26 @@ def test_device_cache_matches_jax(folder, whole):
     (s, o), (js, jo) = ours.sample_chunk(2), theirs.sample_chunk(2)
     np.testing.assert_array_equal(s, js)
     np.testing.assert_array_equal(o, jo)
+
+
+def test_device_cache_with_seg_matches_jax(folder):
+    """Supervised slots: the seg stacked after the data, -1 outside the case,
+    split back off as int16 (the JAX trainer's extract), with probabilistic
+    oversampling."""
+    ours, theirs = _caches(folder, whole_dataset_mode=True, capacity_mb=64, include_seg=True,
+                           probabilistic_oversampling=True)
+    assert ours.num_channels == theirs.num_channels == 2
+    np.testing.assert_array_equal(_as_f32(ours.cache), _as_f32(theirs.cache))
+    assert (_as_f32(ours.cache)[..., 1] == -1).any()
+    for _ in range(3):
+        (s, o), (js, jo) = ours.sample_batch(), theirs.sample_batch()
+        np.testing.assert_array_equal(s, js)
+        np.testing.assert_array_equal(o, jo)
+        data, seg = ours.extract_split(s, o)
+        ref = np.asarray(theirs.extract(js, jo))
+        assert data.dtype == torch.bfloat16 and seg.dtype == torch.int16
+        np.testing.assert_array_equal(_as_f32(data), _as_f32(ref[..., :1]))
+        np.testing.assert_array_equal(seg.numpy(), ref[..., 1:].astype(np.int16))
 
 
 def test_device_cache_refill_matches_jax(folder):

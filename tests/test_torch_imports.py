@@ -49,7 +49,8 @@ def test_package_has_the_mirrored_modules():
                 "inference.export", "preprocessing.cropping", "preprocessing.normalization",
                 "preprocessing.resampling", "imageio.base", "imageio.nifti",
                 "imageio.numpy_io", "imageio.meta_image", "imageio.natural_image",
-                "imageio.tiff_io", "imageio.minc_io", "imageio.registry"):
+                "imageio.tiff_io", "imageio.minc_io", "imageio.registry",
+                "training.losses", "training.logger", "evaluation.metrics"):
         assert f"anatomask_torch.{mod}" in names
 
 
