@@ -15,7 +15,7 @@ finetuning recipe):
 - the final validation: the sliding-window Predictor, export, summary.json.
 
 The port runs on one device, so JAX's mesh reduces to it: the global batch is
-the plans' batch and `scale_batch_to_devices` has nothing to scale. The
+the plans' batch (JAX's `scale_batch_to_devices` has no counterpart). The
 network computes in the compute dtype (bf16 by default) with fp32 weights;
 augmentation runs in fp32 and the batch is cast before the forward, as in the
 JAX step. Checkpoints are `checkpoint_{latest,best,final}.npz` in the JAX
@@ -95,7 +95,6 @@ class TrainerConfig:
     order0_data_interp: bool = False       # nearest data warp
     data_interpolation_order: int = 1      # 1 trilinear, 3 cubic B-spline
     network_norm: str = "instance"         # instance | batch (PlainConvUNet)
-    scale_batch_to_devices: bool = True    # one device: nothing to scale
     remat: bool = False                    # not ported: raises
     # GPU-resident case cache; None = env ATK_SUP_DEVICE_CACHE (default on)
     device_cache: Optional[bool] = None

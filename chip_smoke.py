@@ -127,11 +127,15 @@ runs with the launch counts set to 0 just before it and read just after,
 and every launch it makes must be at a shape that phases 3 and 4 (and 11's
 gates) held against the plain version (kernel #2's: its path shapes in
 phase 3); phase 12 runs after that check, as its tile batch 2 launches at
-B = 16 on the PlainConvUNet. The last three
+B = 16 on the PlainConvUNet. Between phases, free_memory collects reference
+cycles and empties the allocator's cache, so that each phase's memory
+peaks count its own tensors; after phase 11 it prints what stayed allocated
+before and after the collection. The last three
 lines of standard output are the nvidia-smi line, one JSON object {"kernels": [...]}, and
 {"ok": true, "device": {...}}.
 """
 import copy
+import gc
 import json
 import math
 import os
@@ -308,6 +312,16 @@ FILES_DATASET, RAW_SHAPE = "Dataset137_BraTSLike", (240, 240, 155)
 RAW_CASES = (("BraTS_000", (1.0, 1.0, 1.0)), ("BraTS_001", (1.0, 1.0, 1.0)),
              ("BraTS_002", (1.0, 1.0, 1.5)))
 BRAIN_MM = (80.0, 95.0, 70.0)
+
+
+def free_memory():
+    """Collect reference cycles, then return the allocator's cached blocks.
+    A trainer can sit in a cycle with its device tensors until a collection
+    runs (a module's first import from inside it keeps the importing frames,
+    and with them the trainer, in one), and torch.cuda.empty_cache() frees
+    only blocks that no tensor holds."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def check(cond, msg):
@@ -1895,8 +1909,8 @@ def supervised_phase(root, pretrain_checkpoint):
           f"{losses}")
     print(f"[supervised] where a bare step's time goes (torch.profiler, {PROFILED_STEPS} steps): "
           f"{split}")
-    del t, t2, data, seg, vdata, vseg
-    torch.cuda.empty_cache()
+    del t, t2, cache, data, seg, vdata, vseg
+    free_memory()
 
     # 6. ATKTrainer steps of the files phase's PlainConvUNet (SGD, poly, bf16)
     tp_ = Trainer(plain_unet_plans(), "3d_fullres", 0,
@@ -1979,40 +1993,45 @@ def main():
     pretrained = os.path.join(work.name, "pretrain_checkpoint_final.pt")
     (conv_err, conv_rel, conv_step, conv_volume, conv_tile, conv_checked, k1_step,
      k1_infer) = conv_phase(gen)
-    torch.cuda.empty_cache()
+    free_memory()
     zc_err, zc_rel, zc_step, zc_volume, zc_tile, zc_checked = zconcat_phase(gen, k1_step,
                                                                              k1_infer)
-    torch.cuda.empty_cache()
+    free_memory()
     mom_err, mom_rel, mom_step, mom_volume, mom_tile, mom_checked = moments_phase(gen)
-    torch.cuda.empty_cache()
+    free_memory()
     zs_err, zs_rel, zs_probe, zs_variants = zslab_phase(gen)
     zc_err, zc_rel = max(zc_err, zs_err), max(zc_rel, zs_rel)
-    torch.cuda.empty_cache()
+    free_memory()
     sup_errs, sup_step, plain_step, sup_checked = supervised_gate_phase(gen)
     conv_err, conv_rel = max(conv_err, sup_errs["conv3x3"][0]), max(conv_rel,
                                                                      sup_errs["conv3x3"][1])
     zc_err, zc_rel = max(zc_err, sup_errs["zslab"][0]), max(zc_rel, sup_errs["zslab"][1])
     mom_err, mom_rel = max(mom_err, sup_errs["moments"][0]), max(mom_rel,
                                                                  sup_errs["moments"][1])
-    torch.cuda.empty_cache()
+    free_memory()
 
     reference_phase()
     inference_reference_phase()
-    torch.cuda.empty_cache()
+    free_memory()
     shapes = LaunchShapes()  # from here on, only the main paths launch kernels
     pretrain, bare_step_ms = slice_phase()
-    torch.cuda.empty_cache()
+    free_memory()
     inference = inference_phase()
-    torch.cuda.empty_cache()
+    free_memory()
     trainer = trainer_phase(bare_step_ms, pretrained)
-    torch.cuda.empty_cache()
+    free_memory()
     with tempfile.TemporaryDirectory() as root:
         files, predictor, ladder_data, case_tiles = files_phase(root)
-    torch.cuda.empty_cache()
+    free_memory()
     with tempfile.TemporaryDirectory() as root:
         supervised, plain_trainer = supervised_phase(root, pretrained)
     work.cleanup()
-    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    free_memory()
+    left = torch.cuda.memory_allocated()
+    print(f"[memory] allocated after the supervised phase: {held / 2**30:.2f} GiB ({held} "
+          f"bytes); after gc.collect(): {left / 2**30:.2f} GiB ({left} bytes, the files "
+          f"phase's predictor among it)")
     for label, seen, checked in (("conv3x3", shapes.conv, conv_checked | sup_checked["conv3x3"]),
                                  ("zslab", shapes.zslab, zc_checked | sup_checked["zslab"]),
                                  ("moments", shapes.moments,

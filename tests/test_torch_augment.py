@@ -176,6 +176,30 @@ def _mixed_key(jcfg, batch):
     return _mixed_draw(jcfg.spatial, batch)[0]
 
 
+TIE_EPS = 1e-4  # the warped data's tolerance
+
+
+def _tie_gap(key, jcfg, seg, mirror_key=None):
+    """Per voxel of the reference's order-1 per-label seg warp, the distance
+    of the nearest label's warped indicator to the 0.5 threshold. Each
+    indicator (out-of-bounds corners -1, as _seg_per_label_sample) is warped
+    by JAX's data path as indicator + 1 (cval 0), then mirrored as the
+    pipeline mirrors; shape (B, *patch, 1)."""
+    labels = sorted(jcfg.spatial.seg_labels)
+    ind = np.concatenate([seg == label for label in labels], -1).astype(np.float32) + 1
+    warped, _ = jax_aug.spatial_augment(jnp.asarray(ind), None, key, jcfg.spatial)
+    if mirror_key is not None:
+        warped, _ = jax_aug.mirror(warped, None, mirror_key, jcfg.mirror_axes)
+    return np.abs(np.asarray(warped) - 1.5).min(-1, keepdims=True)
+
+
+def _assert_equal_but_at_ties(got, ref, gap):
+    """got == ref wherever no label's warped indicator lies within TIE_EPS of
+    0.5 in the reference."""
+    differ = got != ref
+    assert (gap[differ] < TIE_EPS).all(), np.sort(gap[differ])[-5:]
+
+
 @pytest.mark.parametrize("order", [1, 0])
 def test_seg_warp_matches_jax(order):
     """Order 1: each label's indicator warped linearly and thresholded at 0.5
@@ -223,7 +247,7 @@ def test_elastic_field_matches_jax():
     got_d, got_s = aug.spatial_augment(_t(data), _t(A), _t(ident), cfg.spatial, seg=_t(seg),
                                        disp=disp)
     np.testing.assert_allclose(got_d.numpy(), np.asarray(ref_d), rtol=0, atol=1e-4)
-    assert (got_s.numpy() == np.asarray(ref_s)).mean() >= 0.999
+    _assert_equal_but_at_ties(got_s.numpy(), np.asarray(ref_s), _tie_gap(key, jcfg, seg))
 
 
 INTENSITY_ON = dict(p_noise=1.0, p_blur=1.0, p_brightness=1.0, p_contrast=1.0, p_lowres=1.0,
@@ -328,9 +352,16 @@ def test_ported_part_matches_jax(part):
     rd = np.asarray(rd)
     np.testing.assert_allclose(gd.numpy(), rd, rtol=0, atol=1e-4 * np.abs(rd).max())
     assert len(gt) == len(rt) == 2
-    for g, r in zip(gt, rt):
+    if part == "elastic":
+        keys = jax.random.split(key, 11)
+        gap = jnp.asarray(_tie_gap(keys[0], jcfg, seg, mirror_key=keys[8]))
+        gaps = [np.asarray(g) for g in jax_aug.downsample_seg_for_ds(gap, jcfg.ds_scales)]
+    for i, (g, r) in enumerate(zip(gt, rt)):
         assert g.dtype == torch.int16
-        assert (g.numpy() == np.asarray(r)).mean() >= (0.999 if part == "elastic" else 1.0)
+        if part == "elastic":
+            _assert_equal_but_at_ties(g.numpy(), np.asarray(r), gaps[i])
+        else:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
 
 
 def test_train_augment_fn_draws_then_applies():
