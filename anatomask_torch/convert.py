@@ -24,11 +24,20 @@ and `convert_torch_resenc_state_dict` of `resenc_state_dict_from_jax`.
 PlainConvUNet and ResidualEncoderUNet, bit for bit: the supervised trainer
 writes its checkpoints in the JAX package's layout with it, so that both
 packages' predictors read them.
+
+SparK and the pretraining modules convert both ways through rule tables
+(`RULES`): each rule pairs a JAX path template with a state_dict key
+template and a layout (conv, transposed conv, dense, vector, mask token), so
+that every JAX leaf is one torch tensor and back. `from_jax(name, params)`
+and `to_jax(name, state_dict)` apply the table `name`: "spark" (STUNet or
+MedNeXt encoder, densify layers, LightDecoder), and the standalone
+"light_decoder", "ds_decoder", "smim_decoder", "smim_two_decoder",
+"convnext_block", "grn" and "norm".
 """
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -36,10 +45,6 @@ import torch
 
 def _conv(k) -> np.ndarray:
     return np.asarray(k).transpose(4, 3, 0, 1, 2)
-
-
-def _convt(k) -> np.ndarray:
-    return np.flip(np.asarray(k), (0, 1, 2)).transpose(3, 4, 0, 1, 2)
 
 
 def _norm(prefix: str, node: Mapping, out: Dict[str, np.ndarray]) -> None:
@@ -84,37 +89,6 @@ def stunet_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
             _conv_module(f"seg_outputs.{i}", node, out)
         else:
             raise ValueError(f"not a STUNet parameter: {name}")
-    return _tensors(out)
-
-
-def spark_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    out: Dict[str, np.ndarray] = {}
-    for stage_name, stage in params["sparse_encoder"].items():
-        d = stage_name.rsplit("_", 1)[1]
-        _res_stage(f"sparse_encoder.sp_cnn.conv_blocks_context.{d}", stage, out)
-    for name, node in params.items():
-        m = re.fullmatch(r"(densify_norm|densify_proj|mask_token)(\d+)", name)
-        if m is None:
-            continue
-        kind, i = m.groups()
-        if kind == "densify_norm":
-            _norm(f"densify_norms.{i}", node, out)
-        elif kind == "densify_proj":
-            _conv_module(f"densify_projs.{i}", node, out)
-        else:
-            out[f"mask_tokens.{i}"] = np.asarray(node).reshape(1, -1, 1, 1, 1)
-    dec = params["dense_decoder"]
-    for name, node in dec.items():
-        if name == "proj":
-            out["dense_decoder.proj.weight"] = _conv(node["kernel"])
-            out["dense_decoder.proj.bias"] = np.asarray(node["bias"])
-            continue
-        prefix = f"dense_decoder.dec.{name[len('dec'):]}"
-        out[f"{prefix}.up_sample.weight"] = _convt(node["up_sample"]["conv"]["kernel"])
-        out[f"{prefix}.up_sample.bias"] = np.asarray(node["up_sample"]["conv"]["bias"])
-        for j in (0, 1):
-            out[f"{prefix}.conv.{3 * j}.weight"] = _conv(node[f"conv{j}"]["kernel"])
-            _norm(f"{prefix}.conv.{3 * j + 1}", node[f"norm{j}"], out)
     return _tensors(out)
 
 
@@ -242,3 +216,142 @@ def state_dict_to_jax(arch_name: str, state_dict: Mapping) -> dict:
             node = node.setdefault(p, {})
         node[path[-1]] = np.ascontiguousarray(v, np.float32)
     return tree
+
+
+# --- rule tables: SparK and the pretraining modules, both ways ---------------------
+
+_CONV, _CONVT, _DENSE, _VEC, _TOKEN = "conv", "convt", "dense", "vec", "token"
+Rule = Tuple[str, str, str]  # (JAX path template, state_dict key template, layout)
+
+
+def _layout_to_torch(kind: str, v: np.ndarray) -> np.ndarray:
+    if kind == _CONV:
+        return v.transpose(4, 3, 0, 1, 2)
+    if kind == _CONVT:
+        return np.flip(v, (0, 1, 2)).transpose(3, 4, 0, 1, 2)
+    if kind == _DENSE:
+        return v.T
+    return v.reshape(1, -1, 1, 1, 1) if kind == _TOKEN else v
+
+
+def _layout_to_jax(kind: str, v: np.ndarray) -> np.ndarray:
+    if kind == _CONV:
+        return v.transpose(2, 3, 4, 1, 0)
+    if kind == _CONVT:
+        return np.flip(v.transpose(2, 3, 4, 0, 1), (0, 1, 2))
+    if kind == _DENSE:
+        return v.T
+    return v.reshape(-1) if kind == _TOKEN else v
+
+
+def _affine_rules(jax: str, torch_: str) -> List[Rule]:
+    """A norm's scale/bias <-> weight/bias."""
+    return [(f"{jax}scale", f"{torch_}weight", _VEC), (f"{jax}bias", f"{torch_}bias", _VEC)]
+
+
+def _conv_rules(jax: str, torch_: str, kind: str = _CONV) -> List[Rule]:
+    """A conv's kernel/bias <-> weight/bias (JAX's ConvND nests them under
+    'conv/', which `jax` then ends with)."""
+    return [(f"{jax}kernel", f"{torch_}weight", kind), (f"{jax}bias", f"{torch_}bias", _VEC)]
+
+
+def _prefixed(rules: List[Rule], jax: str, torch_: str) -> List[Rule]:
+    return [(jax + j, torch_ + t, k) for j, t, k in rules]
+
+
+_UNET_BLOCK = (_conv_rules("up_sample/conv/", "up_sample.", _CONVT)
+               + [("conv0/kernel", "conv.0.weight", _CONV), ("conv1/kernel", "conv.3.weight", _CONV)]
+               + _affine_rules("norm0/", "conv.1.") + _affine_rules("norm1/", "conv.4."))
+_LIGHT_DECODER = _prefixed(_UNET_BLOCK, "dec{i}/", "dec.{i}.") + _conv_rules("proj/", "proj.")
+_STUNET_ENCODER = (_conv_rules("{c:conv\\d}/conv/", "{c}.") + _affine_rules("{n:norm\\d}/", "{n}."))
+_MEDNEXT_BLOCK = _conv_rules("{c:conv\\d|res_conv}/", "{c}.") + _affine_rules("norm/", "norm.")
+_MEDNEXT_ENCODER = (_conv_rules("stem/", "stem.")
+                    + _prefixed(_MEDNEXT_BLOCK, "enc_block_{s}_{b}/", "enc_block_{s}.{b}.")
+                    + _prefixed(_MEDNEXT_BLOCK, "down_{s}/", "down_{s}.")
+                    + _prefixed(_MEDNEXT_BLOCK, "bottleneck_{b}/", "bottleneck.{b}."))
+
+RULES: Dict[str, List[Rule]] = {
+    "spark": (_prefixed(_STUNET_ENCODER, "sparse_encoder/conv_blocks_context_{d}/block{b}/",
+                        "sparse_encoder.sp_cnn.conv_blocks_context.{d}.{b}.")
+              + _prefixed(_MEDNEXT_ENCODER, "sparse_encoder/", "sparse_encoder.sp_cnn.")
+              + _affine_rules("densify_norm{i}/", "densify_norms.{i}.")
+              + _conv_rules("densify_proj{i}/conv/", "densify_projs.{i}.")
+              + [("mask_token{i}", "mask_tokens.{i}", _TOKEN)]
+              + _prefixed(_LIGHT_DECODER, "dense_decoder/", "dense_decoder.")),
+    "light_decoder": _LIGHT_DECODER,
+    "ds_decoder": (_prefixed(_UNET_BLOCK, "dec{i}/", "dec.{i}.")
+                   + _conv_rules("ds_proj{i}/", "ds_projs.{i}.")),
+    "smim_decoder": _conv_rules("up/", "up.", _CONVT) + _conv_rules("proj/", "proj."),
+    "smim_two_decoder": _conv_rules("up{i}/", "ups.{i}.", _CONVT) + _conv_rules("proj/", "proj."),
+    "convnext_block": (_conv_rules("dwconv/", "dwconv.") + _affine_rules("norm/", "norm.")
+                       + _conv_rules("pwconv1/", "pwconv1.", _DENSE)
+                       + _conv_rules("pwconv2/", "pwconv2.", _DENSE) + [("gamma", "gamma", _VEC)]),
+    "grn": [("gamma", "gamma", _VEC), ("beta", "beta", _VEC)],
+    "norm": _affine_rules("", ""),
+}
+
+_FIELD = re.compile(r"\{(\w+)(?::([^}]*))?\}")
+
+
+def _rule_regex(rule: Rule, side: int) -> "re.Pattern":
+    """The regex of rule[side]: a field {name} matches digits, {name:regex}
+    (written in either template of the rule) the regex; the rest literally."""
+    fields = {m[1]: m[2] for t in rule[:2] for m in _FIELD.finditer(t) if m[2]}
+    out, pos = "", 0
+    for m in _FIELD.finditer(rule[side]):
+        out += (re.escape(rule[side][pos:m.start()])
+                + f"(?P<{m[1]}>{fields.get(m[1], '[0-9]+')})")
+        pos = m.end()
+    return re.compile(out + re.escape(rule[side][pos:]))
+
+
+def _apply_rules(rules: List[Rule], flat: Mapping[str, np.ndarray], side: int,
+                 layout) -> Dict[str, np.ndarray]:
+    """Each entry of `flat`, keyed by the rules' `side` (0 JAX, 1 torch),
+    renamed to the other side by the first rule whose template matches it."""
+    out = {}
+    for key, v in flat.items():
+        for rule in rules:
+            m = _rule_regex(rule, side).fullmatch(key)
+            if m:
+                out[_FIELD.sub(lambda f: m[f[1]], rule[1 - side])] = layout(rule[2], v)
+                break
+        else:
+            raise ValueError(f"no conversion rule for {key!r}")
+    return out
+
+
+def from_jax(name: str, params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX params of a module of RULES[name] -> the port's state_dict."""
+    flat = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, f"{prefix}{k}/")
+            else:
+                flat[prefix + k] = np.asarray(v)
+
+    walk(params, "")
+    return _tensors(_apply_rules(RULES[name], flat, 0, _layout_to_torch))
+
+
+def to_jax(name: str, state_dict: Mapping) -> dict:
+    """The port's state_dict of a module of RULES[name] -> its JAX params
+    (nested dicts of fp32 numpy arrays), the inverse of `from_jax`. Buffers
+    (running statistics) are not parameters and stay behind."""
+    flat = {k: t.detach().cpu().numpy() for k, t in state_dict.items()
+            if not k.endswith(("running_mean", "running_var"))}
+    tree: dict = {}
+    for path, v in _apply_rules(RULES[name], flat, 1, _layout_to_jax).items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(v, np.float32)
+    return tree
+
+
+def spark_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX SparK's params -> the port's SparK state_dict."""
+    return from_jax("spark", params)

@@ -21,10 +21,11 @@ def build_network_from_plans(plans_manager, configuration_manager, num_input_cha
                              deep_supervision: bool = True,
                              dtype: torch.dtype = torch.float32, device="cuda",
                              generator: Optional[torch.Generator] = None,
-                             norm: str = "instance") -> nn.Module:
+                             norm: str = "instance", remat: bool = False) -> nn.Module:
     """arch_name overrides the plans' UNet_class_name; norm ("instance" or
-    "batch") is PlainConvUNet's. Weights are random from `generator`
-    (default: seed 0); a checkpoint's replace them."""
+    "batch") is PlainConvUNet's; remat checkpoints activations (STUNet-H
+    always). Weights are random from `generator` (default: seed 0); a
+    checkpoint's replace them."""
     cm = configuration_manager
     name = arch_name or cm.UNet_class_name
     strides = [list(s) for s in cm.pool_op_kernel_sizes]
@@ -44,7 +45,7 @@ def build_network_from_plans(plans_manager, configuration_manager, num_input_cha
         return stunet_preset(preset, num_input_channels, num_output_channels,
                              pool_op_kernel_sizes=pool_sizes, conv_kernel_sizes=kernels,
                              deep_supervision=deep_supervision, dtype=dtype, device=device,
-                             generator=generator)
+                             generator=generator, remat=remat or None)
 
     device = resolve_device(device)
     if generator is None:
@@ -54,7 +55,8 @@ def build_network_from_plans(plans_manager, configuration_manager, num_input_cha
     common = dict(input_channels=num_input_channels, num_classes=num_output_channels,
                   n_stages=n_stages, features_per_stage=features, kernel_sizes=kernels,
                   strides=strides, n_conv_per_stage_decoder=list(cm.n_conv_per_stage_decoder),
-                  deep_supervision=deep_supervision, dtype=dtype, generator=generator)
+                  deep_supervision=deep_supervision, dtype=dtype, generator=generator,
+                  remat=remat)
     if name == "ResidualEncoderUNet":
         net = ResidualEncoderUNet(n_blocks_per_stage=list(cm.n_conv_per_stage_encoder), **common)
     elif name == "PlainConvUNet":

@@ -1,6 +1,7 @@
 """Shared layers: 3D conv with torch k//2 padding, InstanceNorm and BatchNorm
 with fp32 statistics from the moments kernel, the k = s transposed conv,
-LeakyReLU, nearest upsampling. Counterpart of anatomask_tpu/models/layers.py.
+LeakyReLU, nearest upsampling, and `run_remat` (activation checkpointing of
+one module). Counterpart of anatomask_tpu/models/layers.py.
 
 Activations are NCDHW in `torch.channels_last_3d` memory (NDHWC underneath),
 so the 3x3x3 kernel gets a contiguous NDHWC view by a free permute.
@@ -22,6 +23,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as fn
+import torch.utils.checkpoint
 
 from anatomask_torch.ops.conv3x3 import conv3d_3x3
 from anatomask_torch.ops.moments import row_moments
@@ -79,20 +81,21 @@ class ConvND(nn.Module):
       (kernel #1, rounded once);
     - 3x3x3 strided along the first axis, at >= MIN_VOLUME output voxels:
       `conv3d_z2d` (three `F.conv3d`, per tap);
-    - everything else (smaller strided convs, 1x1x1, anisotropic kernels, and
-      3x3x3 strided on the last two axes only, which no model here has):
-      one `F.conv3d`, as plain convs the JAX package leaves to XLA.
+    - everything else (smaller strided convs, 1x1x1, grouped convs such as
+      the depthwise 7x7x7 ones, anisotropic kernels, and 3x3x3 strided on the
+      last two axes only, which no model here has): one `F.conv3d`, as plain
+      convs the JAX package leaves to XLA.
 
-    Parameters `weight` (O, I, *k) and `bias` as in torch's Conv3d."""
+    Parameters `weight` (O, I / groups, *k) and `bias` as in torch's Conv3d."""
 
     def __init__(self, cin: int, cout: int, kernel_size: Union[int, Sequence[int]],
                  stride: Union[int, Sequence[int]] = 1, bias: bool = True,
                  dtype: torch.dtype = torch.float32, init: str = "he",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, groups: int = 1):
         super().__init__()
         self.kernel_size, self.stride = _triple(kernel_size), _triple(stride)
-        self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(cout, cin, *self.kernel_size))
+        self.dtype, self.groups = dtype, groups
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups, *self.kernel_size))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         with torch.no_grad():
             (he_normal_ if init == "he" else trunc_normal_)(self.weight, generator)
@@ -101,14 +104,16 @@ class ConvND(nn.Module):
         x = x.to(self.dtype).contiguous(memory_format=CL3D)
         w = self.weight.to(self.dtype)
         out = math.prod((n - 1) // s + 1 for n, s in zip(x.shape[2:], self.stride))
-        per_tap = self.kernel_size == (3, 3, 3) and out >= MIN_VOLUME
-        if self.kernel_size == (3, 3, 3) and self.stride == (1, 1, 1):
+        k3 = self.kernel_size == (3, 3, 3) and self.groups == 1
+        per_tap = k3 and out >= MIN_VOLUME
+        if k3 and self.stride == (1, 1, 1):
             conv = conv3d_zconcat if per_tap else conv3d_3x3
             y = conv(x.permute(0, 2, 3, 4, 1), w.permute(2, 3, 4, 1, 0)).permute(0, 4, 1, 2, 3)
         elif per_tap and self.stride[0] > 1:
             y = conv3d_z2d(x, w, self.stride)
         else:
-            y = fn.conv3d(x, w, None, self.stride, tuple(k // 2 for k in self.kernel_size))
+            y = fn.conv3d(x, w, None, self.stride, tuple(k // 2 for k in self.kernel_size),
+                          groups=self.groups)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype).view(1, -1, 1, 1, 1)
         return y
@@ -193,6 +198,16 @@ class SubpixelConvTranspose(nn.Module):
         y = torch.empty((B, D, s1, H, s2, W, s3, F), dtype=dt, device=x.device)
         torch.add(shuffled, self.bias.to(dt), out=y)
         return y.view(B, D * s1, H * s2, W * s3, F).permute(0, 4, 1, 2, 3)
+
+
+def run_remat(remat: bool, module: nn.Module, *args):
+    """module(*args), with `remat` under activation checkpointing (the JAX
+    package's nn.remat): where autograd records, the module's activations are
+    dropped after its forward and recomputed, kernels and all, when the
+    backward reaches it."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(module, *args, use_reentrant=False)
+    return module(*args)
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:

@@ -21,7 +21,10 @@ residual encoder, the port's STUNet `BasicResBlock`),
   n_stages - 2 - d, concat with that skip, n_conv_per_stage_decoder[d]
   convs, a 1x1 seg head. With deep supervision every head comes back,
   highest resolution first; without, only the last head is computed (the
-  JAX model's other heads go unread).
+  JAX model's other heads go unread);
+- with `remat`, activation checkpointing as the JAX models place it: every
+  PlainConvUNet stage, every residual block of the residual encoder, every
+  decoder stage.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ import torch
 import torch.nn as nn
 
 from anatomask_torch.models.layers import (BatchNorm, ConvND, InstanceNorm,
-                                           SubpixelConvTranspose, leaky_relu)
+                                           SubpixelConvTranspose, leaky_relu, run_remat)
 from anatomask_torch.models.stunet import BasicResBlock
 
 
@@ -65,12 +68,13 @@ class StackedConvs(nn.Module):
 
 class ResidualBlocks(nn.Module):
     """n BasicResBlock; the first carries the stride and, where the shape
-    changes, the 1x1 skip."""
+    changes, the 1x1 skip. With `remat` each block is checkpointed."""
 
     def __init__(self, cin: int, cout: int, n: int, kernel_size: Sequence[int],
                  stride: Sequence[int], dtype: torch.dtype,
-                 generator: Optional[torch.Generator]):
+                 generator: Optional[torch.Generator], remat: bool = False):
         super().__init__()
+        self.remat = remat
         proj = any(s != 1 for s in stride) or cin != cout
         self.blocks = nn.Sequential(*(
             BasicResBlock(cin, cout, kernel_size, stride, use_1x1conv=proj, dtype=dtype,
@@ -79,18 +83,23 @@ class ResidualBlocks(nn.Module):
             for b in range(n)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.blocks(x)
+        for block in self.blocks:
+            x = run_remat(self.remat, block, x)
+        return x
 
 
 class Encoder(nn.Module):
-    def __init__(self, stages: List[nn.Module]):
+    """The stages in turn, each checkpointed where `remat`."""
+
+    def __init__(self, stages: List[nn.Module], remat: bool = False):
         super().__init__()
         self.stages = nn.ModuleList(stages)
+        self.remat = remat
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         skips = []
         for stage in self.stages:
-            x = stage(x)
+            x = run_remat(self.remat, stage, x)
             skips.append(x)
         return skips
 
@@ -101,9 +110,9 @@ class Decoder(nn.Module):
     def __init__(self, num_classes: int, features: Sequence[int],
                  kernel_sizes: Sequence[Sequence[int]], strides: Sequence[Sequence[int]],
                  n_conv_per_stage: Sequence[int], norm: str, deep_supervision: bool,
-                 dtype: torch.dtype, generator: Optional[torch.Generator]):
+                 dtype: torch.dtype, generator: Optional[torch.Generator], remat: bool = False):
         super().__init__()
-        self.deep_supervision = deep_supervision
+        self.deep_supervision, self.remat = deep_supervision, remat
         n = len(features)
         dd = dict(dtype=dtype, generator=generator)
         tgts = [n - 2 - d for d in range(n - 1)]  # the skip level decoder stage d ends at
@@ -123,7 +132,7 @@ class Decoder(nn.Module):
             # channels_last_3d memory for the kernels that read it
             x = torch.cat([up(x).permute(0, 2, 3, 4, 1),
                            skips[-2 - d].permute(0, 2, 3, 4, 1)], dim=-1)
-            x = stage(x.permute(0, 4, 1, 2, 3))
+            x = run_remat(self.remat, stage, x.permute(0, 4, 1, 2, 3))
             if self.deep_supervision:
                 seg_outputs.append(self.seg_layers[d](x))
         if self.deep_supervision:
@@ -152,14 +161,15 @@ class PlainConvUNet(_UNet):
                  strides: Sequence[Sequence[int]], n_conv_per_stage: Sequence[int],
                  n_conv_per_stage_decoder: Sequence[int], deep_supervision: bool = True,
                  norm: str = "instance", dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, remat: bool = False):
         f = list(features_per_stage)[:n_stages]
         cins = [input_channels] + f[:-1]
         super().__init__(
             Encoder([StackedConvs(cins[s], f[s], n_conv_per_stage[s], kernel_sizes[s],
-                                  strides[s], norm, dtype, generator) for s in range(n_stages)]),
+                                  strides[s], norm, dtype, generator) for s in range(n_stages)],
+                    remat),
             Decoder(num_classes, f, kernel_sizes, strides, n_conv_per_stage_decoder, norm,
-                    deep_supervision, dtype, generator))
+                    deep_supervision, dtype, generator, remat))
 
 
 class ResidualEncoderUNet(_UNet):
@@ -171,11 +181,12 @@ class ResidualEncoderUNet(_UNet):
                  strides: Sequence[Sequence[int]], n_blocks_per_stage: Sequence[int],
                  n_conv_per_stage_decoder: Sequence[int], deep_supervision: bool = True,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, remat: bool = False):
         f = list(features_per_stage)[:n_stages]
         cins = [input_channels] + f[:-1]
         super().__init__(
             Encoder([ResidualBlocks(cins[s], f[s], n_blocks_per_stage[s], kernel_sizes[s],
-                                    strides[s], dtype, generator) for s in range(n_stages)]),
+                                    strides[s], dtype, generator, remat)
+                     for s in range(n_stages)]),
             Decoder(num_classes, f, kernel_sizes, strides, n_conv_per_stage_decoder, "instance",
-                    deep_supervision, dtype, generator))
+                    deep_supervision, dtype, generator, remat))

@@ -13,7 +13,10 @@ them back.
   1x1 skip) + (depth[d] - 1) unit-stride blocks;
 - decoder: nearest upsample + 1x1 conv, concat with the skip, a stage of
   BasicResBlocks, a 1x1 seg head per stage; with deep supervision the heads
-  come back highest resolution first.
+  come back highest resolution first;
+- with `remat` every stage (`_ResStage`, encoder and decoder) runs under
+  activation checkpointing, as the JAX package's `nn.remat(_ResStage)`;
+  STUNet-H (`stunet_preset("huge")`) has it by default.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ import torch
 import torch.nn as nn
 
 from anatomask_torch.device import resolve_device
-from anatomask_torch.models.layers import ConvND, InstanceNorm, leaky_relu, upsample_nearest
+from anatomask_torch.models.layers import (ConvND, InstanceNorm, leaky_relu, run_remat,
+                                           upsample_nearest)
 
 
 class BasicResBlock(nn.Module):
@@ -89,8 +93,9 @@ class STUNet(nn.Module):
                  pool_op_kernel_sizes: Optional[Sequence[Sequence[int]]] = None,
                  conv_kernel_sizes: Optional[Sequence[Sequence[int]]] = None,
                  deep_supervision: bool = True, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, remat: bool = False):
         super().__init__()
+        self.remat = remat
         num_pool = len(dims) - 1
         pools = ([tuple(p) for p in pool_op_kernel_sizes] if pool_op_kernel_sizes is not None
                  else [(2, 2, 2)] * num_pool)
@@ -119,7 +124,7 @@ class STUNet(nn.Module):
     def forward(self, x: torch.Tensor):
         skips = []
         for stage in self.conv_blocks_context:
-            x = stage(x)
+            x = run_remat(self.remat, stage, x)
             skips.append(x)
         x = skips.pop()
         seg_outputs = []
@@ -129,7 +134,7 @@ class STUNet(nn.Module):
             # channels_last_3d memory for the kernels that read it
             x = torch.cat([up(x).permute(0, 2, 3, 4, 1),
                            skips.pop().permute(0, 2, 3, 4, 1)], dim=-1)
-            x = stage(x.permute(0, 4, 1, 2, 3))
+            x = run_remat(self.remat, stage, x.permute(0, 4, 1, 2, 3))
             if self.deep_supervision:
                 seg_outputs.append(head(x))
         if self.deep_supervision:
@@ -149,9 +154,11 @@ _PRESETS = {
 def stunet_preset(name: str, input_channels: int, num_classes: int,
                   pool_op_kernel_sizes=None, conv_kernel_sizes=None,
                   deep_supervision: bool = True, dtype: torch.dtype = torch.float32,
-                  device="cuda", generator: Optional[torch.Generator] = None) -> STUNet:
+                  device="cuda", generator: Optional[torch.Generator] = None,
+                  remat: Optional[bool] = None) -> STUNet:
     """STUNet-S/B/L/H (dims = mult * [1, 2, 4, 8, 16, 16]), initialised on the
-    CPU from `generator` (default: seed 0), then moved to `device`."""
+    CPU from `generator` (default: seed 0), then moved to `device`. remat
+    None: on for "huge" only, as the JAX preset."""
     if name not in _PRESETS:
         raise ValueError(f"unknown STUNet preset {name!r}; choose from {sorted(_PRESETS)}")
     device = resolve_device(device)
@@ -159,5 +166,6 @@ def stunet_preset(name: str, input_channels: int, num_classes: int,
         generator = torch.Generator().manual_seed(0)
     mult, depth = _PRESETS[name]
     net = STUNet(input_channels, num_classes, depth, [mult * x for x in (1, 2, 4, 8, 16, 16)],
-                 pool_op_kernel_sizes, conv_kernel_sizes, deep_supervision, dtype, generator)
+                 pool_op_kernel_sizes, conv_kernel_sizes, deep_supervision, dtype, generator,
+                 remat=name == "huge" if remat is None else remat)
     return net.to(device)

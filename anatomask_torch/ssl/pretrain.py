@@ -3,13 +3,19 @@ step, and the trainer that runs them the way users run pretraining.
 Counterpart of anatomask_tpu/ssl/pretrain.py.
 
 `anatomask_train_step` is the step that the JAX package builds and bench.py
-times (one microbatch):
+times, in `grad_accum_steps` microbatches (JAX's `_accumulate`):
 
-1. the EMA teacher reconstructs under a random mask (no_grad);
-2. its per-patch loss picks the hard mask (`generate_guided_mask`);
-3. the student runs forward and backward under the hard mask;
-4. global-norm clip, then AdamW on the student at the step's LR;
-5. EMA update of the teacher at the epoch's decay.
+1. per microbatch, in turn: the EMA teacher reconstructs under a random mask
+   (no_grad), its per-patch loss picks the hard mask
+   (`generate_guided_mask`), the student runs forward and backward under it;
+2. the summed gradients divided by the microbatch count, global-norm clip,
+   then AdamW or LAMB on the student at the step's LR;
+3. EMA update of the teacher at the epoch's decay.
+
+`build_spark_model` builds every configuration of the JAX PretrainConfig:
+STUNet-S/B/L/H or MedNeXt encoders, densify norms "in"/"bn"/"ln", decoder
+norms "in"/"bn", the batch-pooled norms of the reference-fidelity mode, and
+activation checkpointing (`remat`, always on for STUNet-H).
 
 `PretrainTrainer.run_pretraining` wraps it as `atk_pretrain` does: the case
 split, the foreground-oversampling patch sampler, the GPU-resident case cache
@@ -30,7 +36,7 @@ import os
 import threading
 import time
 from dataclasses import asdict, dataclass
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,58 +57,94 @@ from anatomask_torch.plans.plans_handler import PlansManager, load_json, save_js
 from anatomask_torch.ssl.anatomask import generate_guided_mask, guided_keep_ratio
 from anatomask_torch.ssl.decoder import LightDecoder
 from anatomask_torch.ssl.ema import ema_decay_schedule, ema_update
+from anatomask_torch.ssl.mednext import SparseMedNeXtEncoder
 from anatomask_torch.ssl.spark import SparK, random_keep_mask, spark_loss
 from anatomask_torch.ssl.sparse import SparseSTUNetEncoder
 from anatomask_torch.training import checkpoint as ckpt_lib
 from anatomask_torch.training.schedules import linear_warmup_cosine_schedule
 from anatomask_torch.training.trainer import clip_by_global_norm_, generate_crossval_split
 
-STUNET_B_DIMS = (32, 64, 128, 256, 512)
-MODEL_SIZE = "B"  # the encoder head the port builds (names the output folder)
-# bench.py's optimizer constants, and the teacher's EMA decay ramp
-LR, WEIGHT_DECAY = 1e-4, 1e-5
-GRAD_CLIP = 12.0
-EMA_DECAY, EMA_DECAY_END = 0.999, 0.9999
+_STUNET_WIDTHS = {"S": 16, "B": 32, "L": 64, "H": 96}  # the encoder's width multiplier
+_STUNET_DEPTHS = {"S": 1, "B": 1, "L": 2, "H": 3}      # its blocks a stage
 
 
 @dataclass(frozen=True)
 class PretrainConfig:
-    """The fields of anatomask_tpu's PretrainConfig that building the model
-    and the PretrainTrainer read, with the JAX package's defaults. The encoder is
-    STUNet-B (one block a stage; `encoder_dims` narrows it for tests); the
-    decoder is as wide as the encoder's top stage; densify and decoder norms
-    are "in". LR, weight decay, clip and the EMA bounds are the module
-    constants above."""
+    """anatomask_tpu's PretrainConfig, every field with its default. The
+    encoder is STUNet-`model_size` (dims 16/32/64/96 x (1, 2, 4, 8, 16), depth
+    1/1/2/3 a stage; `encoder_dims` and `encoder_depth` override them) or,
+    with encoder_type "mednext", MedNeXt of width encoder_dims[0] (default
+    32). The LightDecoder is `decoder_width` wide (default the encoder's top
+    width). remat (activation checkpointing a stage and a decoder block) is
+    on for STUNet-H whatever the field says. One device: the batch is the
+    global batch (JAX's scale_batch_to_devices has no counterpart), and
+    grad_accum_steps is lowered until it divides batch_size."""
     method: str = "anatomask"            # "spark" (random mask) | "anatomask"
+    model_size: str = "B"                # STUNet S/B/L/H encoder head
     patch_size: Tuple[int, int, int] = (112, 112, 128)
     batch_size: int = 4
+    mask_ratio: float = 0.6
+    densify_norm: str = "in"             # "in" | "bn" | "ln" | anything else: none
+    decoder_norm: str = "in"             # "in" | "bn" (the reference's BatchNorm3d)
+    decoder_width: Optional[int] = None
+    # reference-fidelity mode: the encoder's and the "in" densify norms pool
+    # their statistics over the batch's visible voxels (with decoder_norm="bn")
+    norm_batch_pooled: bool = False
     num_epochs: int = 1000
     iters_per_epoch: Optional[int] = None  # default floor(n_train / batch)
+    lr: float = 1e-4
+    optimizer: str = "adamw"             # "adamw" | "lamb"
+    weight_decay: float = 1e-5
     warmup_epochs: int = 20
+    grad_clip: float = 12.0
     oversample_foreground_percent: float = 0.33
     val_fraction: float = 0.15
+    ema_decay_start: float = 0.999
+    ema_decay_end: float = 0.9999
     guide: bool = True                   # easy-to-hard curriculum
     compute_dtype: str = "bfloat16"
     num_workers: Optional[int] = None
     seed: int = 42
     save_every: int = 1
-    device_cache: bool = True            # GPU-resident case cache; False = host pipeline
+    remat: bool = False
+    grad_accum_steps: int = 1            # microbatches a step, gradients summed
+    # GPU-resident case cache; None = on unless ATK_DEVICE_CACHE=0
+    device_cache: Optional[bool] = None
     device_cache_mb: int = 1024
-    encoder_dims: Tuple[int, ...] = STUNET_B_DIMS
+    encoder_dims: Optional[Tuple[int, ...]] = None
+    encoder_depth: Optional[Tuple[int, ...]] = None
+    encoder_type: str = "stunet"         # "stunet" | "mednext"
 
 
 def build_spark_model(cfg: PretrainConfig, in_channels: int = 1, device="cuda",
                       generator: Optional[torch.Generator] = None) -> SparK:
-    """STUNet sparse encoder + LightDecoder SparK, initialised on the CPU from
-    `generator` (default: seed 0), then moved to `device`."""
+    """The SparK of `cfg` (the JAX package's build_spark_model), initialised on
+    the CPU from `generator` (default: seed 0), then moved to `device`."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-    enc = SparseSTUNetEncoder(in_channels, cfg.encoder_dims, dtype, generator)
-    dec = LightDecoder(enc.get_downsample_ratio(), cfg.encoder_dims[-1], in_channels, dtype,
-                       generator)
-    model = SparK(enc, dec, cfg.patch_size, dtype, generator)
+    if cfg.encoder_type == "mednext":
+        n = cfg.encoder_dims[0] if cfg.encoder_dims else 32
+        enc = SparseMedNeXtEncoder(in_channels, n, dtype=dtype, generator=generator,
+                                   remat=cfg.remat)
+        remat, pooled = cfg.remat, False
+    else:
+        size = cfg.model_size.upper()
+        if size not in _STUNET_WIDTHS:
+            raise ValueError(f"model_size must be one of {sorted(_STUNET_WIDTHS)}, "
+                             f"got {cfg.model_size!r}")
+        dims = (tuple(cfg.encoder_dims) if cfg.encoder_dims
+                else tuple(_STUNET_WIDTHS[size] * m for m in (1, 2, 4, 8, 16)))
+        depth = (tuple(cfg.encoder_depth) if cfg.encoder_depth
+                 else (_STUNET_DEPTHS[size],) * len(dims))
+        remat, pooled = cfg.remat or size == "H", cfg.norm_batch_pooled
+        enc = SparseSTUNetEncoder(in_channels, dims, dtype, generator, depth=depth, remat=remat,
+                                  norm_batch_pooled=pooled)
+    dec = LightDecoder(enc.get_downsample_ratio(), cfg.decoder_width or enc.dims[-1],
+                       in_channels, dtype, generator, norm=cfg.decoder_norm, remat=remat)
+    model = SparK(enc, dec, cfg.patch_size, dtype, generator, mask_ratio=cfg.mask_ratio,
+                  densify_norm=cfg.densify_norm, norm_batch_pooled=pooled)
     return model.to(device)
 
 
@@ -118,27 +160,88 @@ def no_decay_mask(model: nn.Module) -> Dict[str, bool]:
             for name, p in model.named_parameters()}
 
 
-def make_optimizer(model: nn.Module) -> torch.optim.AdamW:
-    """AdamW(1e-4, wd 1e-5, betas 0.9/0.999, eps 1e-8) with decay where
-    no_decay_mask says."""
+class Lamb(torch.optim.Optimizer):
+    """optax.lamb after the clip, as the JAX trainer chains it: scale_by_adam
+    (b1 0.9, b2 0.999, eps 1e-6, eps_root 0, bias-corrected moments), the
+    group's weight decay added (add_decayed_weights), each parameter's update
+    scaled by ||p|| / ||u|| (scale_by_trust_ratio: 1 where either norm is 0),
+    then -lr. A parameter here is a leaf of the JAX tree (convert.py's
+    converters map one to one), so the trust ratio is taken over the same
+    elements."""
+
+    def __init__(self, params, lr: float = 1e-3, betas: Tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-6, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            # optax's bias corrections 1 - decay**count, in fp32
+            f1, f2 = (torch.tensor(b, dtype=torch.float32) for b in (b1, b2))
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g, st = p.grad, self.state[p]
+                if not st:
+                    st["step"] = torch.zeros((), dtype=torch.float32)
+                    st["exp_avg"] = torch.zeros_like(p)
+                    st["exp_avg_sq"] = torch.zeros_like(p)
+                st["step"] += 1
+                t = int(st["step"])
+                mu = st["exp_avg"].copy_((1 - b1) * g + b1 * st["exp_avg"])
+                nu = st["exp_avg_sq"].copy_((1 - b2) * g.square() + b2 * st["exp_avg_sq"])
+                u = (mu / (1 - f1 ** t)) / ((nu / (1 - f2 ** t)).sqrt() + group["eps"])
+                if group["weight_decay"]:
+                    u = u + group["weight_decay"] * p
+                p_norm, u_norm = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+                ratio = torch.where((p_norm == 0) | (u_norm == 0), 1.0, p_norm / u_norm)
+                p.add_(u * ratio * -group["lr"])
+
+
+def make_optimizer(model: nn.Module, cfg: PretrainConfig = PretrainConfig()
+                   ) -> torch.optim.Optimizer:
+    """cfg.optimizer at cfg.lr with cfg.weight_decay where no_decay_mask says:
+    AdamW (betas 0.9/0.999, eps 1e-8) or Lamb."""
     decay = no_decay_mask(model)
     params = dict(model.named_parameters())
     groups = [
-        {"params": [p for n, p in params.items() if decay[n]], "weight_decay": WEIGHT_DECAY},
+        {"params": [p for n, p in params.items() if decay[n]], "weight_decay": cfg.weight_decay},
         {"params": [p for n, p in params.items() if not decay[n]], "weight_decay": 0.0},
     ]
-    return torch.optim.AdamW(groups, lr=LR, betas=(0.9, 0.999), eps=1e-8)
+    if cfg.optimizer == "lamb":
+        return Lamb(groups, lr=cfg.lr)
+    if cfg.optimizer == "adamw":
+        return torch.optim.AdamW(groups, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+    raise ValueError(f"optimizer must be 'adamw' or 'lamb', got {cfg.optimizer!r}")
 
 
-def _update(student: SparK, optimizer: torch.optim.Optimizer, loss: torch.Tensor,
-            lr: float) -> None:
-    """Backward, optax's clip, then AdamW at `lr` (set on every group)."""
-    loss.backward()
+def accumulation_steps(batch: int, requested: int) -> int:
+    """The microbatches a step: `requested`, lowered until it divides the batch."""
+    micro = max(1, int(requested))
+    while micro > 1 and batch % micro:
+        micro -= 1
+    return micro
+
+
+def _microbatches(batch: int, grad_accum_steps: int) -> List[slice]:
+    if batch % grad_accum_steps:
+        raise ValueError(f"grad_accum_steps {grad_accum_steps} does not divide batch {batch}")
+    mb = batch // grad_accum_steps
+    return [slice(j * mb, (j + 1) * mb) for j in range(grad_accum_steps)]
+
+
+def _update(student: SparK, optimizer: torch.optim.Optimizer, micro: int, lr: float,
+            grad_clip: float) -> None:
+    """The gradients summed over `micro` microbatches divided by `micro`,
+    optax's clip, then the optimizer at `lr` (set on every group)."""
     params = list(student.parameters())
     for p in params:  # unread parameters get zero gradients, as in JAX
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    clip_by_global_norm_([p.grad for p in params], GRAD_CLIP)
+        elif micro > 1:
+            p.grad.div_(micro)
+    clip_by_global_norm_([p.grad for p in params], grad_clip)
     for group in optimizer.param_groups:
         group["lr"] = lr
     optimizer.step()
@@ -147,44 +250,68 @@ def _update(student: SparK, optimizer: torch.optim.Optimizer, loss: torch.Tensor
 def anatomask_train_step(student: SparK, teacher: SparK, optimizer: torch.optim.Optimizer,
                          x: torch.Tensor, len_loss: int,
                          generator: Optional[torch.Generator] = None, *,
-                         noise: Optional[torch.Tensor] = None,
-                         ema_decay: float = EMA_DECAY, lr: float = LR):
-    """One AnatoMask step on x (B, C, H, W, D). The two (B, L) uniform draws
-    (random teacher mask, guided-mask noise) come from `generator`, or from
-    `noise` (2, B, L) where a test supplies them. Returns (student loss, hard
-    mask, teacher per-patch loss map)."""
+                         noise: Optional[torch.Tensor] = None, ema_decay: float = 0.999,
+                         lr: float = 1e-4, grad_clip: float = 12.0,
+                         grad_accum_steps: int = 1):
+    """One AnatoMask step on x (B, C, H, W, D) in grad_accum_steps
+    microbatches, each in turn: the teacher's pass under a random mask
+    (no_grad), the guided hard mask from its per-patch loss, the student's
+    forward and backward under it. The gradients are summed, divided by the
+    microbatch count, clipped and applied; then the EMA update. The two (B,
+    L) uniform draws (random teacher mask, guided-mask noise) come from
+    `generator`, or from `noise` (2, B, L) where a test supplies them; a
+    microbatch takes its rows. Returns (the mean of the microbatches' student
+    losses, hard mask, teacher per-patch loss map), the last two over the
+    whole batch."""
     B = x.shape[0]
     L = math.prod(student.fmap)
     if noise is None:
         noise = torch.rand((2, B, L), generator=generator, device=x.device)
-    with torch.no_grad():
-        mask1 = random_keep_mask(B, student.fmap, student.len_keep, noise=noise[0])
-        inp1, rec1 = teacher(x, mask1)
-        _, loss_map = spark_loss(inp1, rec1, mask1)
-        hard, _ = generate_guided_mask(loss_map, student.fmap, student.len_keep,
-                                       len_loss, noise=noise[1])
-
     optimizer.zero_grad(set_to_none=False)
-    inp, rec = student(x, hard)
-    loss = spark_loss(inp, rec, hard)[0]
-    _update(student, optimizer, loss, lr)
+    losses, hards, maps = [], [], []
+    for sl in _microbatches(B, grad_accum_steps):
+        xb = x[sl]
+        with torch.no_grad():
+            mask1 = random_keep_mask(xb.shape[0], student.fmap, student.len_keep,
+                                     noise=noise[0, sl])
+            inp1, rec1 = teacher(xb, mask1)
+            _, loss_map = spark_loss(inp1, rec1, mask1)
+            hard, _ = generate_guided_mask(loss_map, student.fmap, student.len_keep,
+                                           len_loss, noise=noise[1, sl])
+        inp, rec = student(xb, hard)
+        loss = spark_loss(inp, rec, hard)[0]
+        loss.backward()
+        losses.append(loss.detach())
+        hards.append(hard)
+        maps.append(loss_map)
+    _update(student, optimizer, grad_accum_steps, lr, grad_clip)
     ema_update(teacher, student, ema_decay)
-    return loss.detach(), hard, loss_map
+    return torch.stack(losses).mean(), torch.cat(hards), torch.cat(maps)
 
 
 def spark_train_step(student: SparK, optimizer: torch.optim.Optimizer, x: torch.Tensor,
                      generator: Optional[torch.Generator] = None, *,
-                     noise: Optional[torch.Tensor] = None, lr: float = LR) -> torch.Tensor:
-    """One SparK step on x (B, C, H, W, D): a uniformly random mask (from
-    `generator`, or the (B, L) uniforms `noise`), forward, backward, clip,
-    AdamW. No teacher. Returns the loss."""
-    active = random_keep_mask(x.shape[0], student.fmap, student.len_keep, generator,
-                              device=x.device, noise=noise)
+                     noise: Optional[torch.Tensor] = None, lr: float = 1e-4,
+                     grad_clip: float = 12.0, grad_accum_steps: int = 1) -> torch.Tensor:
+    """One SparK step on x (B, C, H, W, D) in grad_accum_steps microbatches:
+    a uniformly random mask (from `generator`, or the rows of the (B, L)
+    uniforms `noise`), forward, backward; then the summed gradients divided
+    by the microbatch count, clip, the optimizer. No teacher. Returns the
+    mean of the microbatches' losses."""
+    B = x.shape[0]
+    if noise is None:
+        noise = torch.rand((B, math.prod(student.fmap)), generator=generator, device=x.device)
     optimizer.zero_grad(set_to_none=False)
-    inp, rec = student(x, active)
-    loss = spark_loss(inp, rec, active)[0]
-    _update(student, optimizer, loss, lr)
-    return loss.detach()
+    losses = []
+    for sl in _microbatches(B, grad_accum_steps):
+        active = random_keep_mask(sl.stop - sl.start, student.fmap, student.len_keep,
+                                  noise=noise[sl])
+        inp, rec = student(x[sl], active)
+        loss = spark_loss(inp, rec, active)[0]
+        loss.backward()
+        losses.append(loss.detach())
+    _update(student, optimizer, grad_accum_steps, lr, grad_clip)
+    return torch.stack(losses).mean()
 
 
 @torch.no_grad()
@@ -236,7 +363,7 @@ class PretrainTrainer:
                                                 self.configuration_manager.data_identifier)
         self.fold = fold
         self.output_folder = output_folder or os.path.join(
-            require("results"), self.dataset_name, f"pretrain_{config.method}_{MODEL_SIZE}")
+            require("results"), self.dataset_name, f"pretrain_{config.method}_{config.model_size}")
         os.makedirs(self.output_folder, exist_ok=True)
         self.label_manager = self.plans_manager.get_label_manager(self.dataset_json)
         self.num_input_channels = len(
@@ -311,7 +438,9 @@ class PretrainTrainer:
                      else min(4, get_allowed_n_proc_DA()))
         cache_dtype = self.dtype
         self.device_cache = self.device_cache_val = None
-        if cfg.device_cache:
+        use_cache = (cfg.device_cache if cfg.device_cache is not None
+                     else os.environ.get("ATK_DEVICE_CACHE", "1") == "1")
+        if use_cache:
             self.device_cache = DeviceCaseCache(
                 ds_tr, initial_patch=initial_patch, final_patch=patch,
                 capacity_mb=cfg.device_cache_mb, oversample_foreground_percent=os_pct,
@@ -362,11 +491,15 @@ class PretrainTrainer:
     def initialize(self):
         cfg = self.cfg
         self.teacher = self.model if cfg.method == "spark" else make_teacher(self.model)
-        self.optimizer = make_optimizer(self.model)
+        self.optimizer = make_optimizer(self.model, cfg)
+        self.grad_accum_steps = accumulation_steps(cfg.batch_size, cfg.grad_accum_steps)
+        if self.grad_accum_steps != cfg.grad_accum_steps:
+            self.print_to_log_file(f"[accum] grad_accum_steps adjusted {cfg.grad_accum_steps} -> "
+                                   f"{self.grad_accum_steps} (batch {cfg.batch_size})")
         iters = cfg.iters_per_epoch or max(1, getattr(self, "n_train", 100) // cfg.batch_size)
         self.iters_per_epoch = iters
         self.lr_schedule = linear_warmup_cosine_schedule(
-            LR, warmup_steps=cfg.warmup_epochs * iters, total_steps=cfg.num_epochs * iters,
+            cfg.lr, warmup_steps=cfg.warmup_epochs * iters, total_steps=cfg.num_epochs * iters,
             warmup_start_lr=1e-6)
         self.augment = make_train_augment_fn(self.aug_config)
         # augmentation parameters are drawn on the host, masks on the device
@@ -376,16 +509,18 @@ class PretrainTrainer:
 
     def epoch_settings(self, epoch: int) -> Tuple[float, float, int]:
         """(teacher EMA decay, guided keep ratio, len_loss) of an epoch:
-        the decay ramps 0.999 -> 0.9999 over the first quarter of the epochs,
+        the decay ramps ema_decay_start -> ema_decay_end over the first quarter
+        of the epochs,
         and the len_loss hardest patches of the masked ones are forced."""
         cfg = self.cfg
-        ema_decay = ema_decay_schedule(epoch, cfg.num_epochs, EMA_DECAY, EMA_DECAY_END)
+        ema_decay = ema_decay_schedule(epoch, cfg.num_epochs, cfg.ema_decay_start,
+                                       cfg.ema_decay_end)
         keep_ratio = guided_keep_ratio(epoch, cfg.num_epochs, cfg.guide)
         L = math.prod(self.model.fmap)
         return ema_decay, keep_ratio, int((L - self.model.len_keep) * keep_ratio)
 
     def _optimizer_count(self) -> int:
-        """AdamW's step count, optax's `count`: the LR of a step is the
+        """The optimizer's step count, optax's `count`: the LR of a step is the
         schedule at the count before its update."""
         state = self.optimizer.state.get(self.optimizer.param_groups[0]["params"][0])
         return int(state["step"]) if state else 0
@@ -416,7 +551,7 @@ class PretrainTrainer:
     def _checkpoint_meta(self, extra_meta: Optional[dict] = None) -> dict:
         meta = {
             "method": self.cfg.method,
-            "model_size": MODEL_SIZE,
+            "model_size": self.cfg.model_size,
             "current_epoch": self.current_epoch + 1,
             "spark_config": self.model.get_config(),
             "pretrain_config": {k: (list(v) if isinstance(v, tuple) else v)
@@ -433,18 +568,21 @@ class PretrainTrainer:
             if err is not None:
                 raise RuntimeError("background checkpoint write failed") from err
 
-    def _write_checkpoints_async(self, jobs):
-        """jobs: [(filename, state, meta)] written on a background thread so
-        that serialisation overlaps the next epoch's steps. `state` holds host
-        copies taken before the thread starts. At most one writer is
-        outstanding; a failed write is re-raised at the next join."""
+    def _write_checkpoints_async(self, filenames, state, meta):
+        """`state` written once, under filenames[0], on a background thread
+        so that serialisation overlaps the next epoch's steps; the other names
+        become links to that file (one snapshot, one file: a STUNet-H
+        checkpoint is 12.8 GB). `state` holds host copies taken before the
+        thread starts. At most one writer is outstanding; a failed write is
+        re-raised at the next join."""
         self._join_ckpt_writer()
+        paths = [os.path.join(self.output_folder, f) for f in filenames]
 
         def write():
             try:
-                for filename, state, meta in jobs:
-                    ckpt_lib.save_trainer_checkpoint(
-                        os.path.join(self.output_folder, filename), state, meta)
+                ckpt_lib.save_trainer_checkpoint(paths[0], state, meta)
+                for path in paths[1:]:
+                    ckpt_lib.link_checkpoint(paths[0], path)
             except BaseException as e:  # re-raised in _join_ckpt_writer
                 self._ckpt_error = e
                 self.print_to_log_file(f"CHECKPOINT WRITE FAILED: {e!r}")
@@ -513,6 +651,7 @@ class PretrainTrainer:
         val_iter = iter(self.loader_val) if self.device_cache_val is None else None
         history = {"train_loss": [], "val_loss": [], "ema_loss": []}
         best_val = np.inf
+        last_saved = None  # (file name, step count) of the last epoch's checkpoint
         ema_loss = None
 
         try:
@@ -528,14 +667,15 @@ class PretrainTrainer:
                     data = self._train_batch(train_iter)
                     t_fetch += time.time() - f0
                     x = self._prep(data)
-                    lr = self.lr_schedule(self._optimizer_count())
+                    kw = dict(lr=self.lr_schedule(self._optimizer_count()),
+                              grad_clip=cfg.grad_clip, grad_accum_steps=self.grad_accum_steps)
                     if cfg.method == "spark":
                         loss = spark_train_step(self.model, self.optimizer, x,
-                                                self.mask_generator, lr=lr)
+                                                self.mask_generator, **kw)
                     else:
                         loss, _, _ = anatomask_train_step(
                             self.model, self.teacher, self.optimizer, x, len_loss,
-                            self.mask_generator, ema_decay=ema_decay, lr=lr)
+                            self.mask_generator, ema_decay=ema_decay, **kw)
                     self.step_counter += 1
                     losses.append(loss)
                 train_loss = torch.stack(losses).float().mean().item()
@@ -555,24 +695,22 @@ class PretrainTrainer:
                 history["val_loss"].append(val_loss)
                 history["ema_loss"].append(ema_loss)
 
-                # one host snapshot per epoch; the writes (latest + head +
-                # best) run on a thread that overlaps the next epoch's steps
+                # one host snapshot per epoch, written once (latest, else
+                # best) on a thread that overlaps the next epoch's steps; the
+                # head and the best are links to it. Its metadata holds the
+                # epoch's val_loss, which JAX writes into the best's only.
                 tc0 = time.time()
                 need_latest = (epoch + 1) % cfg.save_every == 0
                 is_best = val_loss < best_val
                 if is_best:
                     best_val = val_loss
                 if need_latest or is_best:
-                    snap = self._snapshot_state()
-                    jobs = []
-                    if need_latest:
-                        jobs.append(("checkpoint_latest.pt", snap, self._checkpoint_meta()))
-                        jobs.append((f"{MODEL_SIZE}_head_latest.pt", snap,
-                                     self._checkpoint_meta()))
-                    if is_best:
-                        jobs.append(("checkpoint_best.pt", snap,
-                                     self._checkpoint_meta({"val_loss": val_loss})))
-                    self._write_checkpoints_async(jobs)
+                    names = ((["checkpoint_latest.pt", f"{cfg.model_size}_head_latest.pt"]
+                              if need_latest else []) + (["checkpoint_best.pt"] if is_best else []))
+                    self._write_checkpoints_async(
+                        names, self._snapshot_state(),
+                        self._checkpoint_meta({"val_loss": val_loss}))
+                    last_saved = (names[0], self.step_counter)
                 t_ckpt = time.time() - tc0
                 self._plot_progress(history)
                 t_epoch = time.time() - t0
@@ -592,7 +730,12 @@ class PretrainTrainer:
                 self.device_cache.stop()
             if self.device_cache_val is not None:
                 self.device_cache_val.stop()
-        self.save_checkpoint("checkpoint_final.pt")
+        if last_saved is not None and last_saved[1] == self.step_counter:
+            # no step since the last epoch's checkpoint: the final one is it
+            ckpt_lib.link_checkpoint(os.path.join(self.output_folder, last_saved[0]),
+                                     os.path.join(self.output_folder, "checkpoint_final.pt"))
+        else:
+            self.save_checkpoint("checkpoint_final.pt")
         with open(os.path.join(self.output_folder, "history.json"), "w") as f:
             json.dump(history, f)
         return history

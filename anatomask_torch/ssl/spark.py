@@ -13,10 +13,8 @@ import torch.nn as nn
 
 from anatomask_torch.models.layers import ConvND
 from anatomask_torch.ssl.decoder import LightDecoder
-from anatomask_torch.ssl.sparse import (SparseInstanceNorm, SparseSTUNetEncoder,
+from anatomask_torch.ssl.sparse import (SparseBatchNorm, SparseInstanceNorm, SparseLayerNorm,
                                         mask_to_resolution, upsample_mask)
-
-MASK_RATIO = 0.6  # share of patches masked (bench.py's pretraining step)
 
 
 def patchify(x: torch.Tensor, fmap: Sequence[int], p: Sequence[int]) -> torch.Tensor:
@@ -57,7 +55,7 @@ def random_keep_mask(batch: int, fmap: Sequence[int], len_keep: int,
 class SparseEncoder(nn.Module):
     """Holds the masked encoder as `sp_cnn`, the reference's nesting."""
 
-    def __init__(self, sp_cnn: SparseSTUNetEncoder):
+    def __init__(self, sp_cnn: nn.Module):
         super().__init__()
         self.sp_cnn = sp_cnn
 
@@ -65,29 +63,49 @@ class SparseEncoder(nn.Module):
         return self.sp_cnn(x, active)
 
 
+def make_densify_norm(kind: str, channels: int, batch_pooled: bool,
+                      dtype: torch.dtype) -> nn.Module:
+    """The densify layers' norm, with the reference's epsilons: "in"
+    SparseInstanceNorm (eps 1e-6, batch-pooled on request), "bn"
+    SparseBatchNorm (1e-5), "ln" SparseLayerNorm (1e-6); anything else none."""
+    kind = kind.lower()
+    if kind == "bn":
+        return SparseBatchNorm(channels, dtype=dtype)
+    if kind == "ln":
+        return SparseLayerNorm(channels, eps=1e-6, dtype=dtype)
+    if kind == "in":
+        return SparseInstanceNorm(channels, eps=1e-6, batch_pooled=batch_pooled, dtype=dtype)
+    return nn.Identity()
+
+
 class SparK(nn.Module):
-    """Sparse encoder + densify layers (norm "in", eps 1e-6) + LightDecoder;
-    len_keep = round(L * (1 - MASK_RATIO)) patches stay visible.
+    """Sparse encoder (STUNet or MedNeXt, with `dims` and
+    `get_downsample_ratio`) + densify layers + decoder; len_keep =
+    round(L * (1 - mask_ratio)) patches stay visible. densify_norm is "in",
+    "bn", "ln" or none; norm_batch_pooled pools the "in" densify norms'
+    statistics over the batch, as the encoder's then do.
     forward(x, active) -> (patchified input, patchified reconstruction)."""
 
-    def __init__(self, encoder: SparseSTUNetEncoder, decoder: LightDecoder,
+    def __init__(self, encoder: nn.Module, decoder: LightDecoder,
                  input_size: Tuple[int, int, int], dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mask_ratio: float = 0.6,
+                 densify_norm: str = "in", norm_batch_pooled: bool = False):
         super().__init__()
         self.sparse_encoder = SparseEncoder(encoder)
         self.dense_decoder = decoder
         self.input_size = tuple(input_size)
         self.dtype = dtype
+        self.mask_ratio, self.densify_norm = mask_ratio, densify_norm
         r = encoder.get_downsample_ratio()
         self.patch = (r, r, r)
         self.fmap = tuple(s // r for s in self.input_size)
-        self.len_keep = round(self.fmap[0] * self.fmap[1] * self.fmap[2] * (1 - MASK_RATIO))
+        self.len_keep = round(self.fmap[0] * self.fmap[1] * self.fmap[2] * (1 - mask_ratio))
 
         e_widths = encoder.dims[::-1]
         d_width = decoder.width
         norms, projs, tokens = [], [], []
         for i, e_width in enumerate(e_widths):
-            norms.append(SparseInstanceNorm(e_width, eps=1e-6, dtype=dtype))
+            norms.append(make_densify_norm(densify_norm, e_width, norm_batch_pooled, dtype))
             token = torch.empty(1, e_width, 1, 1, 1)
             nn.init.trunc_normal_(token, 0.0, 0.02, -0.02, 0.02, generator=generator)
             tokens.append(nn.Parameter(token))
@@ -106,8 +124,8 @@ class SparK(nn.Module):
         """The architecture keys a checkpoint is checked against on load (the
         JAX package's SparK.get_config)."""
         return {
-            "mask_ratio": MASK_RATIO,
-            "densify_norm_str": "in",
+            "mask_ratio": self.mask_ratio,
+            "densify_norm_str": self.densify_norm,
             "hierarchy": len(self.densify_norms),
             "sparse_encoder.input_size": list(self.input_size),
             "dense_decoder.width": self.dense_decoder.width,
@@ -124,7 +142,8 @@ class SparK(nn.Module):
         cur_active = active
         to_dec = []
         for i, bcff in enumerate(feats[:n_used]):
-            bcff = self.densify_norms[i](bcff, cur_active)
+            if not isinstance(self.densify_norms[i], nn.Identity):
+                bcff = self.densify_norms[i](bcff, cur_active)
             m_here = mask_to_resolution(cur_active, bcff.shape[2:5])
             bcff = torch.where(m_here, bcff, self.mask_tokens[i].to(bcff.dtype))
             to_dec.append(self.densify_projs[i](bcff))

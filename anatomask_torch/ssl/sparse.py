@@ -1,20 +1,32 @@
 """Masked ("sparse") 3D layers for SparK-style pretraining, dense-masked path.
-Counterpart of anatomask_tpu/ssl/sparse.py.
+Counterpart of anatomask_tpu/ssl/sparse.py (the block-sparse route, opt-in
+there through ATK_BLOCK_SPARSE, is not ported).
 
 The mask is passed explicitly to every layer as (B, 1, f1, f2, f3) bool,
 True = visible, and dilated to any resolution by integer repeats (the
 reference's repeat_interleave). Norms compute their statistics over the
 visible voxels only and zero the rest. Module and parameter names follow the
 reference torch STUNet head (`conv_blocks_context.{stage}.{block}.conv1...`).
+
+- the STUNet encoder: `SparseBasicResBlock`, `_SparseResStage` (depth
+  blocks, the first strided with the 1x1 skip), `SparseSTUNetEncoder`, with
+  activation checkpointing a stage where `remat` (the JAX package's
+  `nn.remat(_SparseResStage)`);
+- norms: `SparseInstanceNorm` and `SparseBatchNorm` on the moments kernel's
+  per-row sums (kernel #3), `SparseLayerNorm` and `SparseGroupNorm` in plain
+  torch (JAX computes them outside any Pallas kernel);
+- `sparse_masked_global_pool`, `sparse_max_pool`, `sparse_avg_pool`, `GRN`,
+  `SparseGRN` and `SparseConvNeXtBlock` (its depthwise conv `F.conv3d`).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as fn
 
-from anatomask_torch.models.layers import CL3D, ConvND, leaky_relu
+from anatomask_torch.models.layers import CL3D, ConvND, leaky_relu, run_remat, trunc_normal_
 from anatomask_torch.ops.moments import row_moments
 
 
@@ -75,6 +87,163 @@ class SparseInstanceNorm(nn.Module):
         return (x.to(dt) * a.to(dt) + b.to(dt)) * m.to(dt)
 
 
+class SparseBatchNorm(SparseInstanceNorm):
+    """BatchNorm over the visible voxels of the whole batch (the reference's
+    SparseBatchNorm3d), eps 1e-5: the batch-pooled statistics of
+    SparseInstanceNorm. No running statistics: no configuration of the
+    pretraining path keeps them (the JAX package's PretrainConfig builds its
+    SparseBatchNorm without track_running_stats)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32):
+        super().__init__(channels, eps, batch_pooled=True, dtype=dtype)
+
+
+class SparseGroupNorm(nn.Module):
+    """GroupNorm over the visible voxels (the reference's SparseGroupNorm), its
+    fp32 variance in two passes, E[(x - mean)^2]; zeros elsewhere."""
+
+    def __init__(self, num_groups: int, channels: int, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_groups, self.eps, self.dtype = num_groups, eps, dtype
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+        B, C = x.shape[:2]
+        g = self.num_groups
+        m = mask_to_resolution(active, x.shape[2:5]).float()
+        xf = x.float().reshape(B, g, C // g, *x.shape[2:])
+        mg = m[:, :, None]
+        cnt = (m.sum((1, 2, 3, 4)) * (C // g)).clamp_min(1.0).view(B, 1, 1, 1, 1, 1)
+        mean = (xf * mg).sum((2, 3, 4, 5), keepdim=True) / cnt
+        var = ((xf - mean).square() * mg).sum((2, 3, 4, 5), keepdim=True) / cnt
+        y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        y = y * self.weight.view(1, -1, 1, 1, 1) + self.bias.view(1, -1, 1, 1, 1)
+        return (y * m).to(self.dtype)
+
+
+class SparseLayerNorm(nn.Module):
+    """LayerNorm over the channels of each visible voxel (the reference's
+    SparseConvNeXtLayerNorm), fp32, eps 1e-6; zeros elsewhere."""
+
+    def __init__(self, channels: int, eps: float = 1e-6, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+        m = mask_to_resolution(active, x.shape[2:5]).float()
+        xf = x.float()
+        mean = xf.mean(1, keepdim=True)
+        var = xf.var(1, keepdim=True, correction=0)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        y = y * self.weight.view(1, -1, 1, 1, 1) + self.bias.view(1, -1, 1, 1, 1)
+        return (y * m).to(self.dtype)
+
+
+def sparse_masked_global_pool(x: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """Mean over the visible voxels, (B, C, 1, 1, 1) (the reference's
+    SparseAdaptiveAvgPooling)."""
+    m = mask_to_resolution(active, x.shape[2:5]).to(x.dtype)
+    return (x * m).sum((2, 3, 4), keepdim=True) / (m.sum((2, 3, 4), keepdim=True) + 1e-6)
+
+
+def _strides(window: Sequence[int], strides: Optional[Sequence[int]]) -> Tuple[int, ...]:
+    return tuple(strides) if strides is not None else tuple(window)
+
+
+def sparse_max_pool(x: torch.Tensor, active: torch.Tensor, window: Sequence[int],
+                    strides: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Dense max pool (no padding), re-masked at the output's resolution."""
+    y = fn.max_pool3d(x, tuple(window), _strides(window, strides))
+    return y * mask_to_resolution(active, y.shape[2:5]).to(y.dtype)
+
+
+def sparse_avg_pool(x: torch.Tensor, active: torch.Tensor, window: Sequence[int],
+                    strides: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Dense average pool (no padding), re-masked at the output's resolution."""
+    y = fn.avg_pool3d(x, tuple(window), _strides(window, strides))
+    return y * mask_to_resolution(active, y.shape[2:5]).to(y.dtype)
+
+
+def _grn(x: torch.Tensor, sq: torch.Tensor, gamma: torch.Tensor,
+         beta: Optional[torch.Tensor]) -> torch.Tensor:
+    """(gamma * Nx + 1) * x (+ beta) in fp32 for fp32 x and its square sq:
+    Nx = Gx / mean_c(Gx), Gx the spatial L2 norm of each (sample, channel)."""
+    gx = sq.sum((2, 3, 4), keepdim=True).sqrt()
+    nx = gx / (gx.mean(1, keepdim=True) + 1e-6)
+    out = (gamma.float().view(1, -1, 1, 1, 1) * nx + 1.0) * x
+    return out if beta is None else out + beta.view(1, -1, 1, 1, 1)
+
+
+class GRN(nn.Module):
+    """ConvNeXt-V2's Global Response Normalization, x squared in its dtype and
+    the rest in fp32; gamma and beta start at 0."""
+
+    def __init__(self, channels: int, use_bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.gamma = nn.Parameter(torch.zeros(channels))
+        self.beta = nn.Parameter(torch.zeros(channels)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _grn(x.float(), x.square().float(), self.gamma, self.beta).to(self.dtype)
+
+
+class SparseGRN(GRN):
+    """GRN with its spatial statistic over the visible voxels and the output
+    re-masked (the dense GRN's law on the visible set)."""
+
+    def forward(self, x: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+        m = mask_to_resolution(active, x.shape[2:5]).float()
+        xf = x.float() * m
+        return (_grn(xf, xf.square(), self.gamma, self.beta) * m).to(self.dtype)
+
+
+class SparseConvNeXtBlock(nn.Module):
+    """Masked ConvNeXt block (the reference's SparseConvNeXtBlock): depthwise
+    k x k x k conv (re-masked), SparseLayerNorm, pointwise MLP (4x, GELU in
+    its tanh form, flax's default), layer scale gamma, re-mask, stochastic
+    depth outside `deterministic`, residual."""
+
+    def __init__(self, dim: int, kernel_size: int = 7, layer_scale_init_value: float = 1e-6,
+                 drop_path: float = 0.0, deterministic: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.drop_path, self.deterministic, self.dtype = drop_path, deterministic, dtype
+        self.dwconv = ConvND(dim, dim, kernel_size, groups=dim, dtype=dtype, init="trunc",
+                             generator=generator)
+        self.norm = SparseLayerNorm(dim, dtype=dtype)
+        self.pwconv1 = nn.Linear(dim, 4 * dim)
+        self.pwconv2 = nn.Linear(4 * dim, dim)
+        self.gamma = (nn.Parameter(torch.full((dim,), layer_scale_init_value))
+                      if layer_scale_init_value > 0 else None)
+        with torch.no_grad():
+            for layer in (self.pwconv1, self.pwconv2):
+                trunc_normal_(layer.weight, generator)
+                layer.bias.zero_()
+
+    def forward(self, x: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        y = self.dwconv(x)
+        m = mask_to_resolution(active, y.shape[2:5]).to(y.dtype)
+        y = self.norm(y * m, active).permute(0, 2, 3, 4, 1)
+        y = fn.gelu(fn.linear(y, self.pwconv1.weight.to(dt), self.pwconv1.bias.to(dt)),
+                    approximate="tanh")
+        y = fn.linear(y, self.pwconv2.weight.to(dt), self.pwconv2.bias.to(dt))
+        if self.gamma is not None:
+            y = y * self.gamma.to(y.dtype)
+        y = y.permute(0, 4, 1, 2, 3) * m
+        if self.drop_path > 0 and not self.deterministic:
+            keep = 1.0 - self.drop_path
+            y = y * torch.bernoulli(torch.full((y.shape[0], 1, 1, 1, 1), keep,
+                                               device=y.device)).to(y.dtype) / keep
+        return x + y
+
+
 class SparseBasicResBlock(nn.Module):
     """Masked residual block: conv1 (stride s) -> IN -> LeakyReLU -> conv2 ->
     IN, plus a 1x1 conv3 (stride s) on the skip, summed and LeakyReLU'd.
@@ -85,14 +254,14 @@ class SparseBasicResBlock(nn.Module):
 
     def __init__(self, cin: int, cout: int, stride: int = 1, use_1x1conv: bool = False,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, batch_pooled: bool = False):
         super().__init__()
         dd = dict(dtype=dtype, generator=generator)
         self.dtype = dtype
         self.conv1 = ConvND(cin, cout, 3, stride, **dd)
-        self.norm1 = SparseInstanceNorm(cout, dtype=dtype)
+        self.norm1 = SparseInstanceNorm(cout, batch_pooled=batch_pooled, dtype=dtype)
         self.conv2 = ConvND(cout, cout, 3, 1, **dd)
-        self.norm2 = SparseInstanceNorm(cout, dtype=dtype)
+        self.norm2 = SparseInstanceNorm(cout, batch_pooled=batch_pooled, dtype=dtype)
         self.conv3 = ConvND(cin, cout, 1, stride, **dd) if use_1x1conv else None
 
     def forward(self, x: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
@@ -105,32 +274,42 @@ class SparseBasicResBlock(nn.Module):
 
 
 class _SparseResStage(nn.ModuleList):
-    """One stage of STUNet-B: a single block that strides and projects the
-    skip. A list, so that parameter names keep the reference's block index."""
+    """One encoder stage: `depth` blocks, the first strided with the 1x1 skip.
+    A list, so that parameter names keep the reference's block index."""
 
-    def __init__(self, cin: int, cout: int, stride: int, dtype: torch.dtype,
-                 generator: Optional[torch.Generator]):
-        super().__init__([SparseBasicResBlock(cin, cout, stride, use_1x1conv=True,
-                                              dtype=dtype, generator=generator)])
+    def __init__(self, cin: int, cout: int, depth: int, stride: int, dtype: torch.dtype,
+                 generator: Optional[torch.Generator], batch_pooled: bool = False):
+        dd = dict(dtype=dtype, generator=generator, batch_pooled=batch_pooled)
+        super().__init__([SparseBasicResBlock(cin, cout, stride, use_1x1conv=True, **dd)]
+                         + [SparseBasicResBlock(cout, cout, 1, **dd) for _ in range(1, depth)])
 
     def forward(self, x: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
-        return self[0](x, active)
+        for block in self:
+            x = block(x, active)
+        return x
 
 
 class SparseSTUNetEncoder(nn.Module):
-    """Masked STUNet encoder, one block a stage; forward(x, active) ->
-    features, finest first. Stage 0 has stride 1, every later stage stride 2."""
+    """Masked STUNet encoder; forward(x, active) -> features, finest first.
+    Stage 0 has stride 1, every later stage stride 2; depth[d] blocks in
+    stage d (default one). With `remat` each stage runs under activation
+    checkpointing; with `norm_batch_pooled` every norm pools its statistics
+    over the batch (the reference's B > 1 law)."""
 
     def __init__(self, in_channels: int = 1, dims: Sequence[int] = (32, 64, 128, 256, 512),
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 depth: Optional[Sequence[int]] = None, remat: bool = False,
+                 norm_batch_pooled: bool = False):
         super().__init__()
         self.dims = list(dims)
+        self.depth = list(depth) if depth is not None else [1] * len(self.dims)
+        self.remat = remat
         self.strides = [1] + [2] * (len(dims) - 1)
         cins = [in_channels] + self.dims[:-1]
         self.conv_blocks_context = nn.ModuleList(
-            _SparseResStage(ci, co, s, dtype, generator)
-            for ci, co, s in zip(cins, self.dims, self.strides))
+            _SparseResStage(ci, co, n, s, dtype, generator, norm_batch_pooled)
+            for ci, co, n, s in zip(cins, self.dims, self.depth, self.strides))
 
     def get_downsample_ratio(self) -> int:
         return 2 ** (len(self.dims) - 1)
@@ -138,6 +317,6 @@ class SparseSTUNetEncoder(nn.Module):
     def forward(self, x: torch.Tensor, active: torch.Tensor) -> List[torch.Tensor]:
         feats = []
         for stage in self.conv_blocks_context:
-            x = stage(x, active)
+            x = run_remat(self.remat, stage, x, active)
             feats.append(x)
         return feats

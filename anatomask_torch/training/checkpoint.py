@@ -7,7 +7,8 @@
 - `save_trainer_checkpoint` / `load_trainer_checkpoint` are the port's own
   format for the PretrainTrainer's state (student, teacher, optimizer,
   metadata with the epoch, the SparK and Pretrain configs), written with
-  `torch.save` and read back with `weights_only=True`.
+  `torch.save` and read back with `weights_only=True`; `link_checkpoint`
+  gives one such file a second name.
 - `load_pretrained_weights` and `transfer_ssl_encoder_weights` are the JAX
   functions' counterparts on the port's state_dicts: a name- and
   shape-matched merge without the segmentation heads, and AnatoMask's
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -87,6 +89,20 @@ def save_trainer_checkpoint(path: str, state: dict, metadata: dict) -> None:
     tmp = path + ".tmp"
     torch.save({"state": state, "metadata": json.dumps(metadata)}, tmp)
     os.replace(tmp, path)
+
+
+def link_checkpoint(src: str, dst: str) -> None:
+    """dst as a hard link to the checkpoint src (one file under two names, no
+    data written), or a copy where the file system has no hard links; made
+    under a temporary name and renamed, as a write."""
+    tmp = dst + ".tmp"
+    if os.path.lexists(tmp):
+        os.remove(tmp)
+    try:
+        os.link(src, tmp)
+    except OSError:
+        shutil.copyfile(src, tmp)
+    os.replace(tmp, dst)
 
 
 def load_trainer_checkpoint(path: str, map_location="cpu") -> Tuple[dict, dict]:

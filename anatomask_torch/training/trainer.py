@@ -24,7 +24,8 @@ packages' predictors read them; the torch optimizer's state rides along under
 `torch_optimizer_state` (arrays) and `torch_optimizer_param_groups`
 (metadata), which the JAX trainer does not read. A JAX checkpoint resumes
 here with a fresh optimizer state, as a JAX one of another structure does
-there. Not ported: remat and cascade stages (ROADMAP.md).
+there. `remat` checkpoints activations as the JAX models place it (STUNet-H
+always). Not ported: cascade stages (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -95,7 +96,7 @@ class TrainerConfig:
     order0_data_interp: bool = False       # nearest data warp
     data_interpolation_order: int = 1      # 1 trilinear, 3 cubic B-spline
     network_norm: str = "instance"         # instance | batch (PlainConvUNet)
-    remat: bool = False                    # not ported: raises
+    remat: bool = False                    # activation checkpointing (STUNet-H: always)
     # GPU-resident case cache; None = env ATK_SUP_DEVICE_CACHE (default on)
     device_cache: Optional[bool] = None
     device_cache_mb: int = 1024
@@ -266,8 +267,6 @@ class Trainer:
         if len(self.configuration_manager.patch_size) == 2:
             self.configuration_manager = ConfigurationManager(
                 promote_2d_configuration(self.configuration_manager.configuration))
-        if config.remat:
-            raise NotImplementedError("remat is not ported to anatomask_torch yet (ROADMAP.md)")
         if self.configuration_manager.previous_stage_name is not None:
             raise NotImplementedError(
                 "cascade stages are not ported to anatomask_torch yet (ROADMAP.md)")
@@ -373,7 +372,7 @@ class Trainer:
             self.plans_manager, cm, num_in, self.label_manager.num_segmentation_heads,
             arch_name=self.cfg.arch_name, deep_supervision=deep_supervision, dtype=self.dtype,
             device=self.device, generator=torch.Generator().manual_seed(self.cfg.seed),
-            norm=self.cfg.network_norm)
+            norm=self.cfg.network_norm, remat=self.cfg.remat)
 
     def _make_optimizer(self) -> torch.optim.Optimizer:
         """The optimizer of optax's chain after the clip: SGD's decay is added

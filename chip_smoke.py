@@ -53,9 +53,16 @@ Phases, each of which raises on a failed check:
    max|kernel #2 - kernel #1| / max|kernel #1| in bf16. The probe's timed
    calls are this kernel's path: its count is set to 0 just before them,
    and every one of its launches must run the hopper variant;
-6. references: a tiny SparK, and a tiny STUNet, PlainConvUNet (instance and
-   batch norm) and ResidualEncoderUNet through both sliding-window paths, in
-   fp32 on the card against the same models on the CPU, rel. error <= 1e-4;
+6. references: a tiny SparK (also with densify norm "bn", with "ln", in
+   the batch-pooled mode with decoder norm "bn", and with the MedNeXt
+   encoder), the three ablation decoders and SparseConvNeXtBlock, and a tiny
+   STUNet, PlainConvUNet (instance and batch norm) and ResidualEncoderUNet
+   through both sliding-window paths, in fp32 on the card against the same
+   models on the CPU, rel. error <= 1e-4; then remat: one backward of a tiny
+   SparK and a tiny STUNet at depth 2, fp32 and bf16, twice without remat
+   and once with it, the gradients bit-equal and every kernel launched
+   again in the remat backward, the fp32 gradients within 1e-4 of the
+   largest against the CPU's;
 7. pretraining step: the AnatoMask pretraining step at full STUNet-B width (patch
    112x112x128, batch 4, mask ratio 0.6, bf16, decoder width 512) for 5
    steps, checking finite losses, the hard masks, the launches by kernel and
@@ -116,18 +123,39 @@ Phases, each of which raises on a failed check:
    Its new launch shapes (the steps at B = 2, the final validation's
    forwards at B = 16 = tile batch 2 x 8 flips) are held against the plain
    versions, with the gates above, before the main paths run;
-12. the out-of-memory ladder: one volume at tile batch 2 under a
+12. pretrain-H: AnatoMask pretraining as `atk_pretrain -model H` runs it
+   by default (STUNet-H SparK: dims 96-1536, 3 blocks a stage, LightDecoder
+   width 1536; patch 112x112x128, batch 4 in 2 microbatches, mask ratio 0.6,
+   bf16, AdamW, remat on every encoder stage and decoder block). Its launch
+   shapes are held against the plain versions among the kernel phases (the
+   step's at the microbatch B = 2, timed, with each kernel's step total
+   beside its bound and F.conv3d's or torch.var_mean's; the validation
+   forwards and a grad_accum_steps=1 step at B = 4, among them 192 -> 192 at
+   112x112x128, a 1.23e9-element activation; the finetuning step's at B = 2,
+   timed), with the gates above. Then 5 bare steps (2 warm-up), checking
+   finite losses, the hard masks and the launches by kernel and variant
+   (per microbatch the teacher's forward, the student's, remat's second
+   forward of every stage and decoder block, and dx), a torch.profiler
+   split, a step at grad_accum_steps=1 and a LAMB step; then
+   PretrainTrainer.run_pretraining at H for 1 epoch x 2 iterations with the
+   case cache, validation and checkpoints (an epoch's one ~12.8 GB file
+   under all its names, written into a temporary folder after a check that
+   the disk holds three, its GB and seconds printed), a resumed epoch; then
+   load_ssl_encoder_into_trainer
+   from its checkpoint_final.pt into STUNetTrainer_huge (remat) and 2 bare
+   supervised steps at 128^3, batch 2; step ms and peak memory of each;
+13. the out-of-memory ladder: one volume at tile batch 2 under a
    torch.cuda.set_per_process_memory_fraction cap between the uncapped tile
    batch 1 and 2 peaks: the device-resident path must run out at 2, finish
    at 1, and match the uncapped tile batch 1 logits within 1e-3 relative.
 
 A kernel's time is the median of three runs of back-to-back calls, each
-run timed with CUDA events, after a warm-up call. Each main path (7-11)
+run timed with CUDA events, after a warm-up call. Each main path (7-12)
 runs with the launch counts set to 0 just before it and read just after,
 and every launch it makes must be at a shape that phases 3 and 4 (and 11's
-gates) held against the plain version (kernel #2's: its path shapes in
-phase 3); phase 12 runs after that check, as its tile batch 2 launches at
-B = 16 on the PlainConvUNet. Between phases, free_memory collects reference
+and 12's gates) held against the plain version (kernel #2's: its path
+shapes in phase 3); phase 13 runs after that check, as its tile batch 2
+launches at B = 16 on the PlainConvUNet. Between phases, free_memory collects reference
 cycles and empties the allocator's cache, so that each phase's memory
 peaks count its own tensors; after phase 11 it prints what stayed allocated
 before and after the collection. The last three
@@ -181,13 +209,15 @@ from anatomask_torch.ops.zslab_conv import (conv3d_zconcat, conv3d_zslab, conv3d
                                             conv3d_zslab_plain)
 from anatomask_torch.plans.plans_handler import PlansManager, save_json
 from anatomask_torch.preprocessing.preprocessor import save_properties
-from anatomask_torch.ssl.pretrain import (PretrainConfig, PretrainTrainer, anatomask_train_step,
+from anatomask_torch.ssl.pretrain import (Lamb, PretrainConfig, PretrainTrainer,
+                                          accumulation_steps, anatomask_train_step,
                                           build_spark_model, load_ssl_encoder_into_trainer,
                                           make_optimizer, make_teacher)
-from anatomask_torch.ssl.sparse import mask_to_resolution
-from anatomask_torch.ssl.spark import random_keep_mask
-from anatomask_torch.training.checkpoint import (load_trainer_checkpoint, save_checkpoint,
-                                                 save_trainer_checkpoint)
+from anatomask_torch.ssl.decoder import DSDecoder, SMiMDecoder, SMiMTwoDecoder
+from anatomask_torch.ssl.sparse import SparseConvNeXtBlock, mask_to_resolution, upsample_mask
+from anatomask_torch.ssl.spark import random_keep_mask, spark_loss
+from anatomask_torch.training import checkpoint as ckpt_mod
+from anatomask_torch.training.checkpoint import load_trainer_checkpoint, save_checkpoint
 from anatomask_torch.training.trainer import Trainer, get_trainer_config
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
@@ -407,15 +437,16 @@ def per_tap(vol):
     return math.prod(vol) >= MIN_VOLUME
 
 
-def path_launches(sites, norms, forwards, backward):
+def path_launches(sites, norms, forwards, backward, stem=True):
     """The launches of `forwards` forwards over `sites` and `norms` and, with
-    `backward`, one backward (dx at every site but the stem, whose input
-    carries no gradient; the norms' backward is elementwise)."""
+    `backward`, one backward (dx at every site but the stem, sites[0] where
+    `stem`, whose input carries no gradient; the norms' backward is
+    elementwise)."""
     want = dict.fromkeys(COUNT_KEYS, 0)
-    for i, (name, C, F, vol) in enumerate(sites):  # sites[0] is the stem
+    for i, (name, C, F, vol) in enumerate(sites):
         variant = "hopper" if C % 32 == 0 and F % 32 == 0 else "simple"
         want[f"{'zslab' if per_tap(vol) else 'conv3x3'}.{variant}"] += forwards
-        if backward and i > 0:
+        if backward and (i > 0 or not stem):
             want[f"conv3x3.{variant}"] += 1
     want["moments"] = forwards * len(norms)
     return want
@@ -436,6 +467,73 @@ SUP_BATCH, VAL_TTA_BATCH = 2, 16
 SUP_STEP_LAUNCHES = path_launches(INFER_SITES, INFER_NORMS, 1, True)
 SUP_VAL_LAUNCHES = path_launches(INFER_SITES, INFER_NORMS, 1, False)
 PLAIN_STEP_LAUNCHES = path_launches(PLAIN_INFER_SITES, PLAIN_INFER_NORMS, 1, True)
+
+# pretrain-H: `atk_pretrain -model H` as it runs by default (STUNet-H SparK:
+# dims 96-1536, 3 blocks a stage, LightDecoder width 1536; patch 112x112x128,
+# batch 4 in 2 microbatches of 2, mask ratio 0.6, bf16, AdamW, remat on every
+# encoder stage and decoder block), then its encoder in STUNetTrainer_huge
+# (dims 96-1536, 6 stages of 3 blocks, remat) at patch 128^3, batch 2
+H_CFG = PretrainConfig(model_size="H", grad_accum_steps=2)
+H_MICRO = BATCH // H_CFG.grad_accum_steps  # the microbatch
+H_DIMS = (96, 192, 384, 768, 1536)
+H_RES = ((112, 112, 128), (56, 56, 64), (28, 28, 32), (14, 14, 16), (7, 7, 8))
+H_DEC = tuple(zip((1536, 768, 384, 192), H_RES[3::-1]))  # (C in, resolution) a block
+# stride-1 3x3x3 convs of one forward: the stem and 5 a stage in the encoder
+# (block 0's conv1 strides from stage 1 on) and 8 in the decoder, all under
+# remat; the 3 densify projections (the coarsest is an identity), outside it
+H_REMAT_SITES = (
+    [("enc0.0.conv1", 1, 96, H_RES[0])]
+    + [(f"enc{d}.{b}.conv{i}", c, c, vol) for d, (c, vol) in enumerate(zip(H_DIMS, H_RES))
+       for b in range(3) for i in (1, 2) if (b, i) != (0, 1)]
+    + [(f"dec{i}.conv{j}", c, c // (1 + j), vol) for i, (c, vol) in enumerate(H_DEC)
+       for j in (0, 1)])
+H_DENSIFY_SITES = [(f"densify{i}", H_DIMS[-1 - i], H_DIMS[-1 - i], H_RES[-1 - i])
+                   for i in (1, 2, 3)]
+# the norms: 6 masked a stage, 4 masked densify norms (the finest feature's
+# is never read) and 8 plain in the decoder
+H_REMAT_NORMS = (
+    [(f"enc{d}.{b}.norm{i}", vol, c, True) for d, (c, vol) in enumerate(zip(H_DIMS, H_RES))
+     for b in range(3) for i in (1, 2)]
+    + [(f"dec{i}.norm{j}", vol, c // (1 + j), False) for i, (c, vol) in enumerate(H_DEC)
+       for j in (0, 1)])
+H_DENSIFY_NORMS = [(f"densify{i}", H_RES[-1 - i], H_DIMS[-1 - i], True) for i in range(4)]
+H_SITES, H_NORMS = H_REMAT_SITES + H_DENSIFY_SITES, H_REMAT_NORMS + H_DENSIFY_NORMS
+
+
+def h_forwards(name, micro):
+    """Forwards of a site or norm in one H step: a microbatch's teacher and
+    student forwards and, under remat, the student's second forward."""
+    return micro * (2 if name.startswith("densify") else 3)
+
+
+def h_step_launches(micro):
+    """One H step in `micro` microbatches: the forwards of h_forwards and the
+    student's dx at every site but the stem."""
+    per = (path_launches(H_REMAT_SITES, H_REMAT_NORMS, 3, True),
+           path_launches(H_DENSIFY_SITES, H_DENSIFY_NORMS, 2, True, stem=False))
+    return {k: micro * sum(p[k] for p in per) for k in COUNT_KEYS}
+
+
+H_STEP_LAUNCHES = h_step_launches(H_CFG.grad_accum_steps)
+H_STEP1_LAUNCHES = h_step_launches(1)  # the grad_accum_steps=1 step at B = 4
+H_VAL_LAUNCHES = path_launches(H_SITES, H_NORMS, 1, False)
+# STUNetTrainer_huge at 128^3: the stem and 5 a stage in the encoder, 6 a
+# stage in the decoder (block 0's conv1 reads the concat, 2C -> C); 2 norms a
+# block; every stage under remat
+H_SUP_DIMS, H_SUP_RES = (96, 192, 384, 768, 1536, 1536), (128, 64, 32, 16, 8, 4)
+H_SUP_SITES = (
+    [("enc0.0.conv1", 1, 96, (128,) * 3)]
+    + [(f"enc{d}.{b}.conv{i}", c, c, (r,) * 3) for d, (c, r) in enumerate(zip(H_SUP_DIMS, H_SUP_RES))
+       for b in range(3) for i in (1, 2) if (b, i) != (0, 1)]
+    + [(f"dec{u}.{b}.conv{i}", 2 * c if (b, i) == (0, 1) else c, c, (r,) * 3)
+       for u, (c, r) in enumerate(zip(H_SUP_DIMS[-2::-1], H_SUP_RES[-2::-1]))
+       for b in range(3) for i in (1, 2)])
+H_SUP_NORMS = [(f"{part}{d}.{b}.norm{i}", (r,) * 3, c, False)
+               for part, levels in (("enc", zip(H_SUP_DIMS, H_SUP_RES)),
+                                    ("dec", zip(H_SUP_DIMS[-2::-1], H_SUP_RES[-2::-1])))
+               for d, (c, r) in enumerate(levels) for b in range(3) for i in (1, 2)]
+H_SUP_STEP_LAUNCHES = path_launches(H_SUP_SITES, H_SUP_NORMS, 2, True)  # + remat's forward
+H_STEPS, H_PROFILED, H_SUP_STEPS = 5, 2, 2
 
 
 def kernel_launches(c, kernel):
@@ -976,22 +1074,149 @@ class LaunchShapes:
 
 
 def reference_phase():
-    """A tiny SparK in fp32: the card (kernels) against the CPU (plain)."""
-    cfg = PretrainConfig(patch_size=(32, 32, 32), encoder_dims=(4, 8, 16, 32, 64),
-                         compute_dtype="float32")
-    cpu = build_spark_model(cfg, device="cpu", generator=torch.Generator().manual_seed(5))
-    gpu = copy.deepcopy(cpu).to("cuda")
+    """Tiny pretraining models in fp32: the card (kernels) against the CPU
+    (plain), rel. error <= 1e-4: the SparK (STUNet encoder dims 4-64), with
+    densify norm "bn", with "ln", in the batch-pooled reference-fidelity mode
+    (decoder norm "bn"), and with the MedNeXt encoder; the three ablation
+    decoders and SparseConvNeXtBlock on their own."""
     gen = torch.Generator().manual_seed(6)
     x = torch.rand((2, 1, 32, 32, 32), generator=gen).contiguous(
         memory_format=torch.channels_last_3d)
-    mask = random_keep_mask(2, cpu.fmap, cpu.len_keep, gen, device="cpu")
-    with torch.no_grad():
-        _, rec_c = cpu(x, mask)
-        _, rec_g = gpu(x.cuda(), mask.cuda())
-    err = rel_err(rec_g.cpu(), rec_c)
-    check(math.isfinite(err) and err <= 1e-4, f"tiny SparK card vs CPU rel err {err}")
-    print(f"[slice] tiny SparK fp32, card vs CPU: rec rel err {err:.3e}")
-    return err
+    small = dict(patch_size=(32, 32, 32), encoder_dims=(4, 8, 16, 32, 64),
+                 compute_dtype="float32")
+    configs = {"SparK": {}, "SparK densify bn": dict(densify_norm="bn"),
+               "SparK densify ln": dict(densify_norm="ln"),
+               "SparK pooled, decoder bn": dict(norm_batch_pooled=True, decoder_norm="bn"),
+               "SparK MedNeXt": dict(encoder_type="mednext", encoder_dims=(4,))}
+    worst = 0.0
+
+    def compare(label, make, *args):
+        nonlocal worst
+        cpu = make()
+        gpu = copy.deepcopy(cpu).to("cuda")
+        with torch.no_grad():
+            out_c = cpu(*args)
+            out_g = gpu(*([v.cuda() for v in a] if isinstance(a, list) else a.cuda()
+                          for a in args))
+        outs = [(o_g.cpu(), o_c) for o_g, o_c in zip(
+            out_g if isinstance(out_g, (list, tuple)) else [out_g],
+            out_c if isinstance(out_c, (list, tuple)) else [out_c])]
+        err = max(rel_err(g, c_) for g, c_ in outs)
+        check(math.isfinite(err) and err <= 1e-4, f"tiny {label} card vs CPU rel err {err}")
+        print(f"[slice] tiny {label} fp32, card vs CPU: rel err {err:.3e}")
+        worst = max(worst, err)
+
+    for label, kw in configs.items():
+        cfg = PretrainConfig(**{**small, **kw})
+        cpu = build_spark_model(cfg, device="cpu", generator=torch.Generator().manual_seed(5))
+        mask = random_keep_mask(2, cpu.fmap, cpu.len_keep, gen, device="cpu")
+        compare(label, lambda: cpu, x, mask)
+    feats = [torch.randn((2, 16, 2, 2, 2), generator=gen),
+             torch.randn((2, 8, 4, 4, 4), generator=gen)]
+    g5 = torch.Generator().manual_seed(5)
+    compare("DSDecoder", lambda: DSDecoder(4, width=16, norm="bn", generator=g5), feats)
+    compare("SMiMDecoder", lambda: SMiMDecoder(16, 16, width=16, generator=g5), feats[:1])
+    compare("SMiMTwoDecoder", lambda: SMiMTwoDecoder(16, 16, width=64, generator=g5), feats[:1])
+    keep = torch.rand((2, 1, 4, 4, 4), generator=gen) > 0.4
+    y = torch.randn((2, 8, 8, 8, 8), generator=gen) * upsample_mask(keep, (2, 2, 2))
+    compare("SparseConvNeXtBlock", lambda: SparseConvNeXtBlock(8, generator=g5), y, keep)
+    return worst
+
+
+def remat_phase():
+    """Activation checkpointing on the card: one backward of a tiny SparK
+    (3 stages at depth 2 with remat, patch 32^3; dims 4-16 in fp32, 32-64
+    in bf16 so that the hopper variants run) and of a tiny supervised STUNet
+    (depth 2; dims 4-16 in fp32, 32-64 in bf16), each twice without remat
+    and once with it. The three gradients must be bit-equal (cuDNN held to
+    its deterministic algorithms for the comparison), and the remat run must
+    launch every kernel of its forward again inside its backward. In fp32
+    the remat gradients must agree with the CPU's (plain versions): the
+    largest difference over all leaves within 1e-4 of the step's largest
+    gradient, and each leaf within half its own largest entry. Three stages,
+    not five: at five the 2^3 patch grid leaves 3 visible voxels a sample to
+    the coarsest norms, and round-off alone (two CPU thread counts) moves
+    the gradients past that limit."""
+    gen = torch.Generator().manual_seed(9)
+    x = torch.rand((2, 1, 32, 32, 32), generator=gen).contiguous(
+        memory_format=torch.channels_last_3d)
+    small = dict(patch_size=(32, 32, 32), encoder_depth=(2,) * 3)
+    sparks = {"SparK fp32": dict(small, encoder_dims=(4, 8, 16), compute_dtype="float32"),
+              "SparK bf16": dict(small, encoder_dims=(32, 64, 64))}
+
+    def spark(kw, remat):
+        return build_spark_model(PretrainConfig(**kw, remat=remat), device="cpu",
+                                 generator=torch.Generator().manual_seed(5))
+
+    tiny = spark(sparks["SparK fp32"], False)
+    keep = random_keep_mask(2, tiny.fmap, tiny.len_keep, gen, device="cpu")
+
+    def stunet(dims, dtype, remat):
+        return STUNet(1, 3, depth=(2,) * 4, dims=dims, pool_op_kernel_sizes=[(2, 2, 2)] * 3,
+                      dtype=dtype, generator=torch.Generator().manual_seed(5), remat=remat)
+
+    def spark_loss_of(model, inp, mask):
+        return spark_loss(*model(inp, mask), mask)[0]
+
+    def stunet_loss_of(model, inp):
+        return sum(o.float().square().mean() for o in model(inp))
+
+    cases = [(label, lambda r, kw=kw: spark(kw, r), spark_loss_of, (x, keep),
+              kw.get("compute_dtype") == "float32") for label, kw in sparks.items()]
+    cases += [(f"STUNet {name}", lambda r, n=n, d=d: stunet(n, d, r), stunet_loss_of, (x,),
+               d == torch.float32) for name, n, d in (("fp32", (4, 8, 16, 16), torch.float32),
+                                                     ("bf16", (32, 64, 64, 64), torch.bfloat16))]
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    worst = 0.0
+    try:
+        for label, make, loss_of, args, fp32 in cases:
+            grads, launches = [], []
+            for remat in (False, False, True):
+                model = make(remat).to("cuda")
+                inputs = [a.to("cuda") for a in args]
+                if not fp32:
+                    inputs[0] = inputs[0].to(torch.bfloat16)
+                before = counts()
+                loss_of(model, *inputs).backward()
+                torch.cuda.synchronize()
+                launches.append(since(before))
+                grads.append({n: torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                              for n, p in model.named_parameters()})
+            for k in grads[0]:
+                check(torch.equal(grads[1][k], grads[0][k]),
+                      f"remat {label}: {k} differs between two runs without remat")
+                check(torch.equal(grads[2][k], grads[0][k]),
+                      f"remat {label}: {k} differs with remat")
+            check(launches[1] == launches[0], f"remat {label}: launches {launches[:2]}")
+            by_kernel = [{k: sum(n for v, n in c.items() if v.startswith(k))
+                          for k in ("conv3x3", "zslab", "moments")} for c in launches]
+            again = {k: by_kernel[2][k] - by_kernel[0][k] for k in by_kernel[0]}
+            check(all(by_kernel[0].values()) and all(n > 0 for n in again.values()),
+                  f"remat {label}: launches without remat {launches[0]}, with {launches[2]}")
+            line = (f"[remat] {label}: gradients bit-equal with and without remat over "
+                    f"{len(grads[0])} leaves; launches without remat {launches[0]}, "
+                    f"again in the remat backward {again}")
+            if fp32:
+                cpu = make(True)
+                loss_of(cpu, *args).backward()
+                want = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                        for n, p in cpu.named_parameters()}
+                scale = max(g.abs().max().item() for g in want.values())
+                diff = {k: (grads[2][k].cpu() - g).abs().max().item() for k, g in want.items()}
+                err = max(diff.values()) / scale
+                leaf = max(diff[k] / g.abs().max().item() for k, g in want.items()
+                           if g.abs().max().item() > 1e-6 * scale)
+                check(math.isfinite(err) and err <= 1e-4 and leaf <= 0.5,
+                      f"remat {label}: card vs CPU gradients {err} of the largest, "
+                      f"a leaf {leaf} of its own")
+                line += (f"; card vs CPU {err:.3e} of the largest gradient (a leaf at worst "
+                         f"{leaf:.3e} of its own)")
+                worst = max(worst, err)
+            print(line)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    return worst
 
 
 def slice_phase():
@@ -1177,10 +1402,14 @@ def write_trainer_dataset(root):
               os.path.join(base, "ATKPlans.json"))
 
 
-def trainer_run(cfg, continue_training=False, output_folder=None):
-    """One run_pretraining with the counts at 0; returns the trainer, its
-    history, the conv and moments launches and the peak memory."""
-    trainer = PretrainTrainer(TRAINER_DATASET, cfg, device="cuda", output_folder=output_folder)
+def trainer_run(cfg, continue_training=False, output_folder=None, trainer=None,
+                step=STEP_LAUNCHES, val=VAL_LAUNCHES):
+    """One run_pretraining (of `trainer`, else a new one) with the counts at
+    0, a training step launching `step`, a validation step `val`; returns
+    the trainer, its history, the conv and moments launches and the peak
+    memory."""
+    trainer = trainer or PretrainTrainer(TRAINER_DATASET, cfg, device="cuda",
+                                         output_folder=output_folder)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -1193,7 +1422,7 @@ def trainer_run(cfg, continue_training=False, output_folder=None):
     n_val = epochs * max(1, iters // 5)
     # a training step launches as the bare step does, a val step one forward
     steps = epochs * iters
-    want = {k: steps * STEP_LAUNCHES[k] + n_val * VAL_LAUNCHES[k] for k in COUNT_KEYS}
+    want = {k: steps * step[k] + n_val * val[k] for k in COUNT_KEYS}
     check(launches == want, f"trainer launches {launches}, expected {want}")
     return trainer, history, launches, torch.cuda.max_memory_allocated()
 
@@ -1520,104 +1749,126 @@ def ladder_phase(predictor, data):
           f"{calls}; logits vs uncapped tile batch 1: rel err {err:.3e}")
 
 
-def supervised_gate_phase(gen):
-    """Every launch shape that the supervised paths add, against the plain
-    versions with the gates of the phases above: the STUNet-B finetuning step
-    and the ATKTrainer PlainConvUNet step at B = 2 (kernel #1: forwards below
-    MIN_VOLUME and every dx but the stem's; kernel #2: the per-tap forwards,
-    with their dx through conv3d_zconcat; the moments of every norm,
-    square_in_dtype with and without), timed there; the final validation's
-    forwards at B = 16, checked only. Returns per kernel (max abs err, max rel
-    err), the totals of one STUNet-B step and of one PlainConvUNet step at B
-    = 2, and the launch shapes checked, each in LaunchShapes' form."""
-    errs = {k: [0.0, 0.0] for k in ("conv3x3", "zslab", "moments")}
-    checked = {k: set() for k in errs}
-    k1, k2, mom = {}, {}, {}
+def gate_path(label, sites, norms, batch, gen, errs, checked, timed, stem="enc0.0.conv1",
+              dx=True):
+    """Every launch shape of one path at `batch` against the plain versions,
+    with the gates above: kernel #1's forward where it runs it (below
+    MIN_VOLUME output voxels) and, with `dx`, its dx at every site but
+    `stem`; kernel #2's per-tap forward, with dx through conv3d_zconcat; the
+    moments of every norm, square_in_dtype with and without. With `timed`, the times of
+    each shape as the phases above take them; else a shape checked before is
+    skipped. Updates errs (per kernel [max abs, max rel]) and checked (the
+    shapes in LaunchShapes' form); returns the times by kernel and shape."""
+    t = {"conv3x3": {}, "zslab": {}, "moments": {}}
 
     def note(kernel, a, r):
         errs[kernel] = [max(errs[kernel][0], a), max(errs[kernel][1], r)]
 
-    for batch, nets in ((SUP_BATCH, (INFER_SITES, PLAIN_INFER_SITES)),
-                        (VAL_TTA_BATCH, (INFER_SITES,))):
-        for sites in nets:
-            for i, (name, C, F, vol) in enumerate(sites):
-                keys = [] if per_tap(vol) else [(C, F, vol)]
-                if batch == SUP_BATCH and i > 0:
-                    keys.append((F, C, vol))  # dx: kernel #1 on the flipped weight
-                for c, f, v in keys:
-                    shape = (batch, *v, c, f)
-                    if shape in checked["conv3x3"]:
-                        continue
-                    times, (a, r), variant = time_site(c, f, v, gen, batch,
-                                                       timed=batch == SUP_BATCH)
-                    if times is not None:
-                        k1[(c, f, v)] = times
-                    torch.cuda.empty_cache()
-                    note("conv3x3", a, r)
-                    checked["conv3x3"].add(shape)
-                    print(f"[supervised] kernel #1 bf16 B={batch} {c:>4}->{f:<3} @{v}: rel err "
-                          f"{r:.3e} ({variant})")
-                shape = (batch, *vol, C, F)
-                if per_tap(vol) and shape not in checked["zslab"]:
-                    a, r, shares, once, variant, times = zconcat_site(
-                        C, F, vol, batch, gen, dx=batch == SUP_BATCH and i > 0,
-                        timed=batch == SUP_BATCH)
-                    note("zslab", a, r)
-                    checked["zslab"].add(shape)
-                    if times is not None:
-                        k2[(C, F, vol)] = times
-                    print(f"[supervised] kernel #2 B={batch} {C:>3}->{F:<3} @{vol} ({variant}): "
-                          f"rel err {r:.3e}, bit-equal to plain {shares}, kernel #1 fwd "
-                          f"{once:.6f}" + (f"; fwd {times[0]:.3f} ms, plain {times[1]:.3f} ms, "
-                                           f"F.conv3d {times[2]:.3f} ms" if times else ""))
-    for batch, norms in ((SUP_BATCH, INFER_NORMS + PLAIN_INFER_NORMS),
-                         (VAL_TTA_BATCH, INFER_NORMS)):
-        for _, vol, C, _ in norms:
-            shape = (batch, *vol, C, False, True)
-            if shape in checked["moments"]:
+    for name, C, F, vol in sites:
+        keys = [] if per_tap(vol) else [(C, F, vol)]
+        back = dx and name != stem
+        if back:
+            keys.append((F, C, vol))  # dx: kernel #1 on the flipped weight
+        for key in keys:
+            shape = (batch, *key[2], key[0], key[1])
+            if key in t["conv3x3"] or (not timed and shape in checked["conv3x3"]):
                 continue
-            x, _ = moments_inputs(batch, vol, C, False, torch.bfloat16, gen)
-            for square in (False, True):
-                a, r = moments_err(x, None, square)
-                check(math.isfinite(r) and r <= 1e-5,
-                      f"moments B={batch} {vol} C={C} square_in_dtype={square}: rel error {r}")
-                note("moments", a, r)
-            line = ""
-            if batch == SUP_BATCH:
-                mom[(vol, C)] = (time_ms(lambda: row_moments_forward(x, None, True), 20),
-                                 time_ms(lambda: row_moments_plain(x, None, True), 3),
-                                 time_ms(lambda: torch.var_mean(x, dim=(1, 2, 3),
-                                                                correction=0), 5))
-                line = (f"; call {mom[(vol, C)][0]:.4f} ms, plain {mom[(vol, C)][1]:.4f} ms, "
-                        f"var_mean {mom[(vol, C)][2]:.4f} ms")
-            checked["moments"].add(shape)
-            print(f"[supervised] moments bf16 B={batch} {vol} C={C}: rel err {r:.3e}, two calls "
-                  f"bit-equal{line}")
-            del x
+            times, (a, r), variant = time_site(*key, gen, batch, timed=timed)
+            t["conv3x3"][key] = times
+            note("conv3x3", a, r)
+            checked["conv3x3"].add(shape)
+            print(f"[{label}] kernel #1 bf16 B={batch} {key[0]:>4}->{key[1]:<4} @{key[2]}: rel err "
+                  f"{r:.3e} ({variant})" + (f"; {times[0]:.3f} ms, plain {times[1]:.3f} ms, "
+                                           f"F.conv3d {times[2]:.3f} ms" if times else ""))
             torch.cuda.empty_cache()
+        shape = (batch, *vol, C, F)
+        if per_tap(vol) and (C, F, vol) not in t["zslab"] and (
+                timed or shape not in checked["zslab"]):
+            a, r, shares, once, variant, times = zconcat_site(C, F, vol, batch, gen, dx=back,
+                                                              timed=timed)
+            t["zslab"][(C, F, vol)] = times
+            note("zslab", a, r)
+            checked["zslab"].add(shape)
+            print(f"[{label}] kernel #2 B={batch} {C:>4}->{F:<4} @{vol} ({variant}): rel err "
+                  f"{r:.3e}, bit-equal to plain {[round(v, 6) for v in shares]}, kernel #1 fwd "
+                  f"{once:.6f}" + (f"; fwd {times[0]:.3f} ms, plain {times[1]:.3f} ms, "
+                                   f"F.conv3d {times[2]:.3f} ms" if times else ""))
+    for _, vol, C, masked in norms:
+        shape = (batch, *vol, C, masked, True)
+        if (vol, C, masked) in t["moments"] or (not timed and shape in checked["moments"]):
+            continue
+        x, mask = moments_inputs(batch, vol, C, masked, torch.bfloat16, gen)
+        for square in (False, True):
+            a, r = moments_err(x, mask, square)
+            check(math.isfinite(r) and r <= 1e-5,
+                  f"moments B={batch} {vol} C={C} masked={masked} square_in_dtype={square}: "
+                  f"rel error {r}")
+            note("moments", a, r)
+        line = ""
+        if timed:
+            visible = int(mask.sum()) if masked else batch * math.prod(vol)
+            t["moments"][(vol, C, masked)] = (
+                time_ms(lambda: row_moments_forward(x, mask, True), 20),
+                time_ms(lambda: row_moments_plain(x, mask, True), 3),
+                time_ms(lambda: torch.var_mean(x, dim=(1, 2, 3), correction=0), 5), visible)
+            line = (f"; call {t['moments'][(vol, C, masked)][0]:.4f} ms, plain "
+                    f"{t['moments'][(vol, C, masked)][1]:.4f} ms, var_mean "
+                    f"{t['moments'][(vol, C, masked)][2]:.4f} ms")
+        else:
+            t["moments"][(vol, C, masked)] = None
+        checked["moments"].add(shape)
+        print(f"[{label}] moments bf16 B={batch} {vol} C={C} {'masked' if masked else 'plain'}: "
+              f"rel err {r:.3e}, two calls bit-equal{line}")
+        del x, mask
+        torch.cuda.empty_cache()
+    return t
 
-    def step_totals(sites, norms):
-        t = {k: dict.fromkeys(TOTAL_KEYS, 0.0) for k in errs}
-        for i, (_, C, F, vol) in enumerate(sites):
-            if per_tap(vol):
-                add_totals(t["zslab"], 1, *k2[(C, F, vol)], *bound_ms(C, F, vol, SUP_BATCH))
-            else:
-                add_totals(t["conv3x3"], 1, *k1[(C, F, vol)], *bound_ms(C, F, vol, SUP_BATCH))
-            if i > 0:
-                add_totals(t["conv3x3"], 1, *k1[(F, C, vol)], *bound_ms(F, C, vol, SUP_BATCH))
-        for _, vol, C, _ in norms:
-            voxels = SUP_BATCH * math.prod(vol)
-            add_totals(t["moments"], 1, *mom[(vol, C)],
-                       *moments_bound_ms(SUP_BATCH, vol, C, False, voxels))
-        return t
 
-    stunet, plain = step_totals(INFER_SITES, INFER_NORMS), step_totals(PLAIN_INFER_SITES,
-                                                                       PLAIN_INFER_NORMS)
-    for label, t in (("STUNet-B", stunet), ("PlainConvUNet", plain)):
-        print(f"[supervised] one {label} training step at B={SUP_BATCH}: " + "; ".join(
-            f"{k} {v['ms']:.3f} ms (bound {v['bound_ms']:.3f}, plain {v['plain_ms']:.3f}, "
-            f"library {v['library_ms']:.3f})" for k, v in t.items()))
-    return errs, stunet, plain, checked
+def step_totals(t, sites, norms, batch, forwards, dx):
+    """Per kernel, the TOTAL_KEYS totals of one step from gate_path's times:
+    forwards(name) forwards of each site and norm, dx(name) dx of each site."""
+    tot = {k: dict.fromkeys(TOTAL_KEYS, 0.0) for k in t}
+    for name, C, F, vol in sites:
+        kernel = "zslab" if per_tap(vol) else "conv3x3"
+        add_totals(tot[kernel], forwards(name), *t[kernel][(C, F, vol)],
+                   *bound_ms(C, F, vol, batch))
+        if dx(name):
+            add_totals(tot["conv3x3"], dx(name), *t["conv3x3"][(F, C, vol)],
+                       *bound_ms(F, C, vol, batch))
+    for name, vol, C, masked in norms:
+        ms, plain, lib, visible = t["moments"][(vol, C, masked)]
+        add_totals(tot["moments"], forwards(name), ms, plain, lib,
+                   *moments_bound_ms(batch, vol, C, masked, visible))
+    return tot
+
+
+def print_totals(label, what, tot):
+    print(f"[{label}] {what}: " + "; ".join(
+        f"{k} {v['ms']:.3f} ms (bound {v['bound_ms']:.3f}, plain {v['plain_ms']:.3f}, library "
+        f"{v['library_ms']:.3f})" for k, v in tot.items()))
+
+
+def supervised_gate_phase(gen):
+    """Every launch shape that the supervised paths add, against the plain
+    versions with the gates of the phases above (gate_path): the STUNet-B
+    finetuning step and the ATKTrainer PlainConvUNet step at B = 2, timed
+    there; the final validation's forwards at B = 16, checked only. Returns
+    per kernel (max abs err, max rel err), the totals of one STUNet-B step
+    and of one PlainConvUNet step at B = 2, and the launch shapes checked,
+    each in LaunchShapes' form."""
+    errs = {k: [0.0, 0.0] for k in ("conv3x3", "zslab", "moments")}
+    checked = {k: set() for k in errs}
+    steps = {}
+    for label, sites, norms, stem in (("STUNet-B", INFER_SITES, INFER_NORMS, "enc0.conv1"),
+                                      ("PlainConvUNet", PLAIN_INFER_SITES, PLAIN_INFER_NORMS,
+                                       "enc0.conv0")):
+        t = gate_path("supervised", sites, norms, SUP_BATCH, gen, errs, checked, True, stem)
+        steps[label] = step_totals(t, sites, norms, SUP_BATCH, lambda n: 1,
+                                   lambda n, stem=stem: int(n != stem))
+        print_totals("supervised", f"one {label} training step at B={SUP_BATCH}", steps[label])
+    gate_path("supervised", INFER_SITES, INFER_NORMS, VAL_TTA_BATCH, gen, errs, checked, False,
+              dx=False)
+    return errs, steps["STUNet-B"], steps["PlainConvUNet"], checked
 
 
 def write_supervised_dataset(root):
@@ -1661,15 +1912,21 @@ def write_supervised_dataset(root):
     dataset_json = {"channel_names": {"0": "CT"}, "labels": {"background": 0, "a": 1, "b": 2},
                     "numTraining": SUP_CASES, "file_ending": ".nii.gz"}
     save_json(dataset_json, os.path.join(base, "dataset.json"))
+    plans_file = os.path.join(base, "ATKPlans.json")
+    save_json(supervised_plans(), plans_file)
+    return plans_file, dataset_json
+
+
+def supervised_plans():
+    """The files phase's 3d_fullres plans (patch 128^3, batch 2, 6 stages)
+    for one CT channel, z-scored without a mask."""
     plans = plain_unet_plans()
     plans["dataset_name"] = SUP_DATASET
     plans["foreground_intensity_properties_per_channel"] = {
         "0": plans["foreground_intensity_properties_per_channel"]["0"]}
     cfg = plans["configurations"]["3d_fullres"]
     cfg["normalization_schemes"], cfg["use_mask_for_norm"] = ["ZScoreNormalization"], [False]
-    plans_file = os.path.join(base, "ATKPlans.json")
-    save_json(plans, plans_file)
-    return plans_file, dataset_json
+    return plans
 
 
 PROFILED_STEPS = 3
@@ -1947,6 +2204,257 @@ def supervised_phase(root, pretrain_checkpoint):
     return {k: sum(r[k] for r in runs) for k in COUNT_KEYS}, plain_launches
 
 
+def h_gate_phase(gen):
+    """Every launch shape of pretrain-H held against the plain versions: the
+    H step's at its microbatch (B = 2) and the finetuning step's (B = 2),
+    timed; the validation forwards and the grad_accum_steps=1 step at B = 4
+    (among them kernel #2 and kernel #1's dx at 192 -> 192 on 112x112x128, a
+    1.23e9-element activation), checked only. Returns per kernel (max abs
+    err, max rel err), the totals of one H step and of one finetuning step,
+    and the launch shapes checked."""
+    errs = {k: [0.0, 0.0] for k in ("conv3x3", "zslab", "moments")}
+    checked = {k: set() for k in errs}
+    t_step = gate_path("pretrain-H", H_SITES, H_NORMS, H_MICRO, gen, errs, checked, True)
+    micro = H_CFG.grad_accum_steps
+    step = step_totals(t_step, H_SITES, H_NORMS, H_MICRO, lambda n: h_forwards(n, micro),
+                       lambda n: 0 if n == "enc0.0.conv1" else micro)
+    print_totals("pretrain-H", f"one step (B = {BATCH} in {micro} microbatches of {H_MICRO}, "
+                 f"remat)", step)
+    gate_path("pretrain-H", H_SITES, H_NORMS, BATCH, gen, errs, checked, False)
+    t_sup = gate_path("finetune-H", H_SUP_SITES, H_SUP_NORMS, SUP_BATCH, gen, errs, checked,
+                      True)
+    sup = step_totals(t_sup, H_SUP_SITES, H_SUP_NORMS, SUP_BATCH, lambda n: 2,
+                      lambda n: 0 if n == "enc0.0.conv1" else 1)
+    print_totals("finetune-H", f"one STUNetTrainer_huge step (B = {SUP_BATCH}, remat)", sup)
+    return errs, step, sup, checked
+
+
+def h_step_phase():
+    """The AnatoMask step at STUNet-H, as atk_pretrain -model H runs it: 2
+    warm-up and 3 timed steps, checking finite losses, the hard masks and
+    the launches by kernel and variant (h_step_launches: per microbatch the
+    teacher's forward, the student's and remat's second one, dx); then a
+    torch.profiler split of H_PROFILED steps, one step at grad_accum_steps=1
+    (B = 4) and one LAMB step, each finite, with their own launches.
+    Returns the phase's launches and the median step ms."""
+    cfg = H_CFG
+    student = build_spark_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    teacher = make_teacher(student)
+    optimizer = make_optimizer(student, cfg)
+    micro = accumulation_steps(BATCH, cfg.grad_accum_steps)
+    check(micro == 2 and student.fmap == FMAP and student.len_keep == LEN_KEEP,
+          f"H sizes: micro {micro}, fmap {student.fmap}, keep {student.len_keep}")
+    check(student.sparse_encoder.sp_cnn.remat and student.dense_decoder.remat,
+          "STUNet-H pretraining runs without remat")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.rand((BATCH, 1, *cfg.patch_size), generator=gen, device="cuda")
+    x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+    L = math.prod(student.fmap)
+    len_loss = int((L - student.len_keep) * 0.25)
+    n_params = sum(p.numel() for p in student.parameters())
+    print(f"[pretrain-H] STUNet-H SparK, {n_params} parameters (dims {H_DIMS}, 3 blocks a "
+          f"stage, decoder width {student.dense_decoder.width}), patch {cfg.patch_size}, batch "
+          f"{BATCH} in {micro} microbatches, mask ratio {cfg.mask_ratio}, {cfg.compute_dtype}, "
+          f"{cfg.optimizer}, "
+          f"remat; forced {len_loss}")
+
+    def step(opt, accum):
+        loss, hard, loss_map = anatomask_train_step(student, teacher, opt, x, len_loss, gen,
+                                                    grad_accum_steps=accum)
+        return loss.item(), hard, loss_map
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    # counts from here on belong to the H pretraining path
+    zero_counts()
+    for i in range(H_STEPS):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, hard, loss_map = step(optimizer, micro)
+        times.append((time.perf_counter() - t0) * 1e3)
+        n = since(before)
+        check(math.isfinite(loss), f"H step {i}: loss {loss}")
+        hard = hard.reshape(BATCH, L)
+        check(hard.sum(1).tolist() == [student.len_keep] * BATCH, f"H step {i}: kept "
+              f"{hard.sum(1).tolist()}")
+        top = torch.topk(loss_map, len_loss, dim=1).indices
+        check(not torch.gather(hard, 1, top).any(), f"H step {i}: a forced patch is kept")
+        check(n == H_STEP_LAUNCHES, f"H step {i}: launches {n}, expected {H_STEP_LAUNCHES}")
+        print(f"[pretrain-H] step {i}: loss {loss:.6f}, {times[-1]:.1f} ms, launches {n}")
+    step_ms = statistics.median(times[WARMUP:])
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[pretrain-H] step {step_ms:.1f} ms (median of {H_STEPS - WARMUP}), "
+          f"{BATCH / step_ms * 1e3:.3f} patches/s, peak memory {peak / 2**30:.2f} GiB ({peak} "
+          f"bytes); launches a step {H_STEP_LAUNCHES}")
+    split = profile_steps(lambda: step(optimizer, micro), H_PROFILED)
+    print(f"[pretrain-H] where a step's time goes (torch.profiler, {H_PROFILED} steps): {split}")
+    torch.cuda.reset_peak_memory_stats()
+    before = counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_one = step(optimizer, 1)[0]
+    one_ms = (time.perf_counter() - t0) * 1e3
+    peak_one = torch.cuda.max_memory_allocated()
+    n_one = since(before)
+    del optimizer
+    free_memory()
+    lamb = make_optimizer(student, replace(cfg, optimizer="lamb"))
+    check(isinstance(lamb, Lamb), f"optimizer lamb built {type(lamb).__name__}")
+    loss_lamb = step(lamb, micro)[0]
+    launches = counts()
+    del lamb
+    check(math.isfinite(loss_lamb) and math.isfinite(loss_one),
+          f"LAMB step loss {loss_lamb}, grad_accum_steps=1 step loss {loss_one}")
+    check(n_one == H_STEP1_LAUNCHES, f"grad_accum_steps=1 launches {n_one}, expected "
+          f"{H_STEP1_LAUNCHES}")
+    want = {k: (H_STEPS + H_PROFILED + 1) * H_STEP_LAUNCHES[k] + H_STEP1_LAUNCHES[k]
+            for k in COUNT_KEYS}
+    check(launches == want, f"pretrain-H launches {launches}, expected {want}")
+    print(f"[pretrain-H] a step at grad_accum_steps=1 (B = {BATCH} at once): loss "
+          f"{loss_one:.6f}, {one_ms:.1f} ms, peak memory {peak_one / 2**30:.2f} GiB, launches "
+          f"{n_one}; a LAMB step: loss {loss_lamb:.6f}; launches in the phase {launches}")
+    del student, teacher, x
+    free_memory()
+    return launches, step_ms
+
+
+def h_trainer_phase(root, bare_step_ms):
+    """PretrainTrainer.run_pretraining at STUNet-H (H_CFG) on
+    write_trainer_dataset's cases: 1 epoch x 2 iterations with the GPU case
+    cache, validation and the checkpoints, then a resumed epoch. Each run
+    writes one checkpoint (~16 bytes a parameter: student, teacher, two AdamW
+    moments) and links its other names to it; they go to `root`, which the
+    caller deletes; the phase first checks that the disk holds three.
+    Returns the launches of both runs and the resumed run's
+    checkpoint_final.pt."""
+    write_trainer_dataset(root)
+    for which in ("preprocessed", "results"):
+        os.environ[f"ATK_{which}"] = os.path.join(root, which)
+    cfg = replace(H_CFG, num_epochs=1, iters_per_epoch=2, device_cache=True)
+    out = os.path.join(root, "results", "pretrain_H")
+    trainer = PretrainTrainer(TRAINER_DATASET, cfg, device="cuda", output_folder=out)
+    need = 3 * 16 * sum(p.numel() for p in trainer.model.parameters())
+    free = shutil.disk_usage(root).free
+    check(free >= need, f"the disk under {root} has {free / 1e9:.1f} GB free; the STUNet-H "
+          f"trainer phase holds up to {need / 1e9:.1f} GB of checkpoints at once")
+    writes = []
+    save = ckpt_mod.save_trainer_checkpoint
+
+    def timed_save(path, state, meta):  # the writer thread's and the final save's
+        t0 = time.perf_counter()
+        save(path, state, meta)
+        writes.append((os.path.basename(path), time.perf_counter() - t0, os.path.getsize(path)))
+
+    ckpt_mod.save_trainer_checkpoint = timed_save
+    try:
+        t, history, launches, peak = trainer_run(cfg, trainer=trainer, step=H_STEP_LAUNCHES,
+                                                 val=H_VAL_LAUNCHES)
+        e = t.epoch_timings[-1]
+        print(f"[pretrain-H trainer] {t.n_train} training cases in {t.device_cache.num_slots} "
+              f"cache slots; epoch {e['epoch']}: {e['total']:.3f} s (train {e['train']:.3f} s, "
+              f"{e['train'] / cfg.iters_per_epoch * 1e3:.1f} ms a step through the trainer (bare "
+              f"step {bare_step_ms:.1f} ms), "
+              f"fetch-wait {e['fetch_wait']:.3f} s, val {e['val']:.3f} s, checkpoint snapshot "
+              f"{e['ckpt']:.3f} s); losses {history}; peak memory {peak / 2**30:.2f} GiB; "
+              f"launches {launches}")
+        names = ("checkpoint_latest.pt", "H_head_latest.pt", "checkpoint_best.pt",
+                 "checkpoint_final.pt")
+        for f in names + ("history.json",):
+            check(os.path.isfile(os.path.join(out, f)), f"no {f}")
+        check(len(writes) == 1 and len({os.stat(os.path.join(out, f)).st_ino for f in names}) == 1,
+              f"H checkpoints: wrote {writes}, expected one file under {names}")
+        print(f"[pretrain-H trainer] checkpoint written once ({', '.join(names)} one file): "
+              + ", ".join(f"{name} {size / 1e9:.3f} GB in {s:.3f} s" for name, s, size in writes))
+        del t, trainer
+        free_memory()
+        writes.clear()
+        t0 = time.perf_counter()
+        resume = replace(cfg, num_epochs=2)
+        t2, history2, launches2, peak2 = trainer_run(resume, True, out, step=H_STEP_LAUNCHES,
+                                                     val=H_VAL_LAUNCHES)
+        total = time.perf_counter() - t0
+    finally:
+        ckpt_mod.save_trainer_checkpoint = save
+    check(t2.current_epoch == 1 and len(history2["train_loss"]) == 1 and len(writes) == 1
+          and t2._optimizer_count() == 4, f"H resume ran epoch {t2.current_epoch}, history "
+          f"{history2}, optimizer count {t2._optimizer_count()}, wrote {writes}")
+    e = t2.epoch_timings[-1]
+    print(f"[pretrain-H trainer] resumed at epoch {e['epoch']} from checkpoint_latest "
+          f"({total:.3f} s with the model built and the checkpoint loaded): epoch "
+          f"{e['total']:.3f} s (train {e['train']:.3f} s, val {e['val']:.3f} s, snapshot "
+          f"{e['ckpt']:.3f} s); losses {history2}; peak memory {peak2 / 2**30:.2f} GiB; "
+          f"checkpoints " + ", ".join(f"{name} {size / 1e9:.3f} GB in {s:.3f} s"
+                                      for name, s, size in writes))
+    del t2
+    free_memory()
+    return {k: launches[k] + launches2[k] for k in COUNT_KEYS}, os.path.join(
+        out, "checkpoint_final.pt")
+
+
+def h_transfer_phase(root, pretrain_checkpoint):
+    """STUNetTrainer_huge (remat, as the JAX preset) on the supervised
+    phase's plans: load_ssl_encoder_into_trainer from the H trainer's
+    checkpoint_final.pt (every encoder tensor the pretrained one's, the rest
+    as initialised), then H_SUP_STEPS bare training steps at 128^3, batch 2,
+    on a random batch of the initial patch. Returns the launches."""
+    plans = supervised_plans()
+    dataset_json = {"channel_names": {"0": "CT"}, "labels": {"background": 0, "a": 1, "b": 2},
+                    "numTraining": SUP_CASES, "file_ending": ".nii.gz"}
+    t = Trainer(plans, "3d_fullres", 0, dataset_json, get_trainer_config("STUNetTrainer_huge"),
+                output_folder=os.path.join(root, "finetune_h"),
+                preprocessed_dataset_folder_base=os.path.join(root, "pp"), device="cuda")
+    t.initialize()
+    check(t.network.remat, "STUNetTrainer_huge's STUNet runs without remat")
+    n_params = sum(p.numel() for p in t.network.parameters())
+    before = {k: v.clone() for k, v in t.network.state_dict().items()}
+    t0 = time.perf_counter()
+    load_ssl_encoder_into_trainer(t, pretrain_checkpoint, verbose=False)
+    load_s = time.perf_counter() - t0
+    encoder = load_trainer_checkpoint(pretrain_checkpoint)[0]["network_weights"]
+    moved = 0
+    for k, v in t.network.state_dict().items():
+        src = encoder.get(f"sparse_encoder.sp_cnn.{k}")
+        if src is not None:
+            check(torch.equal(v.cpu(), src), f"H transfer: {k} is not the pretrained encoder's")
+            moved += 1
+        else:
+            check(torch.equal(v, before[k]), f"H transfer: {k} moved")
+    n_enc = sum(k.startswith("sparse_encoder.sp_cnn.conv_blocks_context.") for k in encoder)
+    check(moved == n_enc > 0, f"H transfer: {moved} tensors of {n_enc} encoder tensors")
+    del before, encoder
+    free_memory()
+    print(f"[finetune-H] STUNet-H, {n_params} parameters, remat; the pretrained encoder's "
+          f"{moved} tensors (stages 0-4, 3 blocks each) transferred in {load_s:.3f} s")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    data = torch.randn((SUP_BATCH, *t.initial_patch_size, 1), generator=gen, device="cuda")
+    seg = torch.randint(0, 3, (SUP_BATCH, *t.initial_patch_size, 1), generator=gen,
+                        device="cuda").to(torch.int16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()  # counts from here on belong to the H finetuning path
+    times = []
+    for i in range(H_SUP_STEPS):
+        before_n = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = t.train_step(data, seg).item()
+        times.append((time.perf_counter() - t0) * 1e3)
+        n = since(before_n)
+        check(math.isfinite(loss) and n == H_SUP_STEP_LAUNCHES,
+              f"H finetuning step {i}: loss {loss}, launches {n}, expected {H_SUP_STEP_LAUNCHES}")
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[finetune-H] patch 128^3 from {t.initial_patch_size}, batch {SUP_BATCH}, bf16: "
+          f"steps {[round(v, 1) for v in times]} ms ({SUP_BATCH / times[-1] * 1e3:.3f} "
+          f"patches/s at the last), peak memory {peak / 2**30:.2f} GiB ({peak} bytes); "
+          f"launches a step {H_SUP_STEP_LAUNCHES}")
+    del t, data, seg
+    free_memory()
+    return launches
+
+
 def kernel_record(name, source, replaces, launches_by_path, max_abs, max_rel, totals_by_path,
                   per, launches_by_variant=None):
     """totals_by_path: {path: TOTAL_KEYS totals}; launches_by_path: {path:
@@ -2009,8 +2517,14 @@ def main():
     mom_err, mom_rel = max(mom_err, sup_errs["moments"][0]), max(mom_rel,
                                                                  sup_errs["moments"][1])
     free_memory()
+    h_errs, h_step, h_sup, h_checked = h_gate_phase(gen)
+    conv_err, conv_rel = max(conv_err, h_errs["conv3x3"][0]), max(conv_rel, h_errs["conv3x3"][1])
+    zc_err, zc_rel = max(zc_err, h_errs["zslab"][0]), max(zc_rel, h_errs["zslab"][1])
+    mom_err, mom_rel = max(mom_err, h_errs["moments"][0]), max(mom_rel, h_errs["moments"][1])
+    free_memory()
 
     reference_phase()
+    remat_phase()
     inference_reference_phase()
     free_memory()
     shapes = LaunchShapes()  # from here on, only the main paths launch kernels
@@ -2032,23 +2546,36 @@ def main():
     print(f"[memory] allocated after the supervised phase: {held / 2**30:.2f} GiB ({held} "
           f"bytes); after gc.collect(): {left / 2**30:.2f} GiB ({left} bytes, the files "
           f"phase's predictor among it)")
-    for label, seen, checked in (("conv3x3", shapes.conv, conv_checked | sup_checked["conv3x3"]),
-                                 ("zslab", shapes.zslab, zc_checked | sup_checked["zslab"]),
+    h_pretrain, h_step_ms = h_step_phase()
+    free_memory()
+    with tempfile.TemporaryDirectory() as root:
+        h_trainer, h_final = h_trainer_phase(root, h_step_ms)
+        free_memory()
+        h_finetune = h_transfer_phase(root, h_final)
+    free_memory()
+    for label, seen, checked in (("conv3x3", shapes.conv,
+                                  conv_checked | sup_checked["conv3x3"] | h_checked["conv3x3"]),
+                                 ("zslab", shapes.zslab,
+                                  zc_checked | sup_checked["zslab"] | h_checked["zslab"]),
                                  ("moments", shapes.moments,
-                                  mom_checked | sup_checked["moments"])):
+                                  mom_checked | sup_checked["moments"] | h_checked["moments"])):
         check(seen <= checked, f"{label} launches at unchecked shapes: {sorted(seen - checked)}")
     print(f"[paths] every launch ran at a checked shape: {len(shapes.conv)} kernel #1, "
           f"{len(shapes.zslab)} kernel #2, {len(shapes.moments)} moments shapes")
     ladder_phase(predictor, ladder_data)  # tile batch 2 launches at B = 16: no path's
 
     runs = {"pretrain": pretrain, "inference": inference, "pretrain_trainer": trainer,
-            "files": files, "supervised": supervised, "plain_trainer": plain_trainer}
+            "files": files, "supervised": supervised, "plain_trainer": plain_trainer,
+            "pretrain_h": h_pretrain, "pretrain_h_trainer": h_trainer, "finetune_h": h_finetune}
     per = ("one pretraining step (B = 4), one inference volume (18 STUNet-B tiles at B = 8), "
            f"one case of the file path ({case_tiles} PlainConvUNet tiles at B = 8), one "
-           "STUNet-B finetuning step and one ATKTrainer PlainConvUNet step (B = 2); by_path "
-           "splits them; launches_by_path counts every launch of each path's run, the "
-           "PretrainTrainer runs', the supervised runs' (training, resume, final validation, "
-           "checkpoint round trip, bare steps) and the ATKTrainer steps' too")
+           "STUNet-B finetuning step and one ATKTrainer PlainConvUNet step (B = 2), one "
+           "STUNet-H pretraining step (B = 4 in two microbatches, remat) and one "
+           "STUNetTrainer_huge step (B = 2, remat); by_path splits them; launches_by_path "
+           "counts every launch of each path's run, the PretrainTrainer runs', the "
+           "supervised runs' (training, resume, final validation, checkpoint round trip, bare "
+           "steps), the ATKTrainer steps' and the H phases' (bare, profiled and ride-along "
+           "steps; the H trainer's two runs; the H finetuning steps) too")
 
     def case(tile):  # one PlainConvUNet tile's totals -> one case's
         return {k: case_tiles * v for k, v in tile.items()}
@@ -2063,7 +2590,8 @@ def main():
         "conv3d_zslab", "anatomask_torch/csrc/zslab_conv.cu",
         "anatomask_tpu/ops/pallas_zslab_conv.py:142", launches("zslab"), zc_err, zc_rel,
         {"pretrain_step": zc_step, "inference_volume": zc_volume, "files_case": case(zc_tile),
-         "supervised_step": sup_step["zslab"], "plain_trainer_step": plain_step["zslab"]},
+         "supervised_step": sup_step["zslab"], "plain_trainer_step": plain_step["zslab"],
+         "pretrain_h_step": h_step["zslab"], "finetune_h_step": h_sup["zslab"]},
         per + "; the main paths' per-tap forwards through conv3d_zconcat", by_variant("zslab"))
     zslab_record["probe"] = {"launches_by_variant": zs_variants, **{
         k: zs_probe[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -2074,7 +2602,8 @@ def main():
         launches("moments"), mom_err, mom_rel,
         {"pretrain_step": mom_step[0], "inference_volume": mom_volume[0],
          "files_case": case(mom_tile[0]), "supervised_step": sup_step["moments"],
-         "plain_trainer_step": plain_step["moments"]},
+         "plain_trainer_step": plain_step["moments"], "pretrain_h_step": h_step["moments"],
+         "finetune_h_step": h_sup["moments"]},
         per + "; ms is the call (host and device, CUDA events), device_ms the kernel "
         "(torch.profiler)")
     case_dev = None if mom_tile[1] is None else case_tiles * mom_tile[1]
@@ -2089,7 +2618,9 @@ def main():
                       conv_err, conv_rel,
                       {"pretrain_step": conv_step, "inference_volume": conv_volume,
                        "files_case": case(conv_tile), "supervised_step": sup_step["conv3x3"],
-                       "plain_trainer_step": plain_step["conv3x3"]}, per,
+                       "plain_trainer_step": plain_step["conv3x3"],
+                       "pretrain_h_step": h_step["conv3x3"], "finetune_h_step": h_sup["conv3x3"]},
+                      per,
                       by_variant("conv3x3")),
         moments_record,
         zslab_record,

@@ -40,6 +40,7 @@ def test_package_has_the_mirrored_modules():
     for mod in ("models.layers", "models.stunet", "models.build", "ops.conv3x3",
                 "ops.moments", "ops._build", "convert", "device", "ssl.sparse",
                 "ssl.decoder", "ssl.spark", "ssl.anatomask", "ssl.ema", "ssl.pretrain",
+                "ssl.mednext",
                 "plans.plans_handler", "plans.label_handling", "training.checkpoint",
                 "inference.gaussian", "inference.sliding_window", "inference.predictor",
                 "ops.zslab_conv", "paths", "configuration", "utils.helpers",

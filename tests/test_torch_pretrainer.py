@@ -17,7 +17,7 @@ from anatomask_tpu.ssl.ema import ema_decay_schedule as jax_ema_decay
 from anatomask_tpu.ssl.pretrain import PretrainConfig as JaxPretrainConfig
 from anatomask_tpu.ssl.pretrain import build_spark_model as jax_build_spark_model
 from anatomask_tpu.training.schedules import linear_warmup_cosine_schedule as jax_lr
-from anatomask_torch.ssl.pretrain import LR, PretrainConfig, PretrainTrainer
+from anatomask_torch.ssl.pretrain import PretrainConfig, PretrainTrainer
 from synthetic import make_synthetic_dataset, setup_env
 
 DATASET = "Dataset905_TPT"
@@ -71,6 +71,24 @@ def test_anatomask_run_writes_checkpoints_and_history(anatomask_run):
     assert t.device_cache is not None and t.step_counter == 4
 
 
+def test_each_snapshot_is_written_once(anatomask_run):
+    """An epoch's latest, head and (when it is the best) best checkpoints are
+    one file under several names, and the final checkpoint is the last
+    epoch's (no step after it); its metadata holds the epoch's val_loss."""
+    from anatomask_torch.training.checkpoint import load_trainer_checkpoint
+    t, history = anatomask_run
+
+    def inode(f):
+        return os.stat(os.path.join(t.output_folder, f)).st_ino
+
+    assert inode("checkpoint_latest.pt") == inode("B_head_latest.pt") == inode(
+        "checkpoint_final.pt")
+    last_is_best = history["val_loss"][-1] < min(history["val_loss"][:-1])
+    assert (inode("checkpoint_best.pt") == inode("checkpoint_latest.pt")) == last_is_best
+    _, meta = load_trainer_checkpoint(os.path.join(t.output_folder, "checkpoint_final.pt"))
+    assert meta["current_epoch"] == 2 and meta["val_loss"] == history["val_loss"][-1]
+
+
 def test_teacher_lags_the_student(anatomask_run):
     t, _ = anatomask_run
     gaps = [(e - p).abs().max().item()
@@ -83,7 +101,7 @@ def test_lr_follows_the_jax_schedule(anatomask_run):
     the update, optax's law; the schedule equals JAX's at every step."""
     t, _ = anatomask_run
     iters, cfg = t.iters_per_epoch, t.cfg
-    ref = jax_lr(LR, warmup_steps=cfg.warmup_epochs * iters,
+    ref = jax_lr(cfg.lr, warmup_steps=cfg.warmup_epochs * iters,
                  total_steps=cfg.num_epochs * iters, warmup_start_lr=1e-6)
     for step in range(cfg.num_epochs * iters):
         np.testing.assert_allclose(t.lr_schedule(step), float(ref(step)), rtol=1e-6)
@@ -149,3 +167,75 @@ def test_spark_run(prepared):
     assert t.teacher is t.model and t.device_cache is None
     for f in FILES:
         assert os.path.isfile(os.path.join(t.output_folder, f)), f
+
+
+@pytest.fixture(scope="module")
+def lamb_run(prepared):
+    """One epoch at encoder depth 2 with two microbatches a step, LAMB, and
+    densify norm "bn" (SparseBatchNorm), then a second trainer to resume."""
+    cfg = _cfg("anatomask", num_epochs=1, encoder_depth=(2, 2, 2), grad_accum_steps=2,
+               optimizer="lamb", densify_norm="bn")
+    torch.manual_seed(1)
+    t = _trainer(prepared, cfg, "lamb")
+    history = t.run_pretraining()
+    t2 = _trainer(prepared, replace(cfg, num_epochs=2), "lamb")
+    t2.get_dataloaders()
+    t2.initialize()
+    return t, history, t2
+
+
+def test_lamb_accumulation_run(lamb_run):
+    """Every step in two microbatches through LAMB; the checkpoint meta names
+    the model size and the optimizer, as the JAX trainer's does."""
+    from anatomask_torch.ssl.pretrain import Lamb
+    from anatomask_torch.training.checkpoint import load_trainer_checkpoint
+    t, history, _ = lamb_run
+    assert all(np.isfinite(history[k]).all() for k in history)
+    assert isinstance(t.optimizer, Lamb) and t.grad_accum_steps == 2
+    assert t._optimizer_count() == 2
+    assert [len(s) for s in t.model.sparse_encoder.sp_cnn.conv_blocks_context] == [2, 2, 2]
+    _, meta = load_trainer_checkpoint(os.path.join(t.output_folder, "checkpoint_latest.pt"))
+    assert meta["model_size"] == "B" and meta["method"] == "anatomask"
+    assert meta["pretrain_config"]["optimizer"] == "lamb"
+    assert meta["pretrain_config"]["grad_accum_steps"] == 2
+    assert meta["spark_config"]["densify_norm_str"] == "bn"
+
+
+def test_resume_restores_lamb_state(lamb_run):
+    """The student (the densify BatchNorms' affine leaves among them), the
+    teacher and LAMB's moments and step counts come back bit for bit."""
+    t, _, t2 = lamb_run
+    latest = os.path.join(t.output_folder, "checkpoint_latest.pt")
+    t2.load_checkpoint(latest)
+    from anatomask_torch.training.checkpoint import load_trainer_checkpoint
+    state, _ = load_trainer_checkpoint(latest)
+    for mine, theirs in ((t2.model, t.model), (t2.teacher, t.teacher)):
+        want = theirs.state_dict()
+        assert mine.state_dict().keys() == want.keys()
+        for k, v in mine.state_dict().items():
+            torch.testing.assert_close(v, want[k], rtol=0, atol=0)
+    assert any(k.startswith("densify_norms.") for k in state["network_weights"])
+    saved, now = state["optimizer_state"]["state"], t2.optimizer.state_dict()["state"]
+    assert saved.keys() == now.keys() and t2._optimizer_count() == 2
+    for i in saved:
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            torch.testing.assert_close(now[i][k], saved[i][k], rtol=0, atol=0)
+    history = t2.run_pretraining(continue_training=True)
+    assert len(history["train_loss"]) == 1 and t2._optimizer_count() == 4
+
+
+def test_output_folder_names_model_size(prepared):
+    setup_env(prepared)
+    t = PretrainTrainer(DATASET, _cfg("spark", model_size="L"), device="cpu")
+    assert os.path.basename(t.output_folder) == "pretrain_spark_L"
+    assert [len(s) for s in t.model.sparse_encoder.sp_cnn.conv_blocks_context] == [2, 2, 2]
+
+
+def test_config_fields_match_jax():
+    """PretrainConfig has JAX's fields with JAX's defaults, except
+    scale_batch_to_devices, which one device has no use for (TrainerConfig
+    drops it too)."""
+    from dataclasses import asdict
+    jax_fields = asdict(JaxPretrainConfig())
+    assert jax_fields.pop("scale_batch_to_devices") is True
+    assert asdict(PretrainConfig()) == jax_fields

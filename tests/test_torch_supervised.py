@@ -287,11 +287,9 @@ def test_presets_match_jax():
 
 
 def test_unported_options_raise(prepared):
-    """remat, a cascade stage and DA5 raise, naming the roadmap."""
+    """A cascade stage and DA5 raise, naming the roadmap (remat is ported:
+    tests/test_torch_pretrain_configs.py holds it to the plain gradients)."""
     _, plans_file, dataset_json = prepared
-    with pytest.raises(NotImplementedError, match="remat.*ROADMAP"):
-        Trainer(plans_file, "tiny_plain", 0, dataset_json, TrainerConfig(remat=True),
-                device="cpu")
     plans = load_json(plans_file)
     plans["configurations"]["cascade"] = {"inherits_from": "tiny_plain",
                                           "previous_stage": "tiny_plain"}

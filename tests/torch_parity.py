@@ -68,12 +68,11 @@ def random_keep(rs: np.random.RandomState, batch: int, fmap, len_keep: int) -> n
 
 
 
-def jax_random_params(module, input_shape, seed: int, *init_args):
-    """Parameters of a flax module drawn with numpy from a seed, without
-    running flax's (slow, eager) initialisation: kernels He-normal, norm
-    scales 1 + noise, biases noise."""
-    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0),
-                                                jnp.zeros(input_shape), *init_args))["params"]
+def numpy_params(module, seed: int, *init_args):
+    """Parameters of a flax module called on `init_args`, drawn with numpy
+    from a seed without running flax's (slow, eager) initialisation: kernels
+    He-normal, norm scales 1 + noise, the rest noise."""
+    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *init_args))["params"]
     rs = np.random.RandomState(seed)
 
     def leaf(path, v):
@@ -84,3 +83,8 @@ def jax_random_params(module, input_shape, seed: int, *init_args):
         return (1.0 + 0.1 * noise) if name == "scale" else 0.1 * noise
 
     return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def jax_random_params(module, input_shape, seed: int, *init_args):
+    """numpy_params of a module whose first input is zeros of input_shape."""
+    return numpy_params(module, seed, jnp.zeros(input_shape), *init_args)
