@@ -1,6 +1,6 @@
 """Dataset naming and case discovery. The port's own copy of the part of
-anatomask_tpu/utils/helpers.py that the PretrainTrainer, the preprocessor
-and the predictor read."""
+anatomask_tpu/utils/helpers.py that the port's planning, training,
+prediction and command line read."""
 from __future__ import annotations
 
 import os
@@ -36,6 +36,14 @@ def maybe_convert_to_dataset_name(dataset_name_or_id: Union[int, str]) -> str:
     if len(candidates) > 1:
         raise RuntimeError(f"Multiple datasets with id {dataset_id}: {sorted(candidates)}")
     return candidates.pop()
+
+
+def convert_dataset_name_to_id(dataset_name: str) -> int:
+    """'Dataset009_Spleen' -> 9."""
+    m = re.match(r"Dataset(\d{3})_", dataset_name)
+    if not m:
+        raise ValueError(f"{dataset_name!r} does not look like DatasetXXX_Name")
+    return int(m.group(1))
 
 
 def get_case_identifiers_from_raw(raw_dataset_dir: str, dataset_json: dict) -> List[str]:

@@ -144,18 +144,42 @@ Phases, each of which raises on a failed check:
    load_ssl_encoder_into_trainer
    from its checkpoint_final.pt into STUNetTrainer_huge (remat) and 2 bare
    supervised steps at 128^3, batch 2; step ms and peak memory of each;
-13. the out-of-memory ladder: one volume at tile batch 2 under a
+13. the command line (anatomask_torch/cli.py), entry by entry with the argv
+   a user types, from a raw dataset to ensembled, postprocessed
+   segmentations, in a temporary ATK_raw/ATK_preprocessed/ATK_results tree
+   deleted at its end: a KiTS-like CT dataset (CLI_TRAIN, CLI_TEST: int16
+   HU, labels background/kidney/tumour, two cases resampled) written with
+   the port's NIfTI writer and generate_dataset_json; plan_and_preprocess
+   (--verify_dataset_integrity, 4 spawned workers), whose plans must be the
+   JAX planner's (3d_fullres PlainConvUNet 32-320, 6 stages, patch 128^3,
+   batch 2; 2d 192^2, batch 64; no 3d_lowres); then the launch shapes those
+   plans imply held against the plain versions with the gates above (the
+   PlainConvUNet step at B = 2 and its tile forward at B = 16, timed; the
+   pretraining microbatch B = 2); pretrain (atk_pretrain's defaults at
+   STUNet-B, 1 epoch x 3 iterations); train ATKTrainer_1epoch folds 0 and 1
+   --npz and STUNetTrainer_base_ft from the pretraining checkpoint (10
+   iterations, 2 validation iterations); predict the test cases with both
+   (launches by kernel and variant checked per forward); ensemble;
+   evaluate; find_best_configuration; apply_postprocessing;
+   accumulate_crossval_results; export_model and install_model into a
+   second results tree, whose fold 0 must predict logits equal to the
+   original's; move_plans_between_datasets. Every output is read back;
+   pretrain, both trains and predict must each launch all three kernels.
+   Printed: each entry's seconds, peak memory and launches, the steps'
+   median ms, seconds a test case and fold;
+14. the out-of-memory ladder: one volume at tile batch 2 under a
    torch.cuda.set_per_process_memory_fraction cap between the uncapped tile
    batch 1 and 2 peaks: the device-resident path must run out at 2, finish
    at 1, and match the uncapped tile batch 1 logits within 1e-3 relative.
 
 A kernel's time is the median of three runs of back-to-back calls, each
-run timed with CUDA events, after a warm-up call. Each main path (7-12)
-runs with the launch counts set to 0 just before it and read just after,
-and every launch it makes must be at a shape that phases 3 and 4 (and 11's
-and 12's gates) held against the plain version (kernel #2's: its path
-shapes in phase 3); phase 13 runs after that check, as its tile batch 2
-launches at B = 16 on the PlainConvUNet. Between phases, free_memory collects reference
+run timed with CUDA events, after a warm-up call. Each main path (7-13)
+runs with the launch counts set to 0 just before it and read just after
+(13: each entry), and every launch it makes must be at a shape that phases
+3 and 4 (and 11's, 12's and 13's gates) held against the plain version
+(kernel #2's: its path shapes in phase 3); phase 14 runs after that check,
+as its tile batch 2 launches at B = 16 on the 4-channel PlainConvUNet.
+Between phases, free_memory collects reference
 cycles and empties the allocator's cache, so that each phase's memory
 peaks count its own tensors; after phase 11 it prints what stayed allocated
 before and after the collection. The last three
@@ -175,6 +199,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from dataclasses import replace
 from pathlib import Path
 
@@ -182,8 +207,10 @@ import numpy as np
 import torch
 import torch.nn.functional as fn
 
+from anatomask_torch import cli
 from anatomask_torch.convert import plain_unet_state_dict_from_jax, state_dict_to_jax
 from anatomask_torch.data.dataset import CaseDataset
+from anatomask_torch.dataset_conversion.generate_dataset_json import generate_dataset_json
 from anatomask_torch.imageio.nifti import NiftiIO, read_nifti, write_nifti
 from anatomask_torch.inference import predictor as pred_mod
 from anatomask_torch.inference.export import (
@@ -207,16 +234,18 @@ from anatomask_torch.ops.conv3x3 import (HOPPER_TILES, conv3d_3x3, conv3d_3x3_fo
 from anatomask_torch.ops.moments import row_moments, row_moments_forward, row_moments_plain
 from anatomask_torch.ops.zslab_conv import (conv3d_zconcat, conv3d_zslab, conv3d_zslab_forward,
                                             conv3d_zslab_plain)
-from anatomask_torch.plans.plans_handler import PlansManager, save_json
+from anatomask_torch.plans.plans_handler import PlansManager, load_json, save_json
 from anatomask_torch.preprocessing.preprocessor import save_properties
 from anatomask_torch.ssl.pretrain import (Lamb, PretrainConfig, PretrainTrainer,
                                           accumulation_steps, anatomask_train_step,
                                           build_spark_model, load_ssl_encoder_into_trainer,
                                           make_optimizer, make_teacher)
+from anatomask_torch.ssl import pretrain as pretrain_mod
 from anatomask_torch.ssl.decoder import DSDecoder, SMiMDecoder, SMiMTwoDecoder
 from anatomask_torch.ssl.sparse import SparseConvNeXtBlock, mask_to_resolution, upsample_mask
 from anatomask_torch.ssl.spark import random_keep_mask, spark_loss
 from anatomask_torch.training import checkpoint as ckpt_mod
+from anatomask_torch.training import trainer as trainer_mod
 from anatomask_torch.training.checkpoint import load_trainer_checkpoint, save_checkpoint
 from anatomask_torch.training.trainer import Trainer, get_trainer_config
 
@@ -276,11 +305,16 @@ PLAIN_IN, PLAIN_CLASSES = 4, 4
 # encoder stage's second conv (its first has stride 2 from stage 1 on), and
 # both convs of each decoder stage (conv0 reads the concat of the transposed
 # conv's output and the skip)
-PLAIN_INFER_SITES = (
-    [("enc0.conv0", PLAIN_IN, PLAIN_FEATURES[0], (PLAIN_RES[0],) * 3)]
-    + [(f"enc{s}.conv1", f, f, (r,) * 3) for s, (f, r) in enumerate(zip(PLAIN_FEATURES, PLAIN_RES))]
-    + [(f"dec{d}.conv{i}", 2 * f if i == 0 else f, f, (r,) * 3)
-       for d, (f, r) in enumerate(zip(PLAIN_FEATURES[-2::-1], PLAIN_RES[-2::-1])) for i in (0, 1)])
+def plain_sites(n_in):
+    return ([("enc0.conv0", n_in, PLAIN_FEATURES[0], (PLAIN_RES[0],) * 3)]
+            + [(f"enc{s}.conv1", f, f, (r,) * 3)
+               for s, (f, r) in enumerate(zip(PLAIN_FEATURES, PLAIN_RES))]
+            + [(f"dec{d}.conv{i}", 2 * f if i == 0 else f, f, (r,) * 3)
+               for d, (f, r) in enumerate(zip(PLAIN_FEATURES[-2::-1], PLAIN_RES[-2::-1]))
+               for i in (0, 1)])
+
+
+PLAIN_INFER_SITES = plain_sites(PLAIN_IN)
 # (call site, (X, Y, Z), C, masked) of every instance norm in one forward of
 # the pretraining step: 10 masked in the encoder, 4 masked densify norms (the
 # finest feature's is never read), 8 plain in the LightDecoder
@@ -330,6 +364,28 @@ REFILL_CACHE_MB, REFILL_ITERS = 256, 6
 # iterations, then a resume for one epoch; 3 bare ATKTrainer steps after it
 SUP_DATASET, SUP_CASES, SUP_CASE_SHAPE = "Dataset952_ChipSmokeSup", 6, (160, 160, 160)
 SUP_EPOCHS, SUP_ITERS, SUP_VAL_ITERS, PLAIN_STEPS = 2, 5, 2, 3
+# the cli phase: a KiTS-like raw dataset (one CT channel; background,
+# kidney, tumour) that the port's command line plans, pretrains on, trains,
+# predicts, ensembles and postprocesses. Case (name, array shape (z, y, x),
+# spacing in mm): 6 training cases at the target spacing, 2 coarser ones
+# that preprocessing resamples, 2 test cases with labels
+CLI_ID = 953
+CLI_DATASET, CLI_TARGET = f"Dataset{CLI_ID}_ChipSmokeCli", "Dataset954_ChipSmokeCliTarget"
+CLI_LABELS = {"background": 0, "kidney": 1, "tumor": 2}
+CLI_TRAIN = ([(f"case_{i:03d}", (160, 192, 192), (1.5, 0.8, 0.8)) for i in range(6)]
+             + [(f"case_{i:03d}", (120, 144, 144), (2.0, 1.0, 1.0)) for i in (6, 7)])
+CLI_TEST = [(f"test_{i:03d}", (160, 192, 192), (1.5, 0.8, 0.8)) for i in range(2)]
+# what the JAX planner plans for it: nnU-Net's 3d_fullres PlainConvUNet
+# (PLAIN_FEATURES, PLAIN_RES) for one channel, patch 128^3, batch 2; 2d
+# at patch 192^2, batch 64; no 3d_lowres
+CLI_3D = {"UNet_class_name": "PlainConvUNet", "patch_size": [128, 128, 128], "batch_size": 2,
+          "UNet_base_num_features": 32, "unet_max_num_features": 320,
+          "pool_op_kernel_sizes": [[1, 1, 1]] + [[2, 2, 2]] * 5,
+          "conv_kernel_sizes": [[3, 3, 3]] * 6, "n_conv_per_stage_encoder": [2] * 6,
+          "n_conv_per_stage_decoder": [2] * 5, "normalization_schemes": ["CTNormalization"]}
+CLI_2D = {"patch_size": [192, 192], "batch_size": 64}
+CLI_ITERS, CLI_VAL_ITERS, CLI_PRETRAIN_ITERS = 10, 2, 3
+CLI_TILE_BATCH = 2 * TTA_BATCH  # the Predictor's tile batch 2 x 8 flips
 STEPS, WARMUP = 5, 2
 FMAP, LEN_KEEP = (7, 7, 8), 157  # the step's patch grid and visible patches
 # bench_inference.py's configuration
@@ -1051,26 +1107,39 @@ class LaunchShapes:
     """Records the shape of every kernel launch while it is on: each conv's
     (B, X, Y, Z, C, F) and the moments' (B, X, Y, Z, C, masked,
     square_in_dtype). It wraps each module's launch function and leaves the
-    launch counts to the wrappers."""
+    launch counts to the wrappers; `paused` is a stretch whose launches (a
+    gate's, inside a path's phase) it does not record."""
 
     def __init__(self):
         self.conv, self.zslab, self.moments = set(), set(), set()
+        self.on = True
         conv_launch, zslab_launch = conv_mod._launch, zslab_mod._launch
         moments_launch = moments_mod._launch
 
         def conv(x, w):
-            self.conv.add((*x.shape, w.shape[-1]))
+            if self.on:
+                self.conv.add((*x.shape, w.shape[-1]))
             return conv_launch(x, w)
 
         def zslab(x, w):
-            self.zslab.add((*x.shape, w.shape[-1]))
+            if self.on:
+                self.zslab.add((*x.shape, w.shape[-1]))
             return zslab_launch(x, w)
 
         def moments(x, mask, square_in_dtype):
-            self.moments.add((*x.shape, mask is not None, square_in_dtype))
+            if self.on:
+                self.moments.add((*x.shape, mask is not None, square_in_dtype))
             return moments_launch(x, mask, square_in_dtype)
 
         conv_mod._launch, zslab_mod._launch, moments_mod._launch = conv, zslab, moments
+
+    @contextmanager
+    def paused(self):
+        self.on = False
+        try:
+            yield
+        finally:
+            self.on = True
 
 
 def reference_phase():
@@ -2455,6 +2524,325 @@ def h_transfer_phase(root, pretrain_checkpoint):
     return launches
 
 
+def kidney_case(rs, shape, spacing):
+    """One KiTS-like CT case at `spacing` (mm, array axes z, y, x): int16 HU,
+    air (-1000) around an elliptic soft-tissue body (40 HU), two kidneys
+    (180 HU, label 1) and a tumour in the left one (90 HU, label 2), placed
+    in mm so that both spacings image the same anatomy; noise 15 HU."""
+    ext = [n * sp for n, sp in zip(shape, spacing)]
+    z, y, x = np.ogrid[tuple(slice(0, n) for n in shape)]
+    z, y, x = z * spacing[0], y * spacing[1], x * spacing[2]
+    body = ((y - ext[1] / 2) / (0.45 * ext[1])) ** 2 + ((x - ext[2] / 2) / (0.48 * ext[2])) ** 2 <= 1
+    img = np.where(body, 40.0, -1000.0) + rs.normal(0, 15, shape)
+    seg = np.zeros(shape, np.uint8)
+    zc = ext[0] / 2 + rs.uniform(-10, 10)
+    for side in (-1, 1):
+        xc, yc = ext[2] / 2 + side * 0.22 * ext[2], 0.6 * ext[1]
+        kidney = ((z - zc) / 35) ** 2 + ((y - yc) / 22) ** 2 + ((x - xc) / 18) ** 2 <= 1
+        img[kidney], seg[kidney] = 180 + rs.normal(0, 15, int(kidney.sum())), 1
+        if side < 0:
+            tumour = (z - zc - 12) ** 2 + (y - yc) ** 2 + (x - xc - 6) ** 2 <= 12 ** 2
+            img[tumour], seg[tumour] = 90 + rs.normal(0, 15, int(tumour.sum())), 2
+    return np.clip(img, -1024, 3071).astype(np.int16), seg
+
+
+def write_cli_dataset(raw):
+    """CLI_DATASET as a user brings it: imagesTr/labelsTr (CLI_TRAIN) and
+    imagesTs/labelsTs (CLI_TEST) of kidney_case volumes, written with the
+    port's NIfTI writer, and dataset.json with generate_dataset_json."""
+    rs = np.random.default_rng(4)
+    jobs = []
+    for split, cases in (("Tr", CLI_TRAIN), ("Ts", CLI_TEST)):
+        for sub in ("images", "labels"):
+            os.makedirs(os.path.join(raw, f"{sub}{split}"))
+        for name, shape, spacing in cases:
+            img, seg = kidney_case(rs, shape, spacing)
+            jobs += [(os.path.join(raw, f"images{split}", f"{name}_0000.nii.gz"), img, spacing),
+                     (os.path.join(raw, f"labels{split}", f"{name}.nii.gz"), seg, spacing)]
+    with ThreadPoolExecutor(8) as pool:  # gzip releases the GIL
+        list(pool.map(lambda j: write_nifti(j[0], j[1].transpose(2, 1, 0),
+                                            spacing_xyz=j[2][::-1]), jobs))
+    generate_dataset_json(raw, {0: "CT"}, CLI_LABELS, len(CLI_TRAIN), ".nii.gz",
+                          dataset_name=CLI_DATASET)
+
+
+class StepTimer:
+    """While on, ms of every call of owner.name between two synchronizations."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.ms = owner, name, []
+        self.inner = getattr(owner, name)
+
+    def __enter__(self):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.inner(*args, **kw)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.inner)
+
+
+def check_plans(plans):
+    """The plans that plan_and_preprocess wrote are what the JAX planner
+    plans for CLI_DATASET."""
+    configs = plans["configurations"]
+    check("3d_lowres" not in configs and "3d_cascade_fullres" not in configs,
+          f"configurations {sorted(configs)}")
+    c3 = configs["3d_fullres"]
+    check({k: c3[k] for k in CLI_3D} == CLI_3D,
+          f"3d_fullres {[(k, c3[k]) for k in CLI_3D if c3[k] != CLI_3D[k]]}")
+    check(np.allclose(c3["spacing"], (1.5, 0.8, 0.8), rtol=1e-6), f"spacing {c3['spacing']}")
+    check({k: configs["2d"][k] for k in CLI_2D} == CLI_2D, f"2d {configs['2d']}")
+
+
+def cli_gate_phase(gen, checked):
+    """Every launch shape that the CLI's entries add, against the plain
+    versions with gate_path's gates, before an entry runs them: the planner's
+    PlainConvUNet (one input channel) training step at its batch 2, timed;
+    its tile forward at CLI_TILE_BATCH, timed; the pretraining step at its
+    microbatch (B = 2, forward and dx), checked only. Returns per kernel
+    (max abs err, max rel err), the totals of one PlainConvUNet step and of
+    one test case and fold (4 forwards of 2 tiles)."""
+    errs = {k: [0.0, 0.0] for k in ("conv3x3", "zslab", "moments")}
+    sites = plain_sites(1)
+    t = gate_path("cli", sites, PLAIN_INFER_NORMS, CLI_3D["batch_size"], gen, errs, checked,
+                  True, "enc0.conv0")
+    step = step_totals(t, sites, PLAIN_INFER_NORMS, CLI_3D["batch_size"], lambda n: 1,
+                       lambda n: int(n != "enc0.conv0"))
+    print_totals("cli", f"one planner PlainConvUNet step at B={CLI_3D['batch_size']}", step)
+    t = gate_path("cli", sites, PLAIN_INFER_NORMS, CLI_TILE_BATCH, gen, errs, checked, True,
+                  dx=False)
+    forwards = math.ceil(tiles_of((1, *CLI_TEST[0][1])) / 2)
+    case = step_totals(t, sites, PLAIN_INFER_NORMS, CLI_TILE_BATCH, lambda n: forwards,
+                       lambda n: 0)
+    print_totals("cli", f"one test case and fold ({forwards} forwards at B={CLI_TILE_BATCH})",
+                 case)
+    gate_path("cli", SITES, PRETRAIN_NORMS, BATCH // 2, gen, errs, checked, False)
+    return errs, step, case
+
+
+def cli_phase(root, gen, checked, shapes):
+    """The port's command line from a raw dataset to ensembled, postprocessed
+    segmentations, each entry called with its argv as a user types it, under
+    ATK_raw/ATK_preprocessed/ATK_results in `root`:
+    plan_and_preprocess (--verify_dataset_integrity, 4 spawned workers),
+    then cli_gate_phase on the shapes its plans imply; pretrain (atk_pretrain's
+    defaults: STUNet-B AnatoMask, 112x112x128, batch 4 in 2 microbatches,
+    bf16) for 1 epoch x CLI_PRETRAIN_ITERS; train ATKTrainer_1epoch folds 0
+    and 1 --npz and STUNetTrainer_base_ft fold 0 from the pretraining
+    checkpoint (its preset cut to one epoch), CLI_ITERS iterations and
+    CLI_VAL_ITERS validation iterations an epoch; predict the test cases
+    with both models, ensemble, evaluate, find_best_configuration,
+    apply_postprocessing, accumulate_crossval_results; export_model,
+    install_model into a second results tree, whose fold must predict the
+    original's logits; move_plans_between_datasets. Checks each output, and
+    that pretrain, train and predict launch all three kernels. `shapes`
+    (LaunchShapes) records no launch of the gates. Returns the
+    launches of the phase, per kernel (max abs err, max rel err) of its
+    gates and their totals of one step and one test case."""
+    dirs = {w: os.path.join(root, w) for w in ("raw", "preprocessed", "results")}
+    raw = os.path.join(dirs["raw"], CLI_DATASET)
+    env = {**{f"ATK_{w}": d for w, d in dirs.items()},
+           "ATK_ITERS_PER_EPOCH": str(CLI_ITERS), "ATK_VAL_ITERS": str(CLI_VAL_ITERS)}
+    saved_env = {k: os.environ.get(k) for k in env}
+    ft = "STUNetTrainer_base_ft"
+    preset = trainer_mod.TRAINER_PRESETS[ft]
+    os.environ.update(env)
+    trainer_mod.TRAINER_PRESETS[ft] = replace(preset, num_epochs=1)
+    runs, steps = {}, {}
+    start = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        write_cli_dataset(raw)
+        print(f"[cli] {len(CLI_TRAIN)} training and {len(CLI_TEST)} test cases of {CLI_DATASET} "
+              f"written in {time.perf_counter() - t0:.1f} s")
+
+        def run(name, entry, argv, timer=None):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            t0 = time.perf_counter()
+            if timer is None:
+                entry(argv)
+            else:
+                with timer:
+                    entry(argv)
+                steps[name] = timer.ms
+            torch.cuda.synchronize()
+            runs[name] = dict(seconds=time.perf_counter() - t0,
+                              peak=torch.cuda.max_memory_allocated(), launches=counts())
+            free_memory()
+            r = runs[name]
+            line = (f"[cli] {name}: {r['seconds']:.3f} s, peak memory {r['peak'] / 2**30:.2f} "
+                    f"GiB ({r['peak']} bytes), launches {r['launches']}")
+            if name in steps:
+                ms = steps[name]
+                line += (f"; {len(ms)} steps, median {statistics.median(ms):.1f} ms "
+                         f"({[round(v, 1) for v in ms]})")
+            print(line)
+            return r
+
+        run("plan_and_preprocess", cli.plan_and_preprocess_entry,
+            ["-d", str(CLI_ID), "-c", "3d_fullres", "--verify_dataset_integrity", "-np", "4"])
+        pp = os.path.join(dirs["preprocessed"], CLI_DATASET)
+        plans = load_json(os.path.join(pp, "ATKPlans.json"))
+        check_plans(plans)
+        data_dir = os.path.join(pp, plans["configurations"]["3d_fullres"]["data_identifier"])
+        pp_shapes = {}
+        for name, *_ in CLI_TRAIN:
+            with np.load(os.path.join(data_dir, name + ".npz")) as z:
+                pp_shapes[name] = z["data"].shape
+            check(os.path.isfile(os.path.join(data_dir, name + ".props.json")),
+                  f"{name}: no properties")
+        check(set(pp_shapes.values()) == {(1, 160, 192, 192), (1, 160, 180, 180)},
+              f"preprocessed shapes {pp_shapes}")
+        print(f"[cli] plans as the JAX planner's: 3d_fullres {CLI_3D}, 2d {CLI_2D}, no "
+              f"3d_lowres; preprocessed shapes {sorted(set(pp_shapes.values()))}")
+
+        with shapes.paused():
+            gate_errs, plain_step, case = cli_gate_phase(gen, checked)
+        free_memory()
+
+        run("pretrain", cli.pretrain_entry,
+            [str(CLI_ID), "-model", "B", "-epochs", "1", "-iters_per_epoch",
+             str(CLI_PRETRAIN_ITERS)], StepTimer(pretrain_mod, "anatomask_train_step"))
+        pretrained = os.path.join(dirs["results"], CLI_DATASET, "pretrain_anatomask_B",
+                                  "checkpoint_final.pt")
+        check(os.path.isfile(pretrained), "pretrain: no checkpoint_final.pt")
+        tr = "ATKTrainer_1epoch"
+        for fold in ("0", "1"):
+            run(f"train {tr} fold {fold}", cli.train_entry,
+                [str(CLI_ID), "3d_fullres", fold, "-tr", tr, "--npz"],
+                StepTimer(Trainer, "train_step"))
+        run(f"train {ft} fold 0", cli.train_entry,
+            [str(CLI_ID), "3d_fullres", "0", "-tr", ft, "-pretrained_weights", pretrained],
+            StepTimer(Trainer, "train_step"))
+        models = {m: os.path.join(dirs["results"], CLI_DATASET, f"{m}__ATKPlans__3d_fullres")
+                  for m in (tr, ft)}
+        for m, folds in ((tr, (0, 1)), (ft, (0,))):
+            for fold in folds:
+                fdir = os.path.join(models[m], f"fold_{fold}")
+                check(os.path.isfile(os.path.join(fdir, "checkpoint_final.npz")),
+                      f"{m} fold {fold}: no checkpoint_final.npz")
+                summary = load_json(os.path.join(fdir, "validation", "summary.json"))
+                check(math.isfinite(summary["foreground_mean"]["Dice"]),
+                      f"{m} fold {fold}: validation Dice {summary['foreground_mean']}")
+        check(any(f.endswith(".npz") for f in os.listdir(os.path.join(models[tr], "fold_0",
+                                                                      "validation"))),
+              "train --npz saved no probabilities")
+
+        preds = {tr: os.path.join(root, "pred_atk"), ft: os.path.join(root, "pred_stunet")}
+        for m, folds in ((tr, ["0", "1"]), (ft, ["0"])):
+            r = run(f"predict {m}", cli.predict_entry,
+                    ["-i", os.path.join(raw, "imagesTs"), "-o", preds[m], "-d", str(CLI_ID),
+                     "-c", "3d_fullres", "-tr", m, "-f", *folds, "--save_probabilities"])
+            forwards = len(folds) * sum(math.ceil(tiles_of((1, *shape)) / 2)
+                                        for _, shape, _ in CLI_TEST)
+            launches = PLAIN_TILE_LAUNCHES if m == tr else SUP_VAL_LAUNCHES
+            want = {k: forwards * launches[k] for k in COUNT_KEYS}
+            check(r["launches"] == want, f"predict {m}: launches {r['launches']}, expected {want}")
+            print(f"[cli] predict {m}: {r['seconds'] / (len(CLI_TEST) * len(folds)):.3f} s a "
+                  f"test case and fold ({forwards} forwards of B={CLI_TILE_BATCH} in all)")
+        ens = os.path.join(root, "ensemble")
+        run("ensemble", cli.ensemble_entry, ["-i", preds[tr], preds[ft], "-o", ens, "--save_npz"])
+        for folder in (preds[tr], preds[ft], ens):
+            for name, shape, _ in CLI_TEST:
+                seg = NiftiIO().read_seg(os.path.join(folder, name + ".nii.gz"))[0][0]
+                check(seg.shape == shape and set(np.unique(seg).tolist()) <= {0, 1, 2},
+                      f"{folder}/{name}: shape {seg.shape}, labels {np.unique(seg)}")
+                with np.load(os.path.join(folder, name + ".npz")) as z:
+                    p = z["probabilities"]
+                check(p.shape == (3, *shape) and np.isfinite(p).all(),
+                      f"{folder}/{name}.npz: shape {p.shape}")
+        dice = {}
+        for label, folder in (("ATKTrainer_1epoch", preds[tr]), (ft, preds[ft]),
+                              ("ensemble", ens)):
+            run(f"evaluate {label}", cli.evaluate_entry,
+                [os.path.join(raw, "labelsTs"), folder, "-djfile",
+                 os.path.join(preds[tr], "dataset.json")])
+            dice[label] = load_json(os.path.join(folder, "summary.json"))["mean"]
+            check(all(math.isfinite(v["Dice"]) for v in dice[label].values()),
+                  f"evaluate {label}: {dice[label]}")
+        print(f"[cli] test Dice per class (random-init models after 10 steps): "
+              + "; ".join(f"{k} {({c: round(v['Dice'], 4) for c, v in d.items()})}"
+                          for k, d in dice.items()))
+
+        run("find_best_configuration", cli.find_best_configuration_entry,
+            [str(CLI_ID), "-c", "3d_fullres", "-tr", tr, "-f", "0", "1"])
+        info = load_json(os.path.join(dirs["results"], CLI_DATASET,
+                                      "inference_information.json"))
+        best = info["best_model_or_ensemble"]
+        check(best["configuration"] == "3d_fullres" and not best["ensemble"], f"best {best}")
+        pp_file = os.path.join(dirs["results"], CLI_DATASET,
+                               f"crossval_results_{tr}__ATKPlans__3d_fullres", "postprocessing.json")
+        check(os.path.isfile(pp_file), "find_best_configuration: no postprocessing.json")
+        ens_pp = os.path.join(root, "ensemble_postprocessed")
+        run("apply_postprocessing", cli.apply_postprocessing_entry,
+            ["-i", ens, "-o", ens_pp, "-pp_file", pp_file, "-djfile",
+             os.path.join(preds[tr], "dataset.json")])
+        check(sorted(f for f in os.listdir(ens_pp) if f.endswith(".nii.gz"))
+              == [f"{name}.nii.gz" for name, *_ in CLI_TEST], "apply_postprocessing: outputs")
+        run("accumulate_crossval_results", cli.accumulate_crossval_entry,
+            [str(CLI_ID), "-tr", tr, "-f", "0", "1"])
+        check(os.path.isfile(os.path.join(models[tr] + "_crossval_results", "summary.json")),
+              "accumulate_crossval_results: no summary.json")
+        print(f"[cli] best: {best['configuration']} (ensemble {best['ensemble']}), Dice "
+              f"{best['dice_before_postprocessing']:.4f} -> {best['dice_after_postprocessing']:.4f} "
+              f"after postprocessing {best['postprocessing']}")
+
+        zip_file = os.path.join(root, "model.zip")
+        run("export_model", cli.export_model_entry,
+            [str(CLI_ID), "-o", zip_file, "-tr", tr, "-c", "3d_fullres", "-f", "0", "1"])
+        installed = os.path.join(root, "results_installed")
+        os.environ["ATK_results"] = installed
+        run("install_model", cli.install_model_entry, ["-i", zip_file])
+        os.environ["ATK_results"] = dirs["results"]
+        case_data = np.asarray(CaseDataset(data_dir, ["case_000"]).load_case("case_000")[0])
+        logits = []
+        zero_counts()
+        for folder in (models[tr], models[tr].replace(dirs["results"], installed)):
+            p = Predictor(dtype=torch.bfloat16, device="cuda")
+            p.initialize_from_trained_model_folder(folder, [0])
+            logits.append(p.predict_sliding_window_return_logits(case_data))
+            del p
+        runs["installed model"] = dict(launches=counts())
+        check(np.array_equal(*logits) and np.isfinite(logits[0]).all(),
+              "the installed model's logits differ from the original's")
+        print(f"[cli] export_model -> install_model into a second results tree "
+              f"({os.path.getsize(zip_file)} bytes of zip): fold 0 predicts logits equal to the "
+              f"original's ({logits[0].shape}); launches {runs['installed model']['launches']}")
+        del logits
+
+        run("move_plans_between_datasets", cli.move_plans_entry,
+            ["-s", str(CLI_ID), "-t", CLI_TARGET])
+        moved = load_json(os.path.join(dirs["preprocessed"], CLI_TARGET, "ATKPlans.json"))
+        check(moved["dataset_name"] == CLI_TARGET
+              and moved["configurations"] == plans["configurations"], "move_plans: plans")
+    finally:
+        trainer_mod.TRAINER_PRESETS[ft] = preset
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for name in ("pretrain", f"train {tr} fold 0", f"train {tr} fold 1", f"train {ft} fold 0",
+                 f"predict {tr}", f"predict {ft}"):
+        n = runs[name]["launches"]
+        check(all(kernel_launches(n, k) > 0 for k in ("conv3x3", "zslab", "moments")),
+              f"{name} did not launch every kernel: {n}")
+    total = sum(r["seconds"] for r in runs.values() if "seconds" in r)
+    print(f"[cli] the entries took {total:.1f} s, the phase {time.perf_counter() - start:.1f} s")
+    launches = {k: sum(r["launches"][k] for r in runs.values()) for k in COUNT_KEYS}
+    return launches, gate_errs, plain_step, case
+
+
 def kernel_record(name, source, replaces, launches_by_path, max_abs, max_rel, totals_by_path,
                   per, launches_by_variant=None):
     """totals_by_path: {path: TOTAL_KEYS totals}; launches_by_path: {path:
@@ -2553,29 +2941,42 @@ def main():
         free_memory()
         h_finetune = h_transfer_phase(root, h_final)
     free_memory()
-    for label, seen, checked in (("conv3x3", shapes.conv,
-                                  conv_checked | sup_checked["conv3x3"] | h_checked["conv3x3"]),
-                                 ("zslab", shapes.zslab,
-                                  zc_checked | sup_checked["zslab"] | h_checked["zslab"]),
-                                 ("moments", shapes.moments,
-                                  mom_checked | sup_checked["moments"] | h_checked["moments"])):
-        check(seen <= checked, f"{label} launches at unchecked shapes: {sorted(seen - checked)}")
+    checked = {"conv3x3": conv_checked | sup_checked["conv3x3"] | h_checked["conv3x3"],
+               "zslab": zc_checked | sup_checked["zslab"] | h_checked["zslab"],
+               "moments": mom_checked | sup_checked["moments"] | h_checked["moments"]}
+    with tempfile.TemporaryDirectory() as root:
+        cli_launches, cli_errs, cli_step, cli_case = cli_phase(root, gen, checked, shapes)
+    free_memory()
+    conv_err, conv_rel = max(conv_err, cli_errs["conv3x3"][0]), max(conv_rel,
+                                                                    cli_errs["conv3x3"][1])
+    zc_err, zc_rel = max(zc_err, cli_errs["zslab"][0]), max(zc_rel, cli_errs["zslab"][1])
+    mom_err, mom_rel = max(mom_err, cli_errs["moments"][0]), max(mom_rel,
+                                                                 cli_errs["moments"][1])
+    for label, seen in (("conv3x3", shapes.conv), ("zslab", shapes.zslab),
+                        ("moments", shapes.moments)):
+        check(seen <= checked[label],
+              f"{label} launches at unchecked shapes: {sorted(seen - checked[label])}")
     print(f"[paths] every launch ran at a checked shape: {len(shapes.conv)} kernel #1, "
           f"{len(shapes.zslab)} kernel #2, {len(shapes.moments)} moments shapes")
     ladder_phase(predictor, ladder_data)  # tile batch 2 launches at B = 16: no path's
 
     runs = {"pretrain": pretrain, "inference": inference, "pretrain_trainer": trainer,
             "files": files, "supervised": supervised, "plain_trainer": plain_trainer,
-            "pretrain_h": h_pretrain, "pretrain_h_trainer": h_trainer, "finetune_h": h_finetune}
+            "pretrain_h": h_pretrain, "pretrain_h_trainer": h_trainer, "finetune_h": h_finetune,
+            "cli": cli_launches}
     per = ("one pretraining step (B = 4), one inference volume (18 STUNet-B tiles at B = 8), "
            f"one case of the file path ({case_tiles} PlainConvUNet tiles at B = 8), one "
            "STUNet-B finetuning step and one ATKTrainer PlainConvUNet step (B = 2), one "
            "STUNet-H pretraining step (B = 4 in two microbatches, remat) and one "
-           "STUNetTrainer_huge step (B = 2, remat); by_path splits them; launches_by_path "
+           "STUNetTrainer_huge step (B = 2, remat), one step of the planner's PlainConvUNet "
+           "(one input channel, B = 2) and one test case and fold of the command line's predict "
+           f"({math.ceil(tiles_of((1, *CLI_TEST[0][1])) / 2)} forwards at B = {CLI_TILE_BATCH}); "
+           "by_path splits them; launches_by_path "
            "counts every launch of each path's run, the PretrainTrainer runs', the "
            "supervised runs' (training, resume, final validation, checkpoint round trip, bare "
-           "steps), the ATKTrainer steps' and the H phases' (bare, profiled and ride-along "
-           "steps; the H trainer's two runs; the H finetuning steps) too")
+           "steps), the ATKTrainer steps', the H phases' (bare, profiled and ride-along "
+           "steps; the H trainer's two runs; the H finetuning steps) and the command line's "
+           "(every entry, and the installed model's check) too")
 
     def case(tile):  # one PlainConvUNet tile's totals -> one case's
         return {k: case_tiles * v for k, v in tile.items()}
@@ -2591,7 +2992,8 @@ def main():
         "anatomask_tpu/ops/pallas_zslab_conv.py:142", launches("zslab"), zc_err, zc_rel,
         {"pretrain_step": zc_step, "inference_volume": zc_volume, "files_case": case(zc_tile),
          "supervised_step": sup_step["zslab"], "plain_trainer_step": plain_step["zslab"],
-         "pretrain_h_step": h_step["zslab"], "finetune_h_step": h_sup["zslab"]},
+         "pretrain_h_step": h_step["zslab"], "finetune_h_step": h_sup["zslab"],
+         "cli_plain_step": cli_step["zslab"], "cli_case": cli_case["zslab"]},
         per + "; the main paths' per-tap forwards through conv3d_zconcat", by_variant("zslab"))
     zslab_record["probe"] = {"launches_by_variant": zs_variants, **{
         k: zs_probe[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -2603,7 +3005,8 @@ def main():
         {"pretrain_step": mom_step[0], "inference_volume": mom_volume[0],
          "files_case": case(mom_tile[0]), "supervised_step": sup_step["moments"],
          "plain_trainer_step": plain_step["moments"], "pretrain_h_step": h_step["moments"],
-         "finetune_h_step": h_sup["moments"]},
+         "finetune_h_step": h_sup["moments"], "cli_plain_step": cli_step["moments"],
+         "cli_case": cli_case["moments"]},
         per + "; ms is the call (host and device, CUDA events), device_ms the kernel "
         "(torch.profiler)")
     case_dev = None if mom_tile[1] is None else case_tiles * mom_tile[1]
@@ -2619,7 +3022,8 @@ def main():
                       {"pretrain_step": conv_step, "inference_volume": conv_volume,
                        "files_case": case(conv_tile), "supervised_step": sup_step["conv3x3"],
                        "plain_trainer_step": plain_step["conv3x3"],
-                       "pretrain_h_step": h_step["conv3x3"], "finetune_h_step": h_sup["conv3x3"]},
+                       "pretrain_h_step": h_step["conv3x3"], "finetune_h_step": h_sup["conv3x3"],
+                       "cli_plain_step": cli_step["conv3x3"], "cli_case": cli_case["conv3x3"]},
                       per,
                       by_variant("conv3x3")),
         moments_record,

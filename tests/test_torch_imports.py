@@ -51,7 +51,11 @@ def test_package_has_the_mirrored_modules():
                 "preprocessing.resampling", "imageio.base", "imageio.nifti",
                 "imageio.numpy_io", "imageio.meta_image", "imageio.natural_image",
                 "imageio.tiff_io", "imageio.minc_io", "imageio.registry",
-                "training.losses", "training.logger", "evaluation.metrics"):
+                "training.losses", "training.logger", "evaluation.metrics",
+                "planning.topology", "planning.fingerprint", "planning.verify_integrity",
+                "planning.planner", "planning.move_plans", "postprocessing.components",
+                "ensembling.ensemble", "evaluation.find_best_configuration",
+                "utils.model_sharing", "dataset_conversion.generate_dataset_json", "cli"):
         assert f"anatomask_torch.{mod}" in names
 
 
