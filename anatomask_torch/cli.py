@@ -36,7 +36,7 @@ def _one_gpu(num_gpus: Optional[int]) -> None:
     if num_gpus is not None and num_gpus > 1:
         raise NotImplementedError(
             f"-num_gpus {num_gpus}: anatomask_torch runs on one GPU; multi-GPU training is "
-            f"not ported yet (ROADMAP.md, open items 1, queue item 3: Multi-GPU)")
+            f"not ported yet (ROADMAP.md, open items 1, queue item 1: Multi-GPU)")
 
 
 def _device_argument(p: argparse.ArgumentParser) -> None:

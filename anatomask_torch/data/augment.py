@@ -1,8 +1,8 @@
 """On-device augmentation. Counterpart of anatomask_tpu/data/augment.py
 (nnU-Net's training transforms: spatial transform, Gaussian noise and blur,
-brightness, contrast, low resolution, the two gammas, mirroring, the
-mask-for-norm zeroing, RemoveLabel, the cascade one-hot and the
-deep-supervision seg pyramid).
+brightness, contrast, low resolution, the two gammas, DA5's extras
+(`data/augment_da5.py`), mirroring, the mask-for-norm zeroing, RemoveLabel,
+the cascade one-hot and the deep-supervision seg pyramid).
 
 The configurations and the enlarged-patch arithmetic are copies. The
 transforms run in torch on the batch's device, in fp32 whatever the transfer
@@ -21,8 +21,9 @@ no elastic field, as JAX's identity fast path), else a trilinear (order 1),
 nearest (order 0) or cubic B-spline (order 3) data warp, with the seg warped
 per label (each label's indicator interpolated linearly and thresholded at
 0.5, later labels overwriting, -1 outside the input) or, for order-0 data,
-by nearest. The DA5 stack is not ported: `make_train_augment_fn` raises for
-it.
+by nearest. With DA5 (`AugmentConfig.da5` a `DA5Config`), blur,
+multiplicative brightness and contrast are left to DA5's own variants, and
+its extras run after the two gammas and before mirroring, as in JAX.
 """
 from __future__ import annotations
 
@@ -78,7 +79,7 @@ class IntensityAugmentConfig:
 class AugmentConfig:
     spatial: SpatialAugmentConfig
     intensity: IntensityAugmentConfig = field(default_factory=IntensityAugmentConfig)
-    da5: Optional[object] = None
+    da5: Optional[object] = None                # augment_da5.DA5Config: nnUNetTrainerDA5
     mirror_axes: Tuple[int, ...] = (0, 1, 2)
     mask_channels_for_norm: Tuple[int, ...] = ()   # channels zeroed outside nonzero mask
     ds_scales: Tuple[Tuple[int, ...], ...] = ()    # per-DS-level integer downsample factors
@@ -454,14 +455,21 @@ def _use_identity(cfg: SpatialAugmentConfig, in_shape, out_shape, disp, with_seg
 
 def _positions(A: torch.Tensor, in_shape, out_shape, device) -> List[torch.Tensor]:
     """Per sample, the absolute input coordinates (3, ox, oy, oz) that the
-    output voxels sample."""
-    base = torch.stack(torch.meshgrid(
+    output voxels sample: A[i, 0] x + A[i, 1] y + A[i, 2] z + centre_i of the
+    centred output grid, one elementwise op at a time, so that the card and
+    the CPU round them alike (a matmul's summation order is its library's)."""
+    grid = torch.meshgrid(
         *[torch.arange(s, dtype=torch.float32, device=device) - (s - 1) / 2 for s in out_shape],
-        indexing="ij"))  # (3, ox, oy, oz), centered
-    center_in = torch.tensor([(s - 1) / 2 for s in in_shape], dtype=torch.float32,
-                             device=device)[:, None, None, None]
-    A = A.to(device, torch.float32)
-    return [torch.einsum("ij,jxyz->ixyz", A[b], base) + center_in for b in range(A.shape[0])]
+        indexing="ij")  # centered
+    A = A.to(torch.float32)
+    out = []
+    for b in range(A.shape[0]):
+        rows = []
+        for i, s in enumerate(in_shape):
+            a = A[b, i].tolist()
+            rows.append(a[0] * grid[0] + a[1] * grid[1] + a[2] * grid[2] + (s - 1) / 2)
+        out.append(torch.stack(rows))
+    return out
 
 
 def spatial_augment(data: torch.Tensor, A: torch.Tensor, ident: torch.Tensor,
@@ -611,13 +619,16 @@ def gamma_transform(x: torch.Tensor, gamma: torch.Tensor, on: torch.Tensor,
 
 
 def apply_intensity(x: torch.Tensor, p: Dict[str, torch.Tensor],
-                    noise: Optional[torch.Tensor], cfg: IntensityAugmentConfig) -> torch.Tensor:
+                    noise: Optional[torch.Tensor], cfg: IntensityAugmentConfig,
+                    da5: bool = False) -> torch.Tensor:
     """The transforms in nnU-Net's order: noise, blur, brightness, contrast,
-    low resolution, inverted gamma, gamma."""
+    low resolution, inverted gamma, gamma; with `da5`, without blur,
+    brightness and contrast (DA5 replaces them with its own variants)."""
     x = gaussian_noise(x, p["noise_std"], p["noise_on"], noise)
-    x = gaussian_blur(x, p["blur_sigma"], p["blur_on"])
-    x = brightness_multiplicative(x, p["brightness"], p["brightness_on"])
-    x = contrast(x, p["contrast"], p["contrast_on"])
+    if not da5:
+        x = gaussian_blur(x, p["blur_sigma"], p["blur_on"])
+        x = brightness_multiplicative(x, p["brightness"], p["brightness_on"])
+        x = contrast(x, p["contrast"], p["contrast_on"])
     x = simulate_lowres(x, p["lowres_zoom"], p["lowres_on"], cfg.lowres_ignore_axis0)
     x = gamma_transform(x, p["gamma_invert"], p["gamma_invert_on"], True)
     return gamma_transform(x, p["gamma"], p["gamma_on"], False)
@@ -655,14 +666,16 @@ def downsample_seg_for_ds(seg: torch.Tensor, ds_scales) -> List[torch.Tensor]:
 class AugmentDraws:
     """Every draw of one batch's augmentation: the spatial matrices, identity
     and mirror flags, the elastic field's draws (or None), the intensity
-    parameters (or None where every probability is 0) and the noise field
-    (B, *patch, C) on the data's device (or None where no sample adds noise)."""
+    parameters (or None where every probability is 0), the noise field
+    (B, *patch, C) on the data's device (or None where no sample adds noise)
+    and DA5's draws (`augment_da5.draw_da5`, or None without DA5)."""
     A: torch.Tensor
     ident: torch.Tensor
     mirror: torch.Tensor
     elastic: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
     intensity: Optional[Dict[str, torch.Tensor]] = None
     noise: Optional[torch.Tensor] = None
+    da5: Optional[Dict[str, object]] = None
 
 
 def _intensity_on(cfg: IntensityAugmentConfig) -> bool:
@@ -685,6 +698,10 @@ def draw_all(gen: torch.Generator, data: torch.Tensor, cfg: "AugmentConfig") -> 
             noise_gen = torch.Generator(device=data.device).manual_seed(seed)
             draws.noise = torch.randn((batch, *cfg.spatial.patch_size, data.shape[-1]),
                                       generator=noise_gen, device=data.device)
+    if cfg.da5 is not None:
+        from anatomask_torch.data.augment_da5 import draw_da5
+        draws.da5 = draw_da5(gen, batch, data.shape[-1], cfg.spatial.patch_size, cfg.da5,
+                             cfg.intensity)
     return draws
 
 
@@ -712,7 +729,11 @@ def apply_train_augment(cfg: "AugmentConfig", draws: AugmentDraws, data: torch.T
     warped = spatial_augment(data.float(), draws.A, draws.ident, cfg.spatial, seg, disp)
     data, seg = (warped, None) if seg is None else warped
     if draws.intensity is not None:
-        data = apply_intensity(data, draws.intensity, draws.noise, cfg.intensity)
+        data = apply_intensity(data, draws.intensity, draws.noise, cfg.intensity,
+                               da5=cfg.da5 is not None)
+    if cfg.da5 is not None:
+        from anatomask_torch.data.augment_da5 import apply_da5_extras
+        data, seg = apply_da5_extras(draws.da5, data, seg, cfg.spatial.patch_size)
     if cfg.mirror_axes:
         data = mirror(data, draws.mirror, cfg.mirror_axes)
         if seg is not None:
@@ -731,10 +752,6 @@ def make_train_augment_fn(cfg: AugmentConfig):
     *patch, C) fp32, seg targets or None): `draw_all`, then
     `apply_train_augment`. The draws come from `generator` (a CPU
     torch.Generator); the work runs on data's device."""
-    if cfg.da5 is not None:
-        raise NotImplementedError(
-            "the DA5 augmentation stack is not ported to anatomask_torch yet (ROADMAP.md)")
-
     def augment(gen: torch.Generator, data: torch.Tensor, seg=None):
         return apply_train_augment(cfg, draw_all(gen, data, cfg), data, seg)
 

@@ -1,7 +1,7 @@
 """Preprocessed-case store. The port's own copy of anatomask_tpu/data/dataset.py
 (lazy case dict, memory-mapped .npy preferred over .npz; `unpack_dataset`
-npz -> npy for mmap reads). The cascade's previous-stage segmentations are not
-copied: pretraining reads none."""
+npz -> npy for mmap reads; a cascade stage's previous-stage segmentation
+stacked under the labels)."""
 from __future__ import annotations
 
 import multiprocessing
@@ -40,9 +40,12 @@ def unpack_dataset(folder: str, num_processes: int = 4):
 
 
 class CaseDataset:
-    """key -> (data (c,x,y,z), seg (1,x,y,z), properties). Prefers mmap .npy."""
+    """key -> (data (c,x,y,z), seg (1,x,y,z), properties). Prefers mmap .npy.
+    With `folder_with_segs_from_previous_stage`, seg is (2,x,y,z): the labels,
+    then the previous stage's segmentation (`<key>.npz["seg"]` there)."""
 
-    def __init__(self, folder: str, case_identifiers: Optional[List[str]] = None):
+    def __init__(self, folder: str, case_identifiers: Optional[List[str]] = None,
+                 folder_with_segs_from_previous_stage: Optional[str] = None):
         self.folder = folder
         if case_identifiers is None:
             case_identifiers = sorted({
@@ -56,6 +59,7 @@ class CaseDataset:
             }
             for k in case_identifiers
         }
+        self.folder_with_segs_from_previous_stage = folder_with_segs_from_previous_stage
 
     def keys(self):
         return self.dataset.keys()
@@ -99,4 +103,8 @@ class CaseDataset:
                     data = z["data"]
                 if seg is None:
                     seg = z["seg"]
+        if self.folder_with_segs_from_previous_stage is not None:
+            ps_file = os.path.join(self.folder_with_segs_from_previous_stage, key + ".npz")
+            seg_prev = np.load(ps_file)["seg"]
+            seg = np.vstack([np.asarray(seg), seg_prev[None] if seg_prev.ndim == 3 else seg_prev])
         return data, seg, load_properties(entry["properties_file"])

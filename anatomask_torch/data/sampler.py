@@ -1,9 +1,11 @@
 """Patch sampling with foreground oversampling. The port's own copy of
 anatomask_tpu/data/sampler.py: numpy's RandomState draws, so one seed gives
 the same boxes as the JAX package's sampler, with the forced-foreground tail
-of the batch or, with `probabilistic_oversampling`, a draw per sample. The
-cascade corruption, per-case sampling probabilities and extra side padding
-are not copied: no path of the port uses them.
+of the batch or, with `probabilistic_oversampling`, a draw per sample; with
+`cascade_corruption`, a cascade stage's previous-stage segmentation (seg
+channel 1) corrupted per patch, its draws interleaved with the boxes' as in
+JAX. Per-case sampling probabilities and extra side padding are not copied:
+no path of the port uses them.
 
 Output is channels-LAST (B, x, y, z, c) float32 data + (B, x, y, z) int16 seg,
 ready for the on-device augmentation.
@@ -30,6 +32,9 @@ class PatchSampler:
         seed: Optional[int] = None,
         load_seg: bool = True,
         probabilistic_oversampling: bool = False,
+        cascade_corruption: bool = False,
+        cascade_p_binary_op: float = 0.4,
+        cascade_p_remove_component: float = 0.2,
     ):
         self.dataset = dataset
         self.indices = list(dataset.keys())
@@ -41,6 +46,9 @@ class PatchSampler:
         self.probabilistic_oversampling = probabilistic_oversampling
         self.annotated_classes_key = annotated_classes_key
         self.has_ignore = has_ignore
+        self.cascade_corruption = cascade_corruption
+        self.cascade_p_binary_op = cascade_p_binary_op
+        self.cascade_p_remove_component = cascade_p_remove_component
         # SSL pretraining: labels feed only the fg-oversampling bbox logic
         # (class_locations in the properties); skip the seg voxel crop/pad
         self.load_seg = load_seg
@@ -97,6 +105,40 @@ class PatchSampler:
         bbox_ubs = [bbox_lbs[i] + int(self.patch_size[i]) for i in range(dim)]
         return bbox_lbs, bbox_ubs
 
+    def _corrupt_previous_stage(self, prev_seg: np.ndarray) -> np.ndarray:
+        """nnU-Net's cascade transforms on one patch of the previous stage's
+        segmentation, per label in np.unique's order: with
+        cascade_p_binary_op a random dilation, erosion, opening or closing
+        (1-3 iterations; ApplyRandomBinaryOperatorTransform), then with
+        cascade_p_remove_component the removal of one random connected
+        component under 15% of the label's voxels
+        (RemoveRandomConnectedComponentFromOneHotEncodingTransform). Host
+        scipy; the draws (uniform, choice(4), randint(1, 4), uniform, the
+        component) are JAX's, in its order."""
+        from scipy.ndimage import (binary_closing, binary_dilation, binary_erosion,
+                                   binary_opening, label)
+        out = prev_seg.copy()
+        labels = [v for v in np.unique(out) if v > 0]
+        for v in labels:
+            mask = out == v
+            if self.rng.uniform() < self.cascade_p_binary_op:
+                op = self.rng.choice(4)
+                it = self.rng.randint(1, 4)
+                fn = [binary_dilation, binary_erosion, binary_opening, binary_closing][op]
+                new_mask = fn(mask, iterations=it)
+                out[mask & ~new_mask] = 0
+                out[new_mask & (out == 0)] = v
+                mask = new_mask
+            if self.rng.uniform() < self.cascade_p_remove_component:
+                lab, n = label(mask)
+                if n > 1:
+                    sizes = np.bincount(lab.ravel())[1:]
+                    fg = sizes.sum()
+                    small = [i + 1 for i, sz in enumerate(sizes) if sz < 0.15 * fg]
+                    if small:
+                        out[lab == small[self.rng.choice(len(small))]] = 0
+        return out
+
     def generate_batch(self) -> Dict[str, np.ndarray]:
         keys = [self.indices[i] for i in self.rng.choice(
             len(self.indices), self.batch_size, replace=True)]
@@ -123,6 +165,8 @@ class PatchSampler:
             if self.load_seg:
                 seg_crop = np.asarray(seg[(slice(None), *slicer)])
                 seg_crop = np.pad(seg_crop, pads, mode="constant", constant_values=-1)
+                if self.cascade_corruption and seg_crop.shape[0] > 1:
+                    seg_crop[1] = self._corrupt_previous_stage(seg_crop[1])
 
             if data_batch is None:
                 data_batch = np.empty((self.batch_size, *data_crop.shape), dtype=np.float32)

@@ -59,17 +59,23 @@ def _timed(fn, *args):
 
 
 def _preprocess_case(pm: PlansManager, cm, dataset_json: dict, image_files, prev_file,
-                     foreground_labels, verbose: bool):
-    """Read and preprocess one case; with a previous stage's segmentation,
-    stack its one-hot foreground labels as extra channels. Returns the fp32
-    volume and its properties. Host numpy only, so a thread or a spawned
-    worker process (which gets the managers pickled) runs it alike."""
+                     cascade_fg_labels, verbose: bool):
+    """Read and preprocess one case. For a cascade stage (`cascade_fg_labels`
+    given) with a previous stage's segmentation file, that segmentation goes
+    through run_case_npy as the case's seg, so that it is transposed, cropped
+    and resampled as a segmentation (nnU-Net's file iterator does the same),
+    and the one-hot of the seg it returns over those labels is stacked under
+    the data. The JAX package stacks the segmentation as it was read
+    (ROADMAP.md §3 item 6). Returns the fp32 volume and its properties. Host
+    numpy only, so a thread or a spawned worker process (which gets the
+    managers pickled) runs it alike."""
     rw = pm.image_reader_writer_class()
     data, props = rw.read_images(image_files)
-    data_pp, _ = cm.preprocessor_class(verbose=verbose).run_case_npy(data, None, props, pm, cm,
-                                                                     dataset_json)
-    if prev_file:
-        onehot = convert_labelmap_to_one_hot(rw.read_seg(prev_file)[0][0], foreground_labels,
+    seg_prev = rw.read_seg(prev_file)[0] if prev_file and cascade_fg_labels else None
+    data_pp, seg_pp = cm.preprocessor_class(verbose=verbose).run_case_npy(
+        data, seg_prev, props, pm, cm, dataset_json)
+    if seg_prev is not None:
+        onehot = convert_labelmap_to_one_hot(seg_pp[0], cascade_fg_labels,
                                              output_dtype=data_pp.dtype)
         data_pp = np.vstack([data_pp, onehot])
     return data_pp, props
@@ -340,7 +346,8 @@ class Predictor:
             return []
 
         results, self.case_timings = [], []
-        fg = tuple(self.label_manager.foreground_labels)
+        fg = (tuple(self.label_manager.foreground_labels)
+              if self.configuration_manager.previous_stage_name is not None else None)
         with ThreadPoolExecutor(max_workers=max(1, num_processes_segmentation_export)) as \
                 export_pool, self._make_preprocessing_pool(num_processes_preprocessing) as pp_pool:
             def submit(images, prev):

@@ -10,9 +10,15 @@ finetuning recipe):
 - DC + CE (or the configured loss) with 1/2^i deep-supervision weights;
   global-norm clip 12, then SGD-Nesterov 0.99 + poly LR, or AdamW / Adam /
   Adan (optax's laws) + cosine, the LR set per step from the epoch;
-- on-device augmentation of each batch (`data/augment.py`), from the GPU case
-  cache (default) or the host pipeline;
-- the final validation: the sliding-window Predictor, export, summary.json.
+- on-device augmentation of each batch (`data/augment.py`, with DA5's extras
+  for ATKTrainerDA5), from the GPU case cache (default) or the host pipeline;
+- the final validation: the sliding-window Predictor, export, summary.json,
+  and for a stage with a next stage its resampled logits
+  (`predicted_next_stage`);
+- cascade stages (a configuration with `previous_stage`, e.g.
+  3d_cascade_fullres): the previous stage's predictions stacked under the
+  labels, corrupted per training patch and one-hot into the input, on the
+  host pipeline.
 
 The port runs on one device, so JAX's mesh reduces to it: the global batch is
 the plans' batch (JAX's `scale_batch_to_devices` has no counterpart). The
@@ -25,7 +31,9 @@ packages' predictors read them; the torch optimizer's state rides along under
 (metadata), which the JAX trainer does not read. A JAX checkpoint resumes
 here with a fresh optimizer state, as a JAX one of another structure does
 there. `remat` checkpoints activations as the JAX models place it (STUNet-H
-always). Not ported: cascade stages (ROADMAP.md).
+always). The cascade's final validation predicts the data with the previous
+stage's one-hot stacked, as nnU-Net does; the JAX trainer predicts the data
+alone, which its cascade network refuses (ROADMAP.md §3 item 7).
 """
 from __future__ import annotations
 
@@ -46,13 +54,15 @@ from anatomask_torch.data.augment import (AugmentConfig, IntensityAugmentConfig,
                                           SpatialAugmentConfig, make_train_augment_fn,
                                           make_val_transform_fn,
                                           rotation_ranges_and_initial_patch_size)
+from anatomask_torch.data.augment_da5 import DA5Config
 from anatomask_torch.data.dataset import CaseDataset, unpack_dataset
 from anatomask_torch.data.pipeline import PrefetchPipeline
 from anatomask_torch.data.sampler import PatchSampler
 from anatomask_torch.device import resolve_device
 from anatomask_torch.models.build import build_network_from_plans
 from anatomask_torch.paths import require
-from anatomask_torch.plans.label_handling import determine_num_input_channels
+from anatomask_torch.plans.label_handling import (convert_labelmap_to_one_hot,
+                                                  determine_num_input_channels)
 from anatomask_torch.plans.plans_handler import (ConfigurationManager, PlansManager, load_json,
                                                  save_json)
 from anatomask_torch.training import checkpoint as ckpt_lib
@@ -92,7 +102,7 @@ class TrainerConfig:
     benchmark_no_dataloading: bool = False # dummy batches held on the device
     num_workers: Optional[int] = None
     seed: int = 12345
-    aggressive_da: bool = False            # DA5 (not ported: raises)
+    aggressive_da: bool = False            # DA5 (ATKTrainerDA5)
     order0_data_interp: bool = False       # nearest data warp
     data_interpolation_order: int = 1      # 1 trilinear, 3 cubic B-spline
     network_norm: str = "instance"         # instance | batch (PlainConvUNet)
@@ -267,9 +277,6 @@ class Trainer:
         if len(self.configuration_manager.patch_size) == 2:
             self.configuration_manager = ConfigurationManager(
                 promote_2d_configuration(self.configuration_manager.configuration))
-        if self.configuration_manager.previous_stage_name is not None:
-            raise NotImplementedError(
-                "cascade stages are not ported to anatomask_torch yet (ROADMAP.md)")
         self.fold = fold
         self.dataset_json = dataset_json
         # smoke-test overrides of the epoch length, as the JAX trainer reads them
@@ -427,20 +434,27 @@ class Trainer:
                 data_interpolation_order=cfg.data_interpolation_order,
                 seg_labels=None if cfg.order0_data_interp else seg_warp_labels)
             intensity = IntensityAugmentConfig(lowres_ignore_axis0=dummy_2d)
-            if cfg.aggressive_da:
-                da5 = "DA5"  # make_train_augment_fn raises: not ported
+            if cfg.aggressive_da:  # nnU-Net's nnUNetTrainerDA5
+                da5 = DA5Config()
+                intensity = IntensityAugmentConfig(
+                    lowres_ignore_axis0=dummy_2d, p_noise=0.1, p_lowres=0.15,
+                    lowres_zoom=(0.25, 1.0), p_gamma=0.1, p_gamma_invert=0.1)
         else:
             spatial = SpatialAugmentConfig(patch_size=patch, p_rotation=0.0, p_scaling=0.0)
             intensity = off
+        # a cascade stage: seg channel 1 (the previous stage) one-hot into the input
+        cascade_labels = (tuple(lm.foreground_labels) if cm.previous_stage_name is not None
+                          else ())
         self.aug_config = AugmentConfig(
             spatial=spatial, intensity=intensity, da5=da5,
             mirror_axes=mirror_axes if (cfg.do_mirroring_aug and cfg.do_data_augmentation)
             else (),
-            mask_channels_for_norm=mask_channels, ds_scales=tuple(ds_factors))
+            mask_channels_for_norm=mask_channels, ds_scales=tuple(ds_factors),
+            cascade_foreground_labels=cascade_labels)
         self.val_config = AugmentConfig(
             spatial=SpatialAugmentConfig(patch_size=patch, p_rotation=0.0, p_scaling=0.0),
             intensity=off, mirror_axes=(), mask_channels_for_norm=mask_channels,
-            ds_scales=tuple(ds_factors))
+            ds_scales=tuple(ds_factors), cascade_foreground_labels=cascade_labels)
         self.train_augment = make_train_augment_fn(self.aug_config)
         self.val_transform = make_val_transform_fn(self.val_config)
         # augmentation draws on the host (the noise field on the device, seeded from it)
@@ -536,11 +550,29 @@ class Trainer:
         return loss, tp, fp, fn
 
     # --- dataloaders ----------------------------------------------------------
+    def previous_stage_folder(self) -> Optional[str]:
+        """A cascade stage's previous-stage predictions:
+        <results>/<dataset>/<trainer>__<plans>__<previous stage>/predicted_next_stage/
+        <this configuration>, which the previous stage's final validation
+        writes; None for any other configuration. Raises where it is missing."""
+        prev = self.configuration_manager.previous_stage_name
+        if prev is None:
+            return None
+        parent, model_dir = os.path.split(self.output_folder_base.rstrip(os.sep))
+        folder = os.path.join(parent, model_dir.rsplit("__", 1)[0] + f"__{prev}",
+                              "predicted_next_stage", self.configuration_name)
+        if not os.path.isdir(folder):
+            raise RuntimeError(
+                f"Cascade stage requires previous-stage predictions at {folder}. Train {prev} "
+                f"(incl. final validation) first.")
+        return folder
+
     def get_dataloaders(self):
         tr_keys, val_keys = self.do_split()
         cfg, cm = self.cfg, self.configuration_manager
-        ds_tr = CaseDataset(self.preprocessed_dataset_folder, tr_keys)
-        ds_val = CaseDataset(self.preprocessed_dataset_folder, val_keys)
+        prev_folder = self.previous_stage_folder()
+        ds_tr = CaseDataset(self.preprocessed_dataset_folder, tr_keys, prev_folder)
+        ds_val = CaseDataset(self.preprocessed_dataset_folder, val_keys, prev_folder)
         annotated_key = tuple(self.label_manager.all_labels)
         patch = tuple(cm.patch_size)
         sample_patch = self.initial_patch_size if cfg.do_data_augmentation else patch
@@ -550,7 +582,7 @@ class Trainer:
             ds_tr, bs, sample_patch, final_patch_size=patch,
             oversample_foreground_percent=os_pct, annotated_classes_key=annotated_key,
             has_ignore=has_ignore, probabilistic_oversampling=cfg.probabilistic_oversampling,
-            seed=cfg.seed)
+            seed=cfg.seed, cascade_corruption=prev_folder is not None)
         self.sampler_val = PatchSampler(
             ds_val, bs, patch, final_patch_size=patch, oversample_foreground_percent=os_pct,
             annotated_classes_key=annotated_key, has_ignore=has_ignore, seed=cfg.seed + 1)
@@ -565,8 +597,8 @@ class Trainer:
         return self.loader_train, self.loader_val
 
     def _setup_device_cache(self, ds_tr, ds_val, sample_patch, patch, annotated_key):
-        """The GPU case cache, where it holds the labels exactly; else the
-        host pipeline."""
+        """The GPU case cache, where it holds the labels exactly and the
+        stage reads no previous stage; else the host pipeline."""
         from anatomask_torch.data.device_cache import DeviceCaseCache
         self.device_cache_train = self.device_cache_val = None
         cfg, lm = self.cfg, self.label_manager
@@ -576,9 +608,14 @@ class Trainer:
         if not enabled or cfg.benchmark_no_dataloading:
             return
         labels = list(lm.all_labels) + ([lm.ignore_label] if lm.has_ignore_label else [])
+        reasons = []
+        if self.configuration_manager.previous_stage_name is not None:
+            reasons.append("cascade stage (prev-stage seg channels)")
         if self.dtype == torch.bfloat16 and max(abs(int(v)) for v in labels) > 256:
-            self.print_to_log_file("[device-cache] falling back to the host pipeline: labels "
-                                   "exceed bf16 exact-integer range")
+            reasons.append("labels exceed bf16 exact-integer range")
+        if reasons:
+            self.print_to_log_file(f"[device-cache] falling back to the host pipeline: "
+                                   f"{'; '.join(reasons)}")
             return
         common = dict(oversample_foreground_percent=cfg.oversample_foreground_percent,
                       probabilistic_oversampling=cfg.probabilistic_oversampling,
@@ -877,7 +914,9 @@ class Trainer:
         Predictor (the network without deep supervision, this trainer's
         weights and mirroring), exported; the next stages' resampled
         predictions; then the metrics against the ground truth into
-        validation/summary.json."""
+        validation/summary.json. A cascade stage predicts each case with the
+        previous stage's one-hot stacked under the data, as nnU-Net does (the
+        JAX trainer leaves it out: ROADMAP.md §3 item 7)."""
         from anatomask_torch.evaluation.metrics import compute_metrics_on_folder
         from anatomask_torch.inference.export import (export_prediction_from_logits,
                                                       resample_and_save)
@@ -893,10 +932,17 @@ class Trainer:
         validation_folder = os.path.join(self.output_folder, "validation")
         os.makedirs(validation_folder, exist_ok=True)
         _, val_keys = self.do_split()
-        dataset_val = CaseDataset(self.preprocessed_dataset_folder, val_keys)
+        dataset_val = CaseDataset(self.preprocessed_dataset_folder, val_keys,
+                                  self.previous_stage_folder())
+        cascade = cm.previous_stage_name is not None
         for k in val_keys:
-            data, _, properties = dataset_val.load_case(k)
-            logits = predictor.predict_sliding_window_return_logits(np.asarray(data))
+            data, seg, properties = dataset_val.load_case(k)
+            data = np.asarray(data)
+            if cascade:
+                data = np.vstack([data, convert_labelmap_to_one_hot(
+                    np.asarray(seg[-1]), self.label_manager.foreground_labels,
+                    output_dtype=data.dtype)])
+            logits = predictor.predict_sliding_window_return_logits(data)
             export_prediction_from_logits(logits, properties, cm, pm, self.dataset_json,
                                           os.path.join(validation_folder, k),
                                           save_probabilities)

@@ -116,7 +116,12 @@ Phases, each of which raises on a failed check:
    Dice per class), checkpoint_final.npz through the Predictor against the
    trainer's network (<= 1e-3), the bare step (median of steps 3-5, with a
    torch.profiler split of 3 more by kernel group) and a validation step,
-   then 3 bare ATKTrainer steps of phase 10's PlainConvUNet (SGD); checking
+   then 3 bare ATKTrainer steps of phase 10's PlainConvUNet (SGD) and 3
+   bare ATKTrainerDA5 steps on the same batch (p_rotation 0.4, DA5's extras
+   and intensity settings), its augmentation timed alone, and one batch of
+   it with every DA5 transform on, on the card against the CPU with the
+   same draws (<= 1e-5 of the largest value where the seg targets agree,
+   the targets equal on >= 99.99%); checking
    the launches of every run (a training step 23 kernel #1, 9 + 1 kernel
    #2, 22 moments; a validation step 7, 9 + 1, 22) and printing seconds an
    epoch split, each training step between synchronizations, peak memory.
@@ -167,17 +172,29 @@ Phases, each of which raises on a failed check:
    pretrain, both trains and predict must each launch all three kernels.
    Printed: each entry's seconds, peak memory and launches, the steps'
    median ms, seconds a test case and fold;
-14. the out-of-memory ladder: one volume at tile batch 2 under a
+14. the cascade (3d_lowres -> 3d_cascade_fullres) through the same
+   entries on a KiTS-like dataset large enough for the planner to add
+   3d_lowres (CASCADE_TRAIN, CASCADE_TEST; one test case at 1.6 mm):
+   plan_and_preprocess -c 3d_fullres 3d_lowres, whose plans must be the
+   JAX planner's; the cascade network's launch shapes (the C = 3 stem on
+   kernel #2's simple variant) held against the plain versions at B = 2
+   and 16, timed; train ATKTrainer_1epoch 3d_lowres fold all, then
+   3d_cascade_fullres fold 0 from its predicted_next_stage; predict the
+   test cases with 3d_lowres, then with the cascade from those predictions.
+   Checked: the plans, every case's predicted_next_stage, the cascade
+   network's 3 input channels, its summary.json, every output's raw shape
+   and labels, each entry's launches by kernel and variant;
+15. the out-of-memory ladder: one volume at tile batch 2 under a
    torch.cuda.set_per_process_memory_fraction cap between the uncapped tile
    batch 1 and 2 peaks: the device-resident path must run out at 2, finish
    at 1, and match the uncapped tile batch 1 logits within 1e-3 relative.
 
 A kernel's time is the median of three runs of back-to-back calls, each
-run timed with CUDA events, after a warm-up call. Each main path (7-13)
+run timed with CUDA events, after a warm-up call. Each main path (7-14)
 runs with the launch counts set to 0 just before it and read just after
 (13: each entry), and every launch it makes must be at a shape that phases
-3 and 4 (and 11's, 12's and 13's gates) held against the plain version
-(kernel #2's: its path shapes in phase 3); phase 14 runs after that check,
+3 and 4 (and 11's, 12's, 13's and 14's gates) held against the plain version
+(kernel #2's: its path shapes in phase 3); phase 15 runs after that check,
 as its tile batch 2 launches at B = 16 on the 4-channel PlainConvUNet.
 Between phases, free_memory collects reference
 cycles and empties the allocator's cache, so that each phase's memory
@@ -200,7 +217,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
-from dataclasses import replace
+from dataclasses import fields, replace
 from pathlib import Path
 
 import numpy as np
@@ -209,6 +226,7 @@ import torch.nn.functional as fn
 
 from anatomask_torch import cli
 from anatomask_torch.convert import plain_unet_state_dict_from_jax, state_dict_to_jax
+from anatomask_torch.data.augment import apply_train_augment, draw_all
 from anatomask_torch.data.dataset import CaseDataset
 from anatomask_torch.dataset_conversion.generate_dataset_json import generate_dataset_json
 from anatomask_torch.imageio.nifti import NiftiIO, read_nifti, write_nifti
@@ -236,6 +254,7 @@ from anatomask_torch.ops.zslab_conv import (conv3d_zconcat, conv3d_zslab, conv3d
                                             conv3d_zslab_plain)
 from anatomask_torch.plans.plans_handler import PlansManager, load_json, save_json
 from anatomask_torch.preprocessing.preprocessor import save_properties
+from anatomask_torch.preprocessing.resampling import compute_new_shape
 from anatomask_torch.ssl.pretrain import (Lamb, PretrainConfig, PretrainTrainer,
                                           accumulation_steps, anatomask_train_step,
                                           build_spark_model, load_ssl_encoder_into_trainer,
@@ -386,6 +405,27 @@ CLI_3D = {"UNet_class_name": "PlainConvUNet", "patch_size": [128, 128, 128], "ba
 CLI_2D = {"patch_size": [192, 192], "batch_size": 64}
 CLI_ITERS, CLI_VAL_ITERS, CLI_PRETRAIN_ITERS = 10, 2, 3
 CLI_TILE_BATCH = 2 * TTA_BATCH  # the Predictor's tile batch 2 x 8 flips
+# the cascade phase: a KiTS-like raw dataset whose cases are large enough for
+# the planner to add 3d_lowres and 3d_cascade_fullres (5 training cases of
+# 224x256x256 at 1.0x0.8x0.8 mm, the anatomy of kidney_case; 2 test cases,
+# the second at 1.6 mm along z, so that its data and the previous stage's
+# segmentation are resampled)
+CASCADE_ID = 955
+CASCADE_DATASET = f"Dataset{CASCADE_ID}_ChipSmokeCascade"
+CASCADE_TRAIN = [(f"case_{i:03d}", (224, 256, 256), (1.0, 0.8, 0.8)) for i in range(5)]
+CASCADE_TEST = [("test_000", (224, 256, 256), (1.0, 0.8, 0.8)),
+                ("test_001", (140, 256, 256), (1.6, 0.8, 0.8))]
+# what the JAX planner plans for it (tests/test_torch_cascade.py holds the
+# port's planner to these and to the JAX planner): 3d_fullres is CLI_3D at
+# 1.0x0.8x0.8 mm; 3d_lowres the same network at a coarser spacing, its
+# next stage the cascade, which inherits 3d_fullres and reads 1 + 2 channels
+CASCADE_FULLRES_SPACING = (1.0, 0.8, 0.8)
+CASCADE_LOWRES = dict(CLI_3D, batch_dice=False, next_stage="3d_cascade_fullres")
+CASCADE_LOWRES_SPACING = (1.2298738654248702, 0.9838990923398963, 0.9838990923398963)
+CASCADE_STAGE = {"inherits_from": "3d_fullres", "previous_stage": "3d_lowres"}
+CASCADE_IN = 1 + 2
+# the DA5 steps of the supervised phase, and its augmentation's calls timed alone
+DA5_STEPS = 3
 STEPS, WARMUP = 5, 2
 FMAP, LEN_KEEP = (7, 7, 8), 157  # the step's patch grid and visible patches
 # bench_inference.py's configuration
@@ -2269,8 +2309,74 @@ def supervised_phase(root, pretrain_checkpoint):
           f"patch 128^3 from {tp_.initial_patch_size}, batch {SUP_BATCH}, bf16, SGD): steps "
           f"{[round(v, 1) for v in times]} ms, peak memory {peak6 / 2**30:.2f} GiB; launches a "
           f"step {PLAIN_STEP_LAUNCHES}")
+    dataset_json, pp_base = tp_.dataset_json, tp_.preprocessed_dataset_folder_base
+    del tp_
+    free_memory()
+    da5_launches = da5_steps(root, dataset_json, pp_base, data, seg)
     runs = (launches, launches2, launches3, launches4, launches5)
-    return {k: sum(r[k] for r in runs) for k in COUNT_KEYS}, plain_launches
+    return {k: sum(r[k] for r in runs) for k in COUNT_KEYS}, plain_launches, da5_launches
+
+
+def da5_steps(root, dataset_json, pp_base, data, seg):
+    """DA5_STEPS bare ATKTrainerDA5 steps of the files phase's PlainConvUNet
+    on the ATKTrainer steps' batch (data, seg on the card), their launches
+    checked; DA5_STEPS calls of its augmentation alone, timed; then one batch
+    through the augmentation with every DA5 transform switched on, on the
+    card and on the CPU with the same draws: the data within 1e-5 of the
+    CPU's largest value where the seg targets agree, and the targets equal on
+    >= 99.99% of the voxels (a per-label warp's 0.5 threshold may tie).
+    Returns the steps' launches."""
+    td = Trainer(plain_unet_plans(), "3d_fullres", 0, dataset_json,
+                 get_trainer_config("ATKTrainerDA5"), output_folder=os.path.join(root, "da5"),
+                 preprocessed_dataset_folder_base=pp_base, device="cuda")
+    td.initialize()
+    cfg = td.aug_config
+    check(cfg.da5 is not None and cfg.spatial.p_rotation == 0.4
+          and cfg.intensity.p_lowres == 0.15, f"ATKTrainerDA5's augmentation {cfg}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times = []
+    for step in range(DA5_STEPS):
+        before_n = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = td.train_step(data, seg).item()
+        times.append((time.perf_counter() - t0) * 1e3)
+        n = since(before_n)
+        check(math.isfinite(loss) and n == PLAIN_STEP_LAUNCHES,
+              f"ATKTrainerDA5 step {step}: loss {loss}, launches {n}, expected "
+              f"{PLAIN_STEP_LAUNCHES}")
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    aug_ms = []
+    for _ in range(DA5_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        td.train_augment(td.aug_generator, data, seg)
+        torch.cuda.synchronize()
+        aug_ms.append((time.perf_counter() - t0) * 1e3)
+    every = replace(cfg, da5=replace(cfg.da5, **{
+        f.name: 1.0 for f in fields(cfg.da5) if f.name.startswith("p_") and f.name != "p_per_channel"}))
+    t0 = time.perf_counter()
+    draws = draw_all(torch.Generator().manual_seed(11), data.cpu(), every)
+    ref_d, ref_t = apply_train_augment(every, draws, data.cpu(), seg.cpu())
+    cpu_s = time.perf_counter() - t0
+    card = replace(draws, noise=None if draws.noise is None else draws.noise.cuda())
+    got_d, got_t = apply_train_augment(every, card, data, seg)
+    agree = (got_t[0].cpu() == ref_t[0])
+    share = float(agree.float().mean())
+    err = float(((got_d.cpu() - ref_d).abs() * agree).max() / ref_d.abs().max())
+    check(share >= 0.9999 and err <= 1e-5,
+          f"DA5 augmentation card vs CPU: rel err {err}, equal targets {share}")
+    print(f"[supervised] ATKTrainerDA5 PlainConvUNet (p_rotation 0.4, DA5's extras, its "
+          f"intensity settings): steps {[round(v, 1) for v in times]} ms, augmentation alone "
+          f"{[round(v, 1) for v in aug_ms]} ms a batch of {tuple(data.shape)}, peak memory "
+          f"{peak / 2**30:.2f} GiB; launches a step {PLAIN_STEP_LAUNCHES}; one batch with every "
+          f"DA5 transform on, card vs CPU (same draws; the CPU took {cpu_s:.1f} s): rel err "
+          f"{err:.3e} where the targets agree, targets equal on {share:.6f} of the voxels")
+    del td, draws, card, ref_d, ref_t, got_d, got_t
+    return launches
 
 
 def h_gate_phase(gen):
@@ -2546,24 +2652,53 @@ def kidney_case(rs, shape, spacing):
     return np.clip(img, -1024, 3071).astype(np.int16), seg
 
 
-def write_cli_dataset(raw):
-    """CLI_DATASET as a user brings it: imagesTr/labelsTr (CLI_TRAIN) and
-    imagesTs/labelsTs (CLI_TEST) of kidney_case volumes, written with the
-    port's NIfTI writer, and dataset.json with generate_dataset_json."""
-    rs = np.random.default_rng(4)
+def write_cli_dataset(raw, name=CLI_DATASET, train=CLI_TRAIN, test=CLI_TEST, seed=4):
+    """A dataset as a user brings it (CLI_DATASET by default): imagesTr/labelsTr
+    (`train`) and imagesTs/labelsTs (`test`) of kidney_case volumes, written
+    with the port's NIfTI writer, and dataset.json with
+    generate_dataset_json."""
+    rs = np.random.default_rng(seed)
     jobs = []
-    for split, cases in (("Tr", CLI_TRAIN), ("Ts", CLI_TEST)):
+    for split, cases in (("Tr", train), ("Ts", test)):
         for sub in ("images", "labels"):
             os.makedirs(os.path.join(raw, f"{sub}{split}"))
-        for name, shape, spacing in cases:
+        for case, shape, spacing in cases:
             img, seg = kidney_case(rs, shape, spacing)
-            jobs += [(os.path.join(raw, f"images{split}", f"{name}_0000.nii.gz"), img, spacing),
-                     (os.path.join(raw, f"labels{split}", f"{name}.nii.gz"), seg, spacing)]
+            jobs += [(os.path.join(raw, f"images{split}", f"{case}_0000.nii.gz"), img, spacing),
+                     (os.path.join(raw, f"labels{split}", f"{case}.nii.gz"), seg, spacing)]
     with ThreadPoolExecutor(8) as pool:  # gzip releases the GIL
         list(pool.map(lambda j: write_nifti(j[0], j[1].transpose(2, 1, 0),
                                             spacing_xyz=j[2][::-1]), jobs))
-    generate_dataset_json(raw, {0: "CT"}, CLI_LABELS, len(CLI_TRAIN), ".nii.gz",
-                          dataset_name=CLI_DATASET)
+    generate_dataset_json(raw, {0: "CT"}, CLI_LABELS, len(train), ".nii.gz", dataset_name=name)
+
+
+def run_entry(tag, runs, steps, name, entry, argv, timer=None):
+    """entry(argv) with the launch counts at 0 and the peak memory reset: its
+    seconds, peak memory and launches into runs[name], the ms of each step
+    that `timer` (a StepTimer) saw into steps[name]; prints a [tag] line."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    if timer is None:
+        entry(argv)
+    else:
+        with timer:
+            entry(argv)
+        steps[name] = timer.ms
+    torch.cuda.synchronize()
+    runs[name] = dict(seconds=time.perf_counter() - t0,
+                      peak=torch.cuda.max_memory_allocated(), launches=counts())
+    free_memory()
+    r = runs[name]
+    line = (f"[{tag}] {name}: {r['seconds']:.3f} s, peak memory {r['peak'] / 2**30:.2f} "
+            f"GiB ({r['peak']} bytes), launches {r['launches']}")
+    if name in steps:
+        ms = steps[name]
+        line += (f"; {len(ms)} steps, median {statistics.median(ms):.1f} ms "
+                 f"({[round(v, 1) for v in ms]})")
+    print(line)
+    return r
 
 
 class StepTimer:
@@ -2665,29 +2800,7 @@ def cli_phase(root, gen, checked, shapes):
               f"written in {time.perf_counter() - t0:.1f} s")
 
         def run(name, entry, argv, timer=None):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            zero_counts()
-            t0 = time.perf_counter()
-            if timer is None:
-                entry(argv)
-            else:
-                with timer:
-                    entry(argv)
-                steps[name] = timer.ms
-            torch.cuda.synchronize()
-            runs[name] = dict(seconds=time.perf_counter() - t0,
-                              peak=torch.cuda.max_memory_allocated(), launches=counts())
-            free_memory()
-            r = runs[name]
-            line = (f"[cli] {name}: {r['seconds']:.3f} s, peak memory {r['peak'] / 2**30:.2f} "
-                    f"GiB ({r['peak']} bytes), launches {r['launches']}")
-            if name in steps:
-                ms = steps[name]
-                line += (f"; {len(ms)} steps, median {statistics.median(ms):.1f} ms "
-                         f"({[round(v, 1) for v in ms]})")
-            print(line)
-            return r
+            return run_entry("cli", runs, steps, name, entry, argv, timer)
 
         run("plan_and_preprocess", cli.plan_and_preprocess_entry,
             ["-d", str(CLI_ID), "-c", "3d_fullres", "--verify_dataset_integrity", "-np", "4"])
@@ -2843,6 +2956,185 @@ def cli_phase(root, gen, checked, shapes):
     return launches, gate_errs, plain_step, case
 
 
+def check_cascade_plans(plans):
+    """The plans that plan_and_preprocess wrote for CASCADE_DATASET are what
+    the JAX planner plans: 3d_fullres, 3d_lowres and the cascade."""
+    configs = plans["configurations"]
+    check({"3d_fullres", "3d_lowres", "3d_cascade_fullres"} <= set(configs),
+          f"configurations {sorted(configs)}")
+    for name, want, spacing in (("3d_fullres", CLI_3D, CASCADE_FULLRES_SPACING),
+                                ("3d_lowres", CASCADE_LOWRES, CASCADE_LOWRES_SPACING)):
+        c = configs[name]
+        check({k: c.get(k) for k in want} == want,
+              f"{name} {[(k, c.get(k)) for k in want if c.get(k) != want[k]]}")
+        check(np.allclose(c["spacing"], spacing, rtol=1e-6), f"{name} spacing {c['spacing']}")
+    casc = configs["3d_cascade_fullres"]
+    check({k: casc.get(k) for k in CASCADE_STAGE} == CASCADE_STAGE, f"cascade {casc}")
+
+
+def cascade_gate_phase(gen, checked):
+    """The launch shapes that the cascade adds, against the plain versions
+    with gate_path's gates, before an entry runs them: the cascade
+    PlainConvUNet (CASCADE_IN input channels: the stem at C = 3 on kernel
+    #2's simple variant) at its training batch 2 and at CLI_TILE_BATCH,
+    timed. The lowres stage's shapes are the cli phase's (one input
+    channel). Returns per kernel (max abs err, max rel err), the totals of
+    one cascade step and of one cascade test case and fold (CASCADE_TEST[0]
+    at the fullres spacing)."""
+    errs = {k: [0.0, 0.0] for k in ("conv3x3", "zslab", "moments")}
+    sites = plain_sites(CASCADE_IN)
+    t = gate_path("cascade", sites, PLAIN_INFER_NORMS, CLI_3D["batch_size"], gen, errs, checked,
+                  True, "enc0.conv0")
+    step = step_totals(t, sites, PLAIN_INFER_NORMS, CLI_3D["batch_size"], lambda n: 1,
+                       lambda n: int(n != "enc0.conv0"))
+    print_totals("cascade", f"one cascade PlainConvUNet step at B={CLI_3D['batch_size']}", step)
+    t = gate_path("cascade", sites, PLAIN_INFER_NORMS, CLI_TILE_BATCH, gen, errs, checked, True,
+                  dx=False)
+    forwards = math.ceil(tiles_of((CASCADE_IN, *CASCADE_TEST[0][1])) / 2)
+    case = step_totals(t, sites, PLAIN_INFER_NORMS, CLI_TILE_BATCH, lambda n: forwards,
+                       lambda n: 0)
+    print_totals("cascade", f"one cascade test case and fold ({forwards} forwards at "
+                            f"B={CLI_TILE_BATCH})", case)
+    return errs, step, case
+
+
+def cascade_phase(root, gen, checked, shapes):
+    """The 3d_lowres -> 3d_cascade_fullres cascade through the port's command
+    line, each entry with the argv a user types, under
+    ATK_raw/ATK_preprocessed/ATK_results in `root`: CASCADE_DATASET written
+    as write_cli_dataset writes one; plan_and_preprocess -c 3d_fullres
+    3d_lowres, whose plans must be the JAX planner's; cascade_gate_phase;
+    train ATKTrainer_1epoch 3d_lowres fold all (its final validation
+    predicts every case, so every training case gets its
+    predicted_next_stage), then 3d_cascade_fullres fold 0 (the host
+    pipeline: the case cache turns itself off for a cascade), CLI_ITERS
+    iterations and CLI_VAL_ITERS validation iterations each; predict the test
+    cases with 3d_lowres fold all, then with 3d_cascade_fullres fold 0 from
+    those predictions (-prev_stage_predictions). Checks every case's
+    predicted_next_stage on the fullres grid, the cascade network's 3 input
+    channels, the cascade's summary.json, every test output's raw shape and
+    labels, each entry's launches by kernel and variant, that every train
+    and predict launches all three kernels. `shapes` (LaunchShapes) records
+    no launch of the gates. Returns the launches of the phase, per kernel
+    (max abs err, max rel err) of its gates and their totals of one cascade
+    step and one cascade test case."""
+    dirs = {w: os.path.join(root, w) for w in ("raw", "preprocessed", "results")}
+    raw = os.path.join(dirs["raw"], CASCADE_DATASET)
+    env = {**{f"ATK_{w}": d for w, d in dirs.items()},
+           "ATK_ITERS_PER_EPOCH": str(CLI_ITERS), "ATK_VAL_ITERS": str(CLI_VAL_ITERS)}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    runs, steps = {}, {}
+    start = time.perf_counter()
+    tr, ident = "ATKTrainer_1epoch", str(CASCADE_ID)
+
+    def run(name, entry, argv, timer=None):
+        return run_entry("cascade", runs, steps, name, entry, argv, timer)
+
+    try:
+        t0 = time.perf_counter()
+        write_cli_dataset(raw, CASCADE_DATASET, CASCADE_TRAIN, CASCADE_TEST, seed=5)
+        print(f"[cascade] {len(CASCADE_TRAIN)} training and {len(CASCADE_TEST)} test cases of "
+              f"{CASCADE_DATASET} written in {time.perf_counter() - t0:.1f} s")
+        run("plan_and_preprocess", cli.plan_and_preprocess_entry,
+            ["-d", ident, "-c", "3d_fullres", "3d_lowres", "-np", "4"])
+        pp = os.path.join(dirs["preprocessed"], CASCADE_DATASET)
+        plans = load_json(os.path.join(pp, "ATKPlans.json"))
+        check_cascade_plans(plans)
+        pp_shapes = {}
+        for config in ("3d_fullres", "3d_lowres"):
+            folder = os.path.join(pp, plans["configurations"][config]["data_identifier"])
+            for name, *_ in CASCADE_TRAIN:
+                with np.load(os.path.join(folder, name + ".npz")) as z:
+                    pp_shapes[(config, name)] = z["data"].shape
+        print(f"[cascade] plans as the JAX planner's: 3d_fullres {CLI_3D}, 3d_lowres at "
+              f"{CASCADE_LOWRES_SPACING} mm (next stage 3d_cascade_fullres), the cascade "
+              f"{CASCADE_STAGE}; preprocessed shapes {sorted(set(pp_shapes.items()))}")
+
+        with shapes.paused():
+            gate_errs, casc_step, casc_case = cascade_gate_phase(gen, checked)
+        free_memory()
+
+        def forwards(config, n):  # the forwards of a final validation or a predict
+            return sum(math.ceil(tiles_of(pp_shapes[(config, name)]) / 2)
+                       for name, *_ in CASCADE_TRAIN[:n])
+
+        train_want = {}
+        for config, fold, n_in, val_cases in (("3d_lowres", "all", 1, len(CASCADE_TRAIN)),
+                                              ("3d_cascade_fullres", "0", CASCADE_IN, None)):
+            name = f"train {tr} {config} fold {fold}"
+            run(name, cli.train_entry, [ident, config, fold, "-tr", tr],
+                StepTimer(Trainer, "train_step"))
+            model = os.path.join(dirs["results"], CASCADE_DATASET, f"{tr}__ATKPlans__{config}")
+            fdir = os.path.join(model, f"fold_{fold}")
+            summary = load_json(os.path.join(fdir, "validation", "summary.json"))
+            check(math.isfinite(summary["foreground_mean"]["Dice"]),
+                  f"{name}: validation Dice {summary['foreground_mean']}")
+            sites = plain_sites(n_in)
+            if val_cases is None:
+                val_keys = load_json(os.path.join(pp, "splits_final.json"))[int(fold)]["val"]
+                n_val = sum(math.ceil(tiles_of(pp_shapes[("3d_fullres", k)]) / 2)
+                            for k in val_keys)
+            else:
+                n_val = forwards("3d_lowres", val_cases)
+            step_l = path_launches(sites, PLAIN_INFER_NORMS, 1, True)
+            fwd_l = path_launches(sites, PLAIN_INFER_NORMS, 1, False)
+            train_want[name] = {k: CLI_ITERS * step_l[k] + (CLI_VAL_ITERS + n_val) * fwd_l[k]
+                                for k in COUNT_KEYS}
+            check(runs[name]["launches"] == train_want[name],
+                  f"{name}: launches {runs[name]['launches']}, expected {train_want[name]}")
+            arrays, _ = ckpt_mod.load_checkpoint(os.path.join(fdir, "checkpoint_final.npz"))
+            stem = next(v for v in plain_unet_state_dict_from_jax(
+                arrays["network_weights"]).values() if v.ndim == 5)
+            check(stem.shape[1] == n_in, f"{name}: the network reads {stem.shape[1]} channels")
+        nxt = os.path.join(dirs["results"], CASCADE_DATASET, f"{tr}__ATKPlans__3d_lowres",
+                           "predicted_next_stage", "3d_cascade_fullres")
+        for name, *_ in CASCADE_TRAIN:
+            with np.load(os.path.join(nxt, name + ".npz")) as z:
+                seg = z["seg"]
+            check(seg.shape == pp_shapes[("3d_fullres", name)][1:]
+                  and set(np.unique(seg).tolist()) <= {0, 1, 2},
+                  f"predicted_next_stage {name}: shape {seg.shape}, labels {np.unique(seg)}")
+        print(f"[cascade] predicted_next_stage/3d_cascade_fullres holds every training case on "
+              f"the fullres grid; the cascade network reads {CASCADE_IN} channels")
+
+        preds = {c: os.path.join(root, f"pred_{c}") for c in ("3d_lowres", "3d_cascade_fullres")}
+        for config, fold, n_in, spacing, extra in (
+                ("3d_lowres", "all", 1, CASCADE_LOWRES_SPACING, []),
+                ("3d_cascade_fullres", "0", CASCADE_IN, CASCADE_FULLRES_SPACING,
+                 ["-prev_stage_predictions", preds["3d_lowres"]])):
+            name = f"predict {config}"
+            r = run(name, cli.predict_entry,
+                    ["-i", os.path.join(raw, "imagesTs"), "-o", preds[config], "-d", ident,
+                     "-c", config, "-tr", tr, "-f", fold, *extra])
+            n = sum(math.ceil(tiles_of((n_in, *compute_new_shape(shape, sp, spacing))) / 2)
+                    for _, shape, sp in CASCADE_TEST)
+            fwd_l = path_launches(plain_sites(n_in), PLAIN_INFER_NORMS, 1, False)
+            want = {k: n * fwd_l[k] for k in COUNT_KEYS}
+            check(r["launches"] == want, f"{name}: launches {r['launches']}, expected {want}")
+            for case, shape, _ in CASCADE_TEST:
+                seg = NiftiIO().read_seg(os.path.join(preds[config], case + ".nii.gz"))[0][0]
+                check(seg.shape == shape and set(np.unique(seg).tolist()) <= {0, 1, 2},
+                      f"{name} {case}: shape {seg.shape}, labels {np.unique(seg)}")
+            print(f"[cascade] {name}: {r['seconds'] / len(CASCADE_TEST):.3f} s a test case "
+                  f"({n} forwards of B={CLI_TILE_BATCH} in all); outputs at the raw shapes")
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for name, r in runs.items():
+        if name.startswith(("train", "predict")):
+            check(all(kernel_launches(r["launches"], k) > 0
+                      for k in ("conv3x3", "zslab", "moments")),
+                  f"{name} did not launch every kernel: {r['launches']}")
+    total = sum(r["seconds"] for r in runs.values())
+    print(f"[cascade] the entries took {total:.1f} s, the phase {time.perf_counter() - start:.1f} s")
+    launches = {k: sum(r["launches"][k] for r in runs.values()) for k in COUNT_KEYS}
+    return launches, gate_errs, casc_step, casc_case
+
+
 def kernel_record(name, source, replaces, launches_by_path, max_abs, max_rel, totals_by_path,
                   per, launches_by_variant=None):
     """totals_by_path: {path: TOTAL_KEYS totals}; launches_by_path: {path:
@@ -2926,7 +3218,7 @@ def main():
         files, predictor, ladder_data, case_tiles = files_phase(root)
     free_memory()
     with tempfile.TemporaryDirectory() as root:
-        supervised, plain_trainer = supervised_phase(root, pretrained)
+        supervised, plain_trainer, da5_trainer = supervised_phase(root, pretrained)
     work.cleanup()
     held = torch.cuda.memory_allocated()
     free_memory()
@@ -2952,6 +3244,14 @@ def main():
     zc_err, zc_rel = max(zc_err, cli_errs["zslab"][0]), max(zc_rel, cli_errs["zslab"][1])
     mom_err, mom_rel = max(mom_err, cli_errs["moments"][0]), max(mom_rel,
                                                                  cli_errs["moments"][1])
+    with tempfile.TemporaryDirectory() as root:
+        casc_launches, casc_errs, casc_step, casc_case = cascade_phase(root, gen, checked, shapes)
+    free_memory()
+    conv_err, conv_rel = max(conv_err, casc_errs["conv3x3"][0]), max(conv_rel,
+                                                                      casc_errs["conv3x3"][1])
+    zc_err, zc_rel = max(zc_err, casc_errs["zslab"][0]), max(zc_rel, casc_errs["zslab"][1])
+    mom_err, mom_rel = max(mom_err, casc_errs["moments"][0]), max(mom_rel,
+                                                                  casc_errs["moments"][1])
     for label, seen in (("conv3x3", shapes.conv), ("zslab", shapes.zslab),
                         ("moments", shapes.moments)):
         check(seen <= checked[label],
@@ -2962,21 +3262,26 @@ def main():
 
     runs = {"pretrain": pretrain, "inference": inference, "pretrain_trainer": trainer,
             "files": files, "supervised": supervised, "plain_trainer": plain_trainer,
-            "pretrain_h": h_pretrain, "pretrain_h_trainer": h_trainer, "finetune_h": h_finetune,
-            "cli": cli_launches}
+            "da5_trainer": da5_trainer, "pretrain_h": h_pretrain,
+            "pretrain_h_trainer": h_trainer, "finetune_h": h_finetune, "cli": cli_launches,
+            "cascade": casc_launches}
     per = ("one pretraining step (B = 4), one inference volume (18 STUNet-B tiles at B = 8), "
            f"one case of the file path ({case_tiles} PlainConvUNet tiles at B = 8), one "
            "STUNet-B finetuning step and one ATKTrainer PlainConvUNet step (B = 2), one "
            "STUNet-H pretraining step (B = 4 in two microbatches, remat) and one "
            "STUNetTrainer_huge step (B = 2, remat), one step of the planner's PlainConvUNet "
            "(one input channel, B = 2) and one test case and fold of the command line's predict "
-           f"({math.ceil(tiles_of((1, *CLI_TEST[0][1])) / 2)} forwards at B = {CLI_TILE_BATCH}); "
-           "by_path splits them; launches_by_path "
+           f"({math.ceil(tiles_of((1, *CLI_TEST[0][1])) / 2)} forwards at B = {CLI_TILE_BATCH}), "
+           f"one step of the cascade's PlainConvUNet ({CASCADE_IN} input channels, B = 2) and "
+           f"one cascade test case and fold "
+           f"({math.ceil(tiles_of((CASCADE_IN, *CASCADE_TEST[0][1])) / 2)} forwards at "
+           f"B = {CLI_TILE_BATCH}); by_path splits them; launches_by_path "
            "counts every launch of each path's run, the PretrainTrainer runs', the "
            "supervised runs' (training, resume, final validation, checkpoint round trip, bare "
            "steps), the ATKTrainer steps', the H phases' (bare, profiled and ride-along "
-           "steps; the H trainer's two runs; the H finetuning steps) and the command line's "
-           "(every entry, and the installed model's check) too")
+           "steps; the H trainer's two runs; the H finetuning steps), the ATKTrainerDA5 steps', "
+           "the command line's (every entry, and the installed model's check) and the cascade's "
+           "(every entry) too")
 
     def case(tile):  # one PlainConvUNet tile's totals -> one case's
         return {k: case_tiles * v for k, v in tile.items()}
@@ -2993,7 +3298,8 @@ def main():
         {"pretrain_step": zc_step, "inference_volume": zc_volume, "files_case": case(zc_tile),
          "supervised_step": sup_step["zslab"], "plain_trainer_step": plain_step["zslab"],
          "pretrain_h_step": h_step["zslab"], "finetune_h_step": h_sup["zslab"],
-         "cli_plain_step": cli_step["zslab"], "cli_case": cli_case["zslab"]},
+         "cli_plain_step": cli_step["zslab"], "cli_case": cli_case["zslab"],
+         "cascade_step": casc_step["zslab"], "cascade_case": casc_case["zslab"]},
         per + "; the main paths' per-tap forwards through conv3d_zconcat", by_variant("zslab"))
     zslab_record["probe"] = {"launches_by_variant": zs_variants, **{
         k: zs_probe[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -3006,7 +3312,8 @@ def main():
          "files_case": case(mom_tile[0]), "supervised_step": sup_step["moments"],
          "plain_trainer_step": plain_step["moments"], "pretrain_h_step": h_step["moments"],
          "finetune_h_step": h_sup["moments"], "cli_plain_step": cli_step["moments"],
-         "cli_case": cli_case["moments"]},
+         "cli_case": cli_case["moments"], "cascade_step": casc_step["moments"],
+         "cascade_case": casc_case["moments"]},
         per + "; ms is the call (host and device, CUDA events), device_ms the kernel "
         "(torch.profiler)")
     case_dev = None if mom_tile[1] is None else case_tiles * mom_tile[1]
@@ -3023,7 +3330,9 @@ def main():
                        "files_case": case(conv_tile), "supervised_step": sup_step["conv3x3"],
                        "plain_trainer_step": plain_step["conv3x3"],
                        "pretrain_h_step": h_step["conv3x3"], "finetune_h_step": h_sup["conv3x3"],
-                       "cli_plain_step": cli_step["conv3x3"], "cli_case": cli_case["conv3x3"]},
+                       "cli_plain_step": cli_step["conv3x3"], "cli_case": cli_case["conv3x3"],
+                       "cascade_step": casc_step["conv3x3"],
+                       "cascade_case": casc_case["conv3x3"]},
                       per,
                       by_variant("conv3x3")),
         moments_record,

@@ -376,10 +376,3 @@ def test_train_augment_fn_draws_then_applies():
     torch.testing.assert_close(got_d, want_d, rtol=0, atol=0)
     for g, w in zip(got_t, want_t):
         assert torch.equal(g, w)
-
-
-def test_unported_parts_raise():
-    """The DA5 stack is not ported."""
-    _, cfg = _configs(da5=object())
-    with pytest.raises(NotImplementedError, match="DA5"):
-        aug.make_train_augment_fn(cfg)

@@ -45,7 +45,7 @@ def test_package_has_the_mirrored_modules():
                 "inference.gaussian", "inference.sliding_window", "inference.predictor",
                 "ops.zslab_conv", "paths", "configuration", "utils.helpers",
                 "preprocessing.preprocessor", "data.dataset", "data.sampler",
-                "data.pipeline", "data.device_cache", "data.augment",
+                "data.pipeline", "data.device_cache", "data.augment", "data.augment_da5",
                 "training.schedules", "training.trainer", "models.plain_unet",
                 "inference.export", "preprocessing.cropping", "preprocessing.normalization",
                 "preprocessing.resampling", "imageio.base", "imageio.nifti",

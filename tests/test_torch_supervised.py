@@ -287,18 +287,32 @@ def test_presets_match_jax():
 
 
 def test_unported_options_raise(prepared):
-    """A cascade stage and DA5 raise, naming the roadmap (remat is ported:
-    tests/test_torch_pretrain_configs.py holds it to the plain gradients)."""
-    _, plans_file, dataset_json = prepared
+    """The two options that raised before their port now run: a cascade
+    stage constructs and initialises (three input channels, the previous
+    stage's one-hot labels), then raises JAX's RuntimeError where its
+    previous stage's predictions are missing; ATKTrainerDA5 initialises with
+    the JAX trainer's DA5 settings and takes a step."""
+    tmp_path, plans_file, dataset_json = prepared
+    setup_env(tmp_path)
     plans = load_json(plans_file)
     plans["configurations"]["cascade"] = {"inherits_from": "tiny_plain",
                                           "previous_stage": "tiny_plain"}
-    with pytest.raises(NotImplementedError, match="cascade.*ROADMAP"):
-        Trainer(plans, "cascade", 0, dataset_json, TrainerConfig(), device="cpu")
-    t = Trainer(plans_file, "tiny_plain", 0, dataset_json,
-                TrainerConfig(aggressive_da=True, compute_dtype="float32"), device="cpu")
-    with pytest.raises(NotImplementedError, match="DA5.*ROADMAP"):
-        t.initialize()
+    t = Trainer(plans, "cascade", 0, dataset_json, TrainerConfig(compute_dtype="float32"),
+                output_folder=os.path.join(str(tmp_path), "port_cascade",
+                                           "T__ATKPlans__cascade"), device="cpu")
+    t.initialize()
+    assert next(p for p in t.network.parameters() if p.ndim == 5).shape[1] == 3
+    assert t.aug_config.cascade_foreground_labels == (1, 2)
+    with pytest.raises(RuntimeError, match="T__ATKPlans__tiny_plain.*predicted_next_stage"):
+        t.get_dataloaders()
+    assert port_trainer_mod.get_trainer_config("ATKTrainerDA5").aggressive_da
+    jt, pt = _trainers(prepared, "tiny_plain", "da5", aggressive_da=True)
+    assert pt.cfg.aggressive_da and pt.aug_config.spatial.p_rotation == 0.4
+    for part in ("spatial", "intensity", "da5"):
+        assert asdict(getattr(pt.aug_config, part)) == asdict(getattr(jt.aug_config, part)), part
+    data, seg = _batch(3, patch=pt.initial_patch_size)
+    loss = pt.train_step(torch.from_numpy(data), torch.from_numpy(seg))
+    assert np.isfinite(loss.item()) and pt.step_counter == 1
 
 
 @pytest.fixture(scope="module")
