@@ -6,7 +6,11 @@ What differs from the JAX entries:
 - `train`, `pretrain` and `predict` take `-device` (default `cuda`); without
   a CUDA device they raise unless given `-device cpu`, where every kernel's
   plain PyTorch version runs;
-- `-num_gpus` above 1 raises NotImplementedError: the port runs on one GPU;
+- `train` and `pretrain` run as many ranks as JAX's mesh has devices: every
+  visible card, capped by `-num_gpus` or ATK_NUM_DEVICES (a cap above the
+  visible cards raises). Above one, the entry's body runs in that many
+  spawned processes of one group (`parallel/mesh.py` `launch`): NCCL, a card
+  each; with `-device cpu`, gloo ranks on the CPU;
 - `predict -compute_dtype` maps to torch.bfloat16 / torch.float32.
 
 The dataset converters (`convert_msd`, `convert_challenge`) and
@@ -32,11 +36,16 @@ def _verify_integrity(dataset_name_or_id, num_processes: int) -> None:
         raise RuntimeError(f"dataset {dataset_name_or_id} failed integrity check")
 
 
-def _one_gpu(num_gpus: Optional[int]) -> None:
-    if num_gpus is not None and num_gpus > 1:
-        raise NotImplementedError(
-            f"-num_gpus {num_gpus}: anatomask_torch runs on one GPU; multi-GPU training is "
-            f"not ported yet (ROADMAP.md, open items 1, queue item 1: Multi-GPU)")
+def _run_ranks(body, a: argparse.Namespace) -> None:
+    """body(a) in this process at one rank, else in `launch`'s ranks."""
+    from anatomask_torch.device import resolve_device
+    from anatomask_torch.parallel import mesh
+    world = mesh.world_size_for(a.device, a.num_gpus)
+    resolve_device(a.device)
+    if world == 1:
+        body(a)
+    else:
+        mesh.launch(body, world, a.device, a)
 
 
 def _device_argument(p: argparse.ArgumentParser) -> None:
@@ -131,15 +140,16 @@ def train_entry(argv: Optional[List[str]] = None):
     p.add_argument("--npz", action="store_true", help="save softmax probabilities")
     p.add_argument("--disable_checkpointing", action="store_true")
     p.add_argument("-num_gpus", type=int, default=None,
-                   help="number of GPUs (the port runs on one)")
+                   help="ranks, one a card (default: every visible card; with -device cpu, "
+                        "gloo ranks, default 1)")
     _device_argument(p)
-    a = p.parse_args(argv)
-    _one_gpu(a.num_gpus)
-    from anatomask_torch.device import resolve_device
-    resolve_device(a.device)
+    _run_ranks(_train, p.parse_args(argv))
 
+
+def _train(a: argparse.Namespace) -> None:
     from dataclasses import replace
 
+    from anatomask_torch.parallel.mesh import rank_device
     from anatomask_torch.paths import require
     from anatomask_torch.training.trainer import Trainer, get_trainer_config
     from anatomask_torch.utils.helpers import maybe_convert_to_dataset_name
@@ -151,7 +161,7 @@ def train_entry(argv: Optional[List[str]] = None):
     cfg = replace(get_trainer_config(a.tr), name=a.tr)
     fold = a.fold if a.fold == "all" else int(a.fold)
     trainer = Trainer(os.path.join(pp, a.p + ".json"), a.configuration, fold, dataset_json, cfg,
-                      device=a.device)
+                      device=rank_device(a.device))
     trainer.disable_checkpointing = a.disable_checkpointing
     if a.val or a.val_best:
         trainer.initialize()
@@ -186,12 +196,14 @@ def pretrain_entry(argv: Optional[List[str]] = None):
     p.add_argument("-grad_accum", type=int, default=2,
                    help="microbatches a step, gradients summed (exact for per-sample norms)")
     p.add_argument("-num_gpus", type=int, default=None,
-                   help="number of GPUs (the port runs on one)")
+                   help="ranks, one a card (default: every visible card; with -device cpu, "
+                        "gloo ranks, default 1)")
     _device_argument(p)
-    a = p.parse_args(argv)
-    _one_gpu(a.num_gpus)
-    from anatomask_torch.device import resolve_device
-    resolve_device(a.device)
+    _run_ranks(_pretrain, p.parse_args(argv))
+
+
+def _pretrain(a: argparse.Namespace) -> None:
+    from anatomask_torch.parallel.mesh import rank_device
     from anatomask_torch.ssl.pretrain import PretrainConfig, PretrainTrainer
     lr = a.lr if a.lr is not None else (2e-4 if a.method == "spark" else 1e-4)
     cfg = PretrainConfig(
@@ -200,8 +212,9 @@ def pretrain_entry(argv: Optional[List[str]] = None):
         iters_per_epoch=a.iters_per_epoch, compute_dtype=a.compute_dtype,
         lr=lr, guide=not a.no_guide, grad_accum_steps=a.grad_accum,
     )
-    PretrainTrainer(a.dataset_name_or_id, cfg, a.p, a.configuration, a.fold,
-                    device=a.device).run_pretraining(continue_training=a.continue_training)
+    trainer = PretrainTrainer(a.dataset_name_or_id, cfg, a.p, a.configuration, a.fold,
+                              device=rank_device(a.device))
+    trainer.run_pretraining(continue_training=a.continue_training)
 
 
 # --- inference ---------------------------------------------------------------

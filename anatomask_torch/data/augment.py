@@ -683,10 +683,12 @@ def _intensity_on(cfg: IntensityAugmentConfig) -> bool:
                                cfg.p_lowres, cfg.p_gamma_invert, cfg.p_gamma))
 
 
-def draw_all(gen: torch.Generator, data: torch.Tensor, cfg: "AugmentConfig") -> AugmentDraws:
-    """Every draw of one batch from `gen` (a CPU generator); the noise field
-    comes from a generator on the data's device seeded from `gen`."""
-    batch = data.shape[0]
+def draw_all(gen: torch.Generator, data: torch.Tensor, cfg: "AugmentConfig",
+             batch: Optional[int] = None) -> AugmentDraws:
+    """Every draw of one batch of `batch` samples (default data's) from `gen`
+    (a CPU generator); the noise field comes from a generator on the data's
+    device seeded from `gen`."""
+    batch = data.shape[0] if batch is None else batch
     A, ident, flags = draw_augment_params(gen, batch, cfg)
     draws = AugmentDraws(A, ident, flags)
     if cfg.spatial.p_elastic > 0:
@@ -703,6 +705,25 @@ def draw_all(gen: torch.Generator, data: torch.Tensor, cfg: "AugmentConfig") -> 
         draws.da5 = draw_da5(gen, batch, data.shape[-1], cfg.spatial.patch_size, cfg.da5,
                              cfg.intensity)
     return draws
+
+
+def take_rows(draws: AugmentDraws, rows: torch.Tensor) -> AugmentDraws:
+    """The draws of the samples `rows` of a batch's draws: a rank's rows of
+    the global batch's draws, as JAX's one key augments the sharded batch.
+    DA5's per-batch choices are the batch's; its rectangles are (n, B, 3)."""
+    def pick(t, dim=0):
+        return t.index_select(dim, rows.to(t.device))
+
+    da5 = None
+    if draws.da5 is not None:
+        da5 = {k: (pick(v, 1 if k in ("rect_start", "rect_width") else 0)
+                   if isinstance(v, torch.Tensor) else v) for k, v in draws.da5.items()}
+    return AugmentDraws(
+        pick(draws.A), pick(draws.ident), pick(draws.mirror),
+        elastic=None if draws.elastic is None else tuple(pick(t) for t in draws.elastic),
+        intensity=(None if draws.intensity is None
+                   else {k: pick(v) for k, v in draws.intensity.items()}),
+        noise=None if draws.noise is None else pick(draws.noise), da5=da5)
 
 
 def _targets(data: torch.Tensor, seg: torch.Tensor, cfg: "AugmentConfig"):
@@ -748,12 +769,18 @@ def apply_train_augment(cfg: "AugmentConfig", draws: AugmentDraws, data: torch.T
 
 
 def make_train_augment_fn(cfg: AugmentConfig):
-    """Returns fn(generator, data (B, ix, iy, iz, C), seg=None) -> (data (B,
-    *patch, C) fp32, seg targets or None): `draw_all`, then
-    `apply_train_augment`. The draws come from `generator` (a CPU
-    torch.Generator); the work runs on data's device."""
-    def augment(gen: torch.Generator, data: torch.Tensor, seg=None):
-        return apply_train_augment(cfg, draw_all(gen, data, cfg), data, seg)
+    """Returns fn(generator, data (B, ix, iy, iz, C), seg=None, rows=None,
+    global_batch=None) -> (data (B, *patch, C) fp32, seg targets or None):
+    `draw_all`, then `apply_train_augment`. The draws come from `generator`
+    (a CPU torch.Generator); the work runs on data's device. With `rows`,
+    data is those rows of a global batch of `global_batch` samples: the
+    draws are the global batch's, and data takes its rows' (`take_rows`)."""
+    def augment(gen: torch.Generator, data: torch.Tensor, seg=None, rows=None,
+                global_batch=None):
+        if rows is None:
+            return apply_train_augment(cfg, draw_all(gen, data, cfg), data, seg)
+        draws = take_rows(draw_all(gen, data, cfg, global_batch), rows)
+        return apply_train_augment(cfg, draws, data, seg)
 
     return augment
 

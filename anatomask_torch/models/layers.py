@@ -28,6 +28,7 @@ import torch.utils.checkpoint
 from anatomask_torch.ops.conv3x3 import conv3d_3x3
 from anatomask_torch.ops.moments import row_moments
 from anatomask_torch.ops.zslab_conv import conv3d_zconcat
+from anatomask_torch.parallel import mesh
 
 CL3D = torch.channels_last_3d
 # output voxels a sample from which a 3x3x3 conv is rounded per tap
@@ -151,11 +152,21 @@ class BatchNorm(InstanceNorm):
     """The JAX package's BatchNorm: training-mode statistics over the batch
     and the voxels, whatever the batch (no running averages), eps 1e-5, as
     InstanceNorm otherwise. The moments kernel sums each (sample, channel)
-    with x*x squared in x's dtype; the samples' sums are added in fp32."""
+    with x*x squared in x's dtype; the samples' sums are added in fp32, then
+    across the ranks of a process group (JAX's SyncBN under the mesh), with
+    the voxel count: every rank holds a batch of one size. `cross_rank` False
+    keeps the statistics to the rank's batch (a prediction network, whose
+    ranks predict different cases)."""
+
+    cross_rank = True
 
     def sums(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, float]:
         s, ss, cnt = super().sums(x)
-        return s.sum(0, keepdim=True), ss.sum(0, keepdim=True), cnt * x.shape[0]
+        s, ss, cnt = s.sum(0, keepdim=True), ss.sum(0, keepdim=True), cnt * x.shape[0]
+        if self.cross_rank and mesh.distributed():
+            s, ss = mesh.all_reduce_sum(torch.cat([s, ss], 1)).chunk(2, 1)
+            cnt *= mesh.world()
+        return s, ss, cnt
 
 
 class SubpixelConvTranspose(nn.Module):

@@ -52,6 +52,7 @@ from anatomask_torch.data.device_cache import DeviceCaseCache
 from anatomask_torch.data.pipeline import PrefetchPipeline
 from anatomask_torch.data.sampler import PatchSampler
 from anatomask_torch.device import resolve_device
+from anatomask_torch.parallel import mesh
 from anatomask_torch.paths import require
 from anatomask_torch.plans.plans_handler import PlansManager, load_json, save_json
 from anatomask_torch.ssl.anatomask import generate_guided_mask, guided_keep_ratio
@@ -76,9 +77,10 @@ class PretrainConfig:
     with encoder_type "mednext", MedNeXt of width encoder_dims[0] (default
     32). The LightDecoder is `decoder_width` wide (default the encoder's top
     width). remat (activation checkpointing a stage and a decoder block) is
-    on for STUNet-H whatever the field says. One device: the batch is the
-    global batch (JAX's scale_batch_to_devices has no counterpart), and
-    grad_accum_steps is lowered until it divides batch_size."""
+    on for STUNet-H whatever the field says. batch_size is the global batch,
+    scaled up to a multiple of the rank count (JAX's default
+    scale_batch_to_devices), and grad_accum_steps is lowered until it
+    divides it into microbatches that divide among the ranks."""
     method: str = "anatomask"            # "spark" (random mask) | "anatomask"
     model_size: str = "B"                # STUNet S/B/L/H encoder head
     patch_size: Tuple[int, int, int] = (112, 112, 128)
@@ -216,10 +218,12 @@ def make_optimizer(model: nn.Module, cfg: PretrainConfig = PretrainConfig()
     raise ValueError(f"optimizer must be 'adamw' or 'lamb', got {cfg.optimizer!r}")
 
 
-def accumulation_steps(batch: int, requested: int) -> int:
-    """The microbatches a step: `requested`, lowered until it divides the batch."""
+def accumulation_steps(batch: int, requested: int, n_shards: int = 1) -> int:
+    """The microbatches a step, JAX's rule: `requested`, lowered until it
+    divides the global batch into microbatches that divide among n_shards
+    ranks."""
     micro = max(1, int(requested))
-    while micro > 1 and batch % micro:
+    while micro > 1 and (batch % micro or (batch // micro) % n_shards):
         micro -= 1
     return micro
 
@@ -232,19 +236,36 @@ def _microbatches(batch: int, grad_accum_steps: int) -> List[slice]:
 
 
 def _update(student: SparK, optimizer: torch.optim.Optimizer, micro: int, lr: float,
-            grad_clip: float) -> None:
-    """The gradients summed over `micro` microbatches divided by `micro`,
-    optax's clip, then the optimizer at `lr` (set on every group)."""
+            grad_clip: float, loss: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+    """The gradients summed over `micro` microbatches, under a process group
+    averaged over the ranks in one all-reduce (with `loss`), divided by
+    `micro`; optax's clip, then the optimizer at `lr` (set on every group).
+    Returns `loss`, averaged over the ranks."""
     params = list(student.parameters())
     for p in params:  # unread parameters get zero gradients, as in JAX
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-        elif micro > 1:
+    loss = mesh.all_reduce_mean_([p.grad for p in params], loss)
+    if micro > 1:
+        for p in params:
             p.grad.div_(micro)
     clip_by_global_norm_([p.grad for p in params], grad_clip)
     for group in optimizer.param_groups:
         group["lr"] = lr
     optimizer.step()
+    return loss
+
+
+def _rank_noise(noise: Optional[torch.Tensor], shape, generator, device, micro: int
+                ) -> torch.Tensor:
+    """This rank's rows (`mesh.local_rows`, dim -2) of the uniforms of the
+    global batch (dim -2 of `shape`, the rank's rows times the world size):
+    `noise`, or drawn from `generator`, the same on every rank."""
+    shape = (*shape[:-2], shape[-2] * mesh.world(), shape[-1])
+    if noise is None:
+        noise = torch.rand(shape, generator=generator, device=device)
+    rows = mesh.local_rows(shape[-2], micro)
+    return noise if rows is None else noise.index_select(-2, rows.to(noise.device))
 
 
 def anatomask_train_step(student: SparK, teacher: SparK, optimizer: torch.optim.Optimizer,
@@ -262,11 +283,16 @@ def anatomask_train_step(student: SparK, teacher: SparK, optimizer: torch.optim.
     `generator`, or from `noise` (2, B, L) where a test supplies them; a
     microbatch takes its rows. Returns (the mean of the microbatches' student
     losses, hard mask, teacher per-patch loss map), the last two over the
-    whole batch."""
+    whole batch.
+
+    Under a process group x is this rank's rows of the global batch
+    (`mesh.local_rows`: its share of every microbatch), the uniforms are drawn
+    for the global batch (or `noise` holds them, (2, global B, L)) and the
+    rank takes its rows; the losses returned are the global batch's, the
+    masks and maps the rank's."""
     B = x.shape[0]
     L = math.prod(student.fmap)
-    if noise is None:
-        noise = torch.rand((2, B, L), generator=generator, device=x.device)
+    noise = _rank_noise(noise, (2, B, L), generator, x.device, grad_accum_steps)
     optimizer.zero_grad(set_to_none=False)
     losses, hards, maps = [], [], []
     for sl in _microbatches(B, grad_accum_steps):
@@ -284,9 +310,9 @@ def anatomask_train_step(student: SparK, teacher: SparK, optimizer: torch.optim.
         losses.append(loss.detach())
         hards.append(hard)
         maps.append(loss_map)
-    _update(student, optimizer, grad_accum_steps, lr, grad_clip)
+    loss = _update(student, optimizer, grad_accum_steps, lr, grad_clip, torch.stack(losses).mean())
     ema_update(teacher, student, ema_decay)
-    return torch.stack(losses).mean(), torch.cat(hards), torch.cat(maps)
+    return loss, torch.cat(hards), torch.cat(maps)
 
 
 def spark_train_step(student: SparK, optimizer: torch.optim.Optimizer, x: torch.Tensor,
@@ -297,10 +323,12 @@ def spark_train_step(student: SparK, optimizer: torch.optim.Optimizer, x: torch.
     a uniformly random mask (from `generator`, or the rows of the (B, L)
     uniforms `noise`), forward, backward; then the summed gradients divided
     by the microbatch count, clip, the optimizer. No teacher. Returns the
-    mean of the microbatches' losses."""
+    mean of the microbatches' losses. Under a process group as
+    anatomask_train_step: the noise (global B, L) is the global batch's, the
+    loss returned too."""
     B = x.shape[0]
-    if noise is None:
-        noise = torch.rand((B, math.prod(student.fmap)), generator=generator, device=x.device)
+    noise = _rank_noise(noise, (B, math.prod(student.fmap)), generator, x.device,
+                        grad_accum_steps)
     optimizer.zero_grad(set_to_none=False)
     losses = []
     for sl in _microbatches(B, grad_accum_steps):
@@ -310,8 +338,7 @@ def spark_train_step(student: SparK, optimizer: torch.optim.Optimizer, x: torch.
         loss = spark_loss(inp, rec, active)[0]
         loss.backward()
         losses.append(loss.detach())
-    _update(student, optimizer, grad_accum_steps, lr, grad_clip)
-    return torch.stack(losses).mean()
+    return _update(student, optimizer, grad_accum_steps, lr, grad_clip, torch.stack(losses).mean())
 
 
 @torch.no_grad()
@@ -339,7 +366,14 @@ def _host_copy(obj):
 
 class PretrainTrainer:
     """The pretraining loop on one GPU (`device="cpu"` runs every kernel's
-    plain version instead)."""
+    plain version instead), or on one rank of a process group
+    (`parallel/mesh.py`; `atk_torch_pretrain -num_gpus N`), as JAX's
+    multi-host run: the global batch scaled to a multiple of the ranks, each
+    rank sampling its share (its oversample fraction, seed + 131071 * rank)
+    through the host pipeline unless `device_cache` says otherwise, the
+    augmentation and mask draws the global batch's, validation losses
+    averaged over the ranks; rank 0 alone unpacks, writes the split, logs,
+    plots and checkpoints, and every rank resumes from its checkpoint."""
 
     def __init__(
         self,
@@ -377,6 +411,8 @@ class PretrainTrainer:
         self._ckpt_error: Optional[BaseException] = None
 
     def print_to_log_file(self, *args):
+        if mesh.rank() != 0:
+            return
         line = " ".join(str(a) for a in args)
         print(line, flush=True)
         with open(os.path.join(self.output_folder, "pretrain_log.txt"), "a") as f:
@@ -393,7 +429,8 @@ class PretrainTrainer:
             splits = load_json(splits_file)
         else:
             splits = generate_crossval_split(all_keys, 5, seed=12345)
-            save_json(splits, splits_file)
+            if mesh.rank() == 0:
+                save_json(splits, splits_file)
         tr_keys = splits[self.fold]["train"] if self.fold < len(splits) else all_keys
         rng = np.random.RandomState(self.cfg.seed)
         idx = rng.permutation(len(tr_keys))
@@ -424,22 +461,25 @@ class PretrainTrainer:
         )
         annotated_key = tuple(self.label_manager.all_labels)
         has_ignore = self.label_manager.has_ignore_label
-        bs, os_pct = cfg.batch_size, cfg.oversample_foreground_percent
+        self.global_batch = mesh.global_batch_size(cfg.batch_size, mesh.world(),
+                                                   self.print_to_log_file)
+        bs, os_pct = mesh.shard_batch_spec(self.global_batch, cfg.oversample_foreground_percent)
+        seed = cfg.seed + 131071 * mesh.rank()
         self.sampler_train = PatchSampler(
             ds_tr, bs, initial_patch, final_patch_size=patch,
             oversample_foreground_percent=os_pct, annotated_classes_key=annotated_key,
-            has_ignore=has_ignore, seed=cfg.seed,
+            has_ignore=has_ignore, seed=seed,
             load_seg=False)  # labels only steer oversampling
         self.sampler_val = PatchSampler(
             ds_val, bs, patch, final_patch_size=patch,
             oversample_foreground_percent=os_pct, annotated_classes_key=annotated_key,
-            has_ignore=has_ignore, seed=cfg.seed + 1, load_seg=False)
+            has_ignore=has_ignore, seed=seed + 1, load_seg=False)
         n_workers = (cfg.num_workers if cfg.num_workers is not None
                      else min(4, get_allowed_n_proc_DA()))
         cache_dtype = self.dtype
         self.device_cache = self.device_cache_val = None
         use_cache = (cfg.device_cache if cfg.device_cache is not None
-                     else os.environ.get("ATK_DEVICE_CACHE", "1") == "1")
+                     else mesh.world() == 1 and os.environ.get("ATK_DEVICE_CACHE", "1") == "1")
         if use_cache:
             self.device_cache = DeviceCaseCache(
                 ds_tr, initial_patch=initial_patch, final_patch=patch,
@@ -492,10 +532,12 @@ class PretrainTrainer:
         cfg = self.cfg
         self.teacher = self.model if cfg.method == "spark" else make_teacher(self.model)
         self.optimizer = make_optimizer(self.model, cfg)
-        self.grad_accum_steps = accumulation_steps(cfg.batch_size, cfg.grad_accum_steps)
+        self.grad_accum_steps = accumulation_steps(self.global_batch, cfg.grad_accum_steps,
+                                                   mesh.world())
         if self.grad_accum_steps != cfg.grad_accum_steps:
             self.print_to_log_file(f"[accum] grad_accum_steps adjusted {cfg.grad_accum_steps} -> "
-                                   f"{self.grad_accum_steps} (batch {cfg.batch_size})")
+                                   f"{self.grad_accum_steps} (global batch {self.global_batch}, "
+                                   f"{mesh.world()} ranks)")
         iters = cfg.iters_per_epoch or max(1, getattr(self, "n_train", 100) // cfg.batch_size)
         self.iters_per_epoch = iters
         self.lr_schedule = linear_warmup_cosine_schedule(
@@ -532,9 +574,13 @@ class PretrainTrainer:
             memory_format=torch.channels_last_3d)
 
     def _prep(self, data: torch.Tensor) -> torch.Tensor:
+        """The batch augmented with the global batch's draws (this rank's
+        rows: its share of every microbatch)."""
         if (self.aug_config.spatial.p_rotation > 0
                 or tuple(data.shape[1:4]) != tuple(self.cfg.patch_size)):
-            data, _ = self.augment(self.aug_generator, data)
+            data, _ = self.augment(self.aug_generator, data,
+                                   rows=mesh.local_rows(self.global_batch, self.grad_accum_steps),
+                                   global_batch=self.global_batch)
         return self._to_model(data)
 
     # --- checkpointing --------------------------------------------------------
@@ -574,7 +620,9 @@ class PretrainTrainer:
         become links to that file (one snapshot, one file: a STUNet-H
         checkpoint is 12.8 GB). `state` holds host copies taken before the
         thread starts. At most one writer is outstanding; a failed write is
-        re-raised at the next join."""
+        re-raised at the next join. Rank 0 alone writes."""
+        if mesh.rank() != 0:
+            return
         self._join_ckpt_writer()
         paths = [os.path.join(self.output_folder, f) for f in filenames]
 
@@ -592,6 +640,8 @@ class PretrainTrainer:
 
     def save_checkpoint(self, filename: str, extra_meta: Optional[dict] = None,
                         state: Optional[dict] = None):
+        if mesh.rank() != 0:
+            return  # the ranks' weights are identical: rank 0 writes for all
         self._join_ckpt_writer()
         if state is None:
             state = self._snapshot_state()
@@ -637,7 +687,11 @@ class PretrainTrainer:
         return losses
 
     def run_pretraining(self, continue_training: bool = False):
-        unpack_dataset(self.preprocessed_folder, num_processes=min(4, get_allowed_n_proc_DA()))
+        if mesh.rank() == 0:
+            unpack_dataset(self.preprocessed_folder,
+                           num_processes=min(4, get_allowed_n_proc_DA()))
+            self._split_keys()  # writes splits_final.json where it is missing
+        mesh.barrier()
         self.get_dataloaders()
         self.initialize()
         if continue_training:
@@ -688,7 +742,8 @@ class PretrainTrainer:
                 # validation loss under a fresh random mask
                 tv0 = time.time()
                 n_val = max(1, self.iters_per_epoch // 5)
-                val_loss = torch.stack(self._val_losses(n_val, val_iter)).float().mean().item()
+                val_loss = mesh.mean_over_ranks(
+                    torch.stack(self._val_losses(n_val, val_iter)).float().mean()).item()
                 t_val = time.time() - tv0
 
                 history["train_loss"].append(train_loss)
@@ -712,7 +767,8 @@ class PretrainTrainer:
                         self._checkpoint_meta({"val_loss": val_loss}))
                     last_saved = (names[0], self.step_counter)
                 t_ckpt = time.time() - tc0
-                self._plot_progress(history)
+                if mesh.rank() == 0:
+                    self._plot_progress(history)
                 t_epoch = time.time() - t0
                 self.epoch_timings.append(dict(epoch=epoch, total=t_epoch, train=t_train,
                                                fetch_wait=t_fetch, val=t_val, ckpt=t_ckpt))
@@ -730,6 +786,8 @@ class PretrainTrainer:
                 self.device_cache.stop()
             if self.device_cache_val is not None:
                 self.device_cache_val.stop()
+        if mesh.rank() != 0:
+            return history
         if last_saved is not None and last_saved[1] == self.step_counter:
             # no step since the last epoch's checkpoint: the final one is it
             ckpt_lib.link_checkpoint(os.path.join(self.output_folder, last_saved[0]),

@@ -12,6 +12,7 @@ import torch
 import torch.nn as nn
 
 from anatomask_torch.models.layers import ConvND
+from anatomask_torch.parallel import mesh
 from anatomask_torch.ssl.decoder import LightDecoder
 from anatomask_torch.ssl.sparse import (SparseBatchNorm, SparseInstanceNorm, SparseLayerNorm,
                                         mask_to_resolution, upsample_mask)
@@ -155,7 +156,10 @@ class SparK(nn.Module):
 def spark_loss(inp_patches: torch.Tensor, rec_patches: torch.Tensor,
                active: torch.Tensor):
     """Per-patch-normalized L2 on the masked patches. Returns (scalar loss,
-    per-patch map (B, L)); fp32, population variance as jnp.var."""
+    per-patch map (B, L)); fp32, population variance as jnp.var. Under a
+    process group the loss is this rank's share of the global batch's: the
+    world size times its masked sum over the global masked count, so that
+    the mean over the ranks is JAX's loss over the global batch."""
     inp = inp_patches.float()
     rec = rec_patches.float()
     mean = inp.mean(-1, keepdim=True)
@@ -164,6 +168,9 @@ def spark_loss(inp_patches: torch.Tensor, rec_patches: torch.Tensor,
     l2 = (rec - inp).square().mean(2)
     non_active = 1.0 - active.reshape(active.shape[0], -1).float()
     loss_map = l2 * non_active
+    if mesh.distributed():
+        count = mesh.all_reduce_sum(non_active.sum())
+        return loss_map.sum() * mesh.world() / (count + 1e-8), loss_map
     return loss_map.sum() / (non_active.sum() + 1e-8), loss_map
 
 

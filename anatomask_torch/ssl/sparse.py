@@ -28,6 +28,7 @@ import torch.nn.functional as fn
 
 from anatomask_torch.models.layers import CL3D, ConvND, leaky_relu, run_remat, trunc_normal_
 from anatomask_torch.ops.moments import row_moments
+from anatomask_torch.parallel import mesh
 
 
 def upsample_mask(mask: torch.Tensor, factors: Sequence[int]) -> torch.Tensor:
@@ -50,14 +51,19 @@ def mask_to_resolution(mask: torch.Tensor, spatial_shape: Sequence[int]) -> torc
 
 def _masked_moments(x: torch.Tensor, m: torch.Tensor, batch_pooled: bool):
     """fp32 mean/var per (sample, channel) over the visible voxels (m == 1),
-    (B, C, 1, 1, 1); pooled over the batch as (1, C, 1, 1, 1). The sums come
-    from the moments kernel, x*x squared in x's dtype as JAX's
-    `_masked_moments` squares it; counts are clamped >= 1."""
+    (B, C, 1, 1, 1); pooled over the batch as (1, C, 1, 1, 1), and then over
+    the ranks of a process group (the global batch's visible voxels, as JAX's
+    program over the sharded batch pools them). The sums come from the
+    moments kernel, x*x squared in x's dtype as JAX's `_masked_moments`
+    squares it; counts are clamped >= 1."""
     x = x.contiguous(memory_format=CL3D)
     s, ss = row_moments(x.permute(0, 2, 3, 4, 1), m[:, 0], square_in_dtype=True)
     cnt = m.sum((1, 2, 3, 4), dtype=torch.float32)[:, None]
     if batch_pooled:
         s, ss, cnt = s.sum(0, keepdim=True), ss.sum(0, keepdim=True), cnt.sum(0, keepdim=True)
+        if mesh.distributed():
+            C = s.shape[1]
+            s, ss, cnt = mesh.all_reduce_sum(torch.cat([s, ss, cnt], 1)).split([C, C, 1], 1)
     cnt = cnt.clamp_min(1.0)
     mean = s / cnt
     var = (ss / cnt - mean.square()).clamp_min(0.0)

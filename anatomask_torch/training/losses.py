@@ -7,9 +7,16 @@ Conventions as the JAX package's: logits channels-last (B, *spatial, K), so
 the network's NCDHW output in channels_last_3d memory enters by a free
 permute; labels (B, *spatial) int, or regions one-hot (B, *spatial, K) with an
 optional trailing ignore channel; loss masks (B, *spatial, 1). Softmax,
-log-softmax and every reduction run in fp32 whatever the logits' dtype. The
-port runs on one process, so JAX's `_maybe_psum` over the data mesh axis is
-the identity: batch Dice sums over the batch it is given.
+log-softmax and every reduction run in fp32 whatever the logits' dtype.
+
+Under a process group (parallel/mesh.py) each rank holds its rows of the
+global batch, and every statistic JAX's step takes over the global batch is
+summed across the ranks, JAX's `_maybe_psum`: batch Dice's tp, fp and fn, the
+valid-voxel counts of the masked CE and BCE means, and the top-k threshold.
+A rank's loss is its share of the global loss (the mean over the ranks is
+JAX's loss): the global Dice as it is, a mean as the world size times the
+rank's sum over the global count. Without a group every reduction is the
+rank's own.
 """
 from __future__ import annotations
 
@@ -17,6 +24,8 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as fn
+
+from anatomask_torch.parallel import mesh
 
 
 def soft_dice_parts(probs: torch.Tensor, target_onehot: torch.Tensor,
@@ -59,6 +68,8 @@ def memory_efficient_soft_dice_loss(logits: torch.Tensor, target: torch.Tensor,
     tp, fp, fn_ = soft_dice_parts(probs, onehot, loss_mask)
     if batch_dice:
         tp, fp, fn_ = tp.sum(0), fp.sum(0), fn_.sum(0)
+        if mesh.distributed():
+            tp, fp, fn_ = mesh.all_reduce_sum(torch.stack([tp, fp, fn_])).unbind(0)
     dc = (2 * tp + smooth) / (2 * tp + fp + fn_ + smooth).clamp_min(1e-8)
     return -dc.mean()
 
@@ -75,6 +86,14 @@ def _voxel_mask(loss_mask: torch.Tensor, ndim: int) -> torch.Tensor:
     return m[..., 0] if m.ndim == ndim + 1 else m
 
 
+def _masked_mean(total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """total / count (>= 1e-8), the count the global batch's: under a
+    process group this rank's share, world * total / the summed count."""
+    if mesh.distributed():
+        return total * mesh.world() / mesh.all_reduce_sum(count).clamp_min(1e-8)
+    return total / count.clamp_min(1e-8)
+
+
 def cross_entropy_loss(logits: torch.Tensor, target: torch.Tensor,
                        loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean CE over the voxels (the valid ones, under a mask)."""
@@ -82,18 +101,42 @@ def cross_entropy_loss(logits: torch.Tensor, target: torch.Tensor,
     if loss_mask is None:
         return nll.mean()
     m = _voxel_mask(loss_mask, nll.ndim)
-    return (nll * m).sum() / m.sum().clamp_min(1e-8)
+    return _masked_mean((nll * m).sum(), m.sum())
 
 
 def topk_loss(logits: torch.Tensor, target: torch.Tensor, k_percent: float = 10.0,
               loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean CE over the hardest k% of the voxels of the whole batch."""
+    """Mean CE over the hardest k% of the voxels of the whole batch (under a
+    process group, of the global batch: `_global_topk_share`)."""
     nll = _nll(logits, target)
     if loss_mask is not None:
         nll = nll * _voxel_mask(loss_mask, nll.ndim)
     flat = nll.reshape(-1)
+    if mesh.distributed():
+        return _global_topk_share(flat, k_percent)
     k = max(1, int(flat.shape[0] * k_percent / 100))
     return torch.topk(flat, k, sorted=False).values.mean()
+
+
+def _global_topk_share(flat: torch.Tensor, k_percent: float) -> torch.Tensor:
+    """This rank's share of the mean of the k largest values of the global
+    batch (every rank's `flat`, one size on each; k of the global count):
+    the rank's largest values (no gradient) are gathered, the k-th largest
+    of them all is the threshold, and the rank sums its values above it. Ties
+    at the threshold are taken in rank order, lowest rank first (the global
+    batch's row order, which JAX's top_k prefers among equal values), and
+    within a rank as torch.topk picks them."""
+    w = mesh.world()
+    k = max(1, int(flat.shape[0] * w * k_percent / 100))
+    every = mesh.gather_ranks(torch.topk(flat.detach(), min(k, flat.shape[0])).values)
+    threshold = torch.topk(every.reshape(-1), k).values[-1]
+    above, ties = (every > threshold).sum(1), (every == threshold).sum(1)
+    before = ties.cumsum(0) - ties  # ties held by the lower ranks
+    take = above + (k - above.sum() - before).clamp_min(0).minimum(ties)
+    n = int(take[mesh.rank()])
+    if n == 0:
+        return flat.sum() * 0.0
+    return torch.topk(flat, n, sorted=False).values.mean() * (n * w / k)
 
 
 def bce_loss(logits: torch.Tensor, target: torch.Tensor,
@@ -106,7 +149,7 @@ def bce_loss(logits: torch.Tensor, target: torch.Tensor,
     if loss_mask is None:
         return per.mean()
     m = loss_mask.float()
-    return (per * m).sum() / m.sum().clamp_min(1e-8)
+    return _masked_mean((per * m).sum(), m.sum())
 
 
 # --- compound losses ----------------------------------------------------------

@@ -20,11 +20,20 @@ finetuning recipe):
   labels, corrupted per training patch and one-hot into the input, on the
   host pipeline.
 
-The port runs on one device, so JAX's mesh reduces to it: the global batch is
-the plans' batch (JAX's `scale_batch_to_devices` has no counterpart). The
-network computes in the compute dtype (bf16 by default) with fp32 weights;
-augmentation runs in fp32 and the batch is cast before the forward, as in the
-JAX step. Checkpoints are `checkpoint_{latest,best,final}.npz` in the JAX
+On one device JAX's mesh reduces to it: the global batch is the plans'
+batch. Under a process group (`parallel/mesh.py`; `atk_torch_train -num_gpus
+N`), one rank a card, as JAX's multi-host run: the plans' batch scaled up to
+a multiple of the ranks is the global batch, each rank samples its share
+(its oversample fraction, seed + 131071 * rank) through the host pipeline,
+augments it with its rows of the global batch's draws, and its gradients are
+averaged over the ranks before the clip (the losses and BatchNorm take the
+global batch's statistics: training/losses.py, models/layers.py); the
+validation step's loss and counts are summed over the ranks; rank 0 alone
+unpacks, writes the split, logs and checkpoints; the final validation
+predicts `val_keys[rank::world]` on each rank and rank 0 computes the metrics
+after a barrier. The network computes in the compute dtype (bf16 by default)
+with fp32 weights; augmentation runs in fp32 and the batch is cast before the
+forward, as in the JAX step. Checkpoints are `checkpoint_{latest,best,final}.npz` in the JAX
 package's layout (`convert.state_dict_to_jax`, its metadata keys), so both
 packages' predictors read them; the torch optimizer's state rides along under
 `torch_optimizer_state` (arrays) and `torch_optimizer_param_groups`
@@ -60,6 +69,8 @@ from anatomask_torch.data.pipeline import PrefetchPipeline
 from anatomask_torch.data.sampler import PatchSampler
 from anatomask_torch.device import resolve_device
 from anatomask_torch.models.build import build_network_from_plans
+from anatomask_torch.models.layers import BatchNorm
+from anatomask_torch.parallel import mesh
 from anatomask_torch.paths import require
 from anatomask_torch.plans.label_handling import (convert_labelmap_to_one_hot,
                                                   determine_num_input_channels)
@@ -315,6 +326,8 @@ class Trainer:
 
     # --- logging --------------------------------------------------------------
     def print_to_log_file(self, *args, also_print_to_console: bool = True):
+        if mesh.rank() != 0:
+            return
         line = " ".join(str(a) for a in args)
         if also_print_to_console:
             print(line, flush=True)
@@ -343,7 +356,8 @@ class Trainer:
         splits_file = os.path.join(self.preprocessed_dataset_folder_base, "splits_final.json")
         if not os.path.isfile(splits_file):
             splits = generate_crossval_split(all_keys, 5, seed=12345)
-            save_json(splits, splits_file)
+            if mesh.rank() == 0:
+                save_json(splits, splits_file)
         else:
             splits = load_json(splits_file)
         fold = int(self.fold)
@@ -457,14 +471,21 @@ class Trainer:
             ds_scales=tuple(ds_factors), cascade_foreground_labels=cascade_labels)
         self.train_augment = make_train_augment_fn(self.aug_config)
         self.val_transform = make_val_transform_fn(self.val_config)
-        # augmentation draws on the host (the noise field on the device, seeded from it)
+        # augmentation draws on the host (the noise field on the device, seeded from it),
+        # the global batch's on every rank
         self.aug_generator = torch.Generator().manual_seed(cfg.seed + 777)
+        self.global_batch = mesh.global_batch_size(cm.batch_size, mesh.world(),
+                                                   self.print_to_log_file)
+        self.batch_spec = mesh.shard_batch_spec(self.global_batch,
+                                                cfg.oversample_foreground_percent)
+        self._rows = mesh.local_rows(self.global_batch)
 
-        self._save_debug_information()
-        save_json(self.plans_manager.plans, os.path.join(self.output_folder_base, "plans.json"),
-                  sort_keys=False)
-        save_json(self.dataset_json, os.path.join(self.output_folder_base, "dataset.json"),
-                  sort_keys=False)
+        if mesh.rank() == 0:
+            self._save_debug_information()
+            save_json(self.plans_manager.plans,
+                      os.path.join(self.output_folder_base, "plans.json"), sort_keys=False)
+            save_json(self.dataset_json, os.path.join(self.output_folder_base, "dataset.json"),
+                      sort_keys=False)
 
     # --- loss -----------------------------------------------------------------
     def _single_scale_loss(self, logits: torch.Tensor, seg_target: torch.Tensor) -> torch.Tensor:
@@ -514,8 +535,11 @@ class Trainer:
         """One step on a batch on the device (data (B, *sample patch, C), seg
         (B, *sample patch, 1) int): augmentation, forward, loss, backward,
         optax's clip, the optimizer at the step's LR. Returns the loss (no
-        host sync)."""
-        x, targets = self.train_augment(self.aug_generator, data, seg)
+        host sync). Under a process group the batch is this rank's rows of
+        the global batch, the draws the global batch's, and the gradients and
+        the loss returned the ranks' mean (JAX's step over the global batch)."""
+        x, targets = self.train_augment(self.aug_generator, data, seg, rows=self._rows,
+                                        global_batch=self.global_batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss = self._full_loss(self._forward(x), targets)
         loss.backward()
@@ -523,18 +547,21 @@ class Trainer:
         for p in params:  # unread heads get zero gradients, as in JAX
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        loss = mesh.all_reduce_mean_([p.grad for p in params], loss.detach())
         clip_by_global_norm_([p.grad for p in params], self.cfg.grad_clip)
         lr = self._lr_schedule(self.step_counter)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
         self.step_counter += 1
-        return loss.detach()
+        return loss
 
     @torch.no_grad()
     def val_step(self, data: torch.Tensor, seg: torch.Tensor):
         """(loss, tp, fp, fn) of a validation batch: the loss over the heads
-        and the hard Dice counts of the highest-resolution head."""
+        and the hard Dice counts of the highest-resolution head; under a
+        process group the global batch's (the loss the ranks' mean, the
+        counts their sum), in one all-reduce."""
         x, targets = self.val_transform(None, data, seg)
         outputs = self._forward(x)
         loss = self._full_loss(outputs, targets)
@@ -547,6 +574,10 @@ class Trainer:
                                          ignore_label=lm.ignore_label)
         else:
             tp, fp, fn = hard_dice_parts(outputs[0], t, ignore_label=lm.ignore_label)
+        if mesh.distributed():
+            w = mesh.world()
+            summed = mesh.all_reduce_sum(torch.cat([loss.reshape(1).float() / w, tp, fp, fn]))
+            loss, (tp, fp, fn) = summed[0], summed[1:].chunk(3)
         return loss, tp, fp, fn
 
     # --- dataloaders ----------------------------------------------------------
@@ -576,16 +607,17 @@ class Trainer:
         annotated_key = tuple(self.label_manager.all_labels)
         patch = tuple(cm.patch_size)
         sample_patch = self.initial_patch_size if cfg.do_data_augmentation else patch
-        bs, os_pct = cm.batch_size, cfg.oversample_foreground_percent
+        bs, os_pct = self.batch_spec
         has_ignore = self.label_manager.has_ignore_label
+        seed = cfg.seed + 131071 * mesh.rank()
         self.sampler_train = PatchSampler(
             ds_tr, bs, sample_patch, final_patch_size=patch,
             oversample_foreground_percent=os_pct, annotated_classes_key=annotated_key,
             has_ignore=has_ignore, probabilistic_oversampling=cfg.probabilistic_oversampling,
-            seed=cfg.seed, cascade_corruption=prev_folder is not None)
+            seed=seed, cascade_corruption=prev_folder is not None)
         self.sampler_val = PatchSampler(
             ds_val, bs, patch, final_patch_size=patch, oversample_foreground_percent=os_pct,
-            annotated_classes_key=annotated_key, has_ignore=has_ignore, seed=cfg.seed + 1)
+            annotated_classes_key=annotated_key, has_ignore=has_ignore, seed=seed + 1)
         n_workers = (cfg.num_workers if cfg.num_workers is not None
                      else min(4, get_allowed_n_proc_DA()))
         self.loader_train = PrefetchPipeline(
@@ -597,8 +629,9 @@ class Trainer:
         return self.loader_train, self.loader_val
 
     def _setup_device_cache(self, ds_tr, ds_val, sample_patch, patch, annotated_key):
-        """The GPU case cache, where it holds the labels exactly and the
-        stage reads no previous stage; else the host pipeline."""
+        """The GPU case cache, where it holds the labels exactly, the stage
+        reads no previous stage and one process runs; else the host
+        pipeline."""
         from anatomask_torch.data.device_cache import DeviceCaseCache
         self.device_cache_train = self.device_cache_val = None
         cfg, lm = self.cfg, self.label_manager
@@ -609,6 +642,8 @@ class Trainer:
             return
         labels = list(lm.all_labels) + ([lm.ignore_label] if lm.has_ignore_label else [])
         reasons = []
+        if mesh.world() > 1:
+            reasons.append("multi-process run")
         if self.configuration_manager.previous_stage_name is not None:
             reasons.append("cascade stage (prev-stage seg channels)")
         if self.dtype == torch.bfloat16 and max(abs(int(v)) for v in labels) > 256:
@@ -620,7 +655,7 @@ class Trainer:
         common = dict(oversample_foreground_percent=cfg.oversample_foreground_percent,
                       probabilistic_oversampling=cfg.probabilistic_oversampling,
                       annotated_classes_key=annotated_key, has_ignore=lm.has_ignore_label,
-                      batch_size=self.configuration_manager.batch_size, dtype=self.dtype,
+                      batch_size=self.global_batch, dtype=self.dtype,
                       include_seg=True, whole_dataset_mode=True, device=self.device)
         cache = DeviceCaseCache(ds_tr, initial_patch=sample_patch, final_patch=patch,
                                 capacity_mb=cfg.device_cache_mb, seed=cfg.seed + 555, **common)
@@ -717,8 +752,8 @@ class Trainer:
         self._ckpt_thread.start()
 
     def save_checkpoint(self, filename: str):
-        if self.disable_checkpointing:
-            return
+        if self.disable_checkpointing or mesh.rank() != 0:
+            return  # the ranks' weights are identical: rank 0 writes for all
         self._join_ckpt_writer()
         ckpt_lib.save_checkpoint(os.path.join(self.output_folder, filename),
                                  self._checkpoint_arrays(self._snapshot_state()),
@@ -757,8 +792,8 @@ class Trainer:
         batch, put on the device once."""
         cm = self.configuration_manager
         num_in = determine_num_input_channels(self.plans_manager, cm, self.dataset_json)
-        bs = cm.batch_size
-        rs = np.random.RandomState(self.cfg.seed)
+        bs = self.batch_spec[0]
+        rs = np.random.RandomState(self.cfg.seed + 131071 * mesh.rank())
 
         def dummy(spatial):
             data = rs.rand(bs, *spatial, num_in).astype(np.float32)
@@ -782,8 +817,11 @@ class Trainer:
                     self.print_to_log_file(f"resuming from {candidate}")
                     self.load_checkpoint(p)
                     break
-        unpack_dataset(self.preprocessed_dataset_folder,
-                       num_processes=min(4, get_allowed_n_proc_DA()))
+        if mesh.rank() == 0:
+            unpack_dataset(self.preprocessed_dataset_folder,
+                           num_processes=min(4, get_allowed_n_proc_DA()))
+            self.do_split()  # writes splits_final.json where it is missing
+        mesh.barrier()
         self.get_dataloaders()
         cfg = self.cfg
         dummy_batch = dummy_val_batch = None
@@ -856,9 +894,9 @@ class Trainer:
                     cache.stop()
         self.save_checkpoint("checkpoint_final.npz")
         latest = os.path.join(self.output_folder, "checkpoint_latest.npz")
-        if os.path.isfile(latest):
+        if mesh.rank() == 0 and os.path.isfile(latest):
             os.remove(latest)
-        if cfg.benchmark:
+        if cfg.benchmark and mesh.rank() == 0:
             self._write_benchmark_result()
 
     def on_epoch_end(self, epoch: int) -> float:
@@ -887,12 +925,13 @@ class Trainer:
         if is_best:
             self._best_ema = ema
             self.print_to_log_file(f"new best EMA pseudo Dice: {ema:.4f}")
-        if (need_latest or is_best) and not self.disable_checkpointing:
+        if (need_latest or is_best) and not self.disable_checkpointing and mesh.rank() == 0:
             files = [f for f, on in (("checkpoint_latest.npz", need_latest),
                                      ("checkpoint_best.npz", is_best)) if on]
             self._write_checkpoints_async(files, self._snapshot_state(), self._checkpoint_meta())
         t_ckpt = time.time() - t1
-        self.logger.plot_progress_png(self.output_folder)
+        if mesh.rank() == 0:
+            self.logger.plot_progress_png(self.output_folder)
         return t_ckpt
 
     def _write_benchmark_result(self):
@@ -904,7 +943,7 @@ class Trainer:
         out_file = os.path.join(self.output_folder, "benchmark_result.json")
         existing = load_json(out_file) if os.path.isfile(out_file) else {}
         existing[f"{torch.__version__}__{name.replace(' ', '_')}"] = {
-            "torch_version": torch.__version__, "device": name, "num_devices": 1,
+            "torch_version": torch.__version__, "device": name, "num_devices": mesh.world(),
             "fastest_epoch": fastest, "trainer": self.cfg.name}
         save_json(existing, out_file)
 
@@ -916,7 +955,11 @@ class Trainer:
         predictions; then the metrics against the ground truth into
         validation/summary.json. A cascade stage predicts each case with the
         previous stage's one-hot stacked under the data, as nnU-Net does (the
-        JAX trainer leaves it out: ROADMAP.md §3 item 7)."""
+        JAX trainer leaves it out: ROADMAP.md §3 item 7). Under a process
+        group each rank predicts `val_keys[rank::world]` with its batch's own
+        BatchNorm statistics, and rank 0 computes the metrics once every rank
+        has written (a barrier the JAX trainer lacks: ROADMAP.md §3 item 8);
+        the other ranks return None."""
         from anatomask_torch.evaluation.metrics import compute_metrics_on_folder
         from anatomask_torch.inference.export import (export_prediction_from_logits,
                                                       resample_and_save)
@@ -927,15 +970,20 @@ class Trainer:
                               verbose=False, dtype=self.dtype, device=self.device)
         cm, pm = self.configuration_manager, self.plans_manager
         net = self._build_network(deep_supervision=False)
+        for m in net.modules():  # the ranks predict different cases
+            if isinstance(m, BatchNorm):
+                m.cross_rank = False
         predictor.manual_initialization(net, pm, cm, [self.network.state_dict()],
                                         self.dataset_json, self.inference_allowed_mirroring_axes)
         validation_folder = os.path.join(self.output_folder, "validation")
         os.makedirs(validation_folder, exist_ok=True)
         _, val_keys = self.do_split()
+        val_keys = val_keys[mesh.rank()::mesh.world()]
         dataset_val = CaseDataset(self.preprocessed_dataset_folder, val_keys,
                                   self.previous_stage_folder())
         cascade = cm.previous_stage_name is not None
         for k in val_keys:
+            print(f"[validation] rank {mesh.rank()}: predicting {k}", flush=True)
             data, seg, properties = dataset_val.load_case(k)
             data = np.asarray(data)
             if cascade:
@@ -958,6 +1006,9 @@ class Trainer:
                 os.makedirs(out_dir, exist_ok=True)
                 resample_and_save(logits, tgt_shape, os.path.join(out_dir, k + ".npz"), pm, cm,
                                   properties, self.dataset_json)
+        mesh.barrier()
+        if mesh.rank() != 0:
+            return None
         gt_folder = os.path.join(self.preprocessed_dataset_folder_base, "gt_segmentations")
         if not os.path.isdir(gt_folder):
             gt_folder = os.path.join(require("raw"), pm.dataset_name, "labelsTr")

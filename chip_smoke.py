@@ -184,17 +184,40 @@ Phases, each of which raises on a failed check:
    Checked: the plans, every case's predicted_next_stage, the cascade
    network's 3 input channels, its summary.json, every output's raw shape
    and labels, each entry's launches by kernel and variant;
-15. the out-of-memory ladder: one volume at tile batch 2 under a
+15. data parallelism (anatomask_torch/parallel/mesh.py), two gloo ranks
+   sharing the card: the per-rank launch shapes held against the plain
+   versions first (the pretraining microbatch B = 1 and the STUNet-B
+   finetuning step at B = 1, timed; the 32-320 PlainConvUNet at B = 1);
+   then, each at world 1 without a group in this process, at world 2
+   (spawned ranks) and at world 1 over NCCL (one spawned rank, a group of
+   one): 3 AnatoMask steps at full STUNet-B width (global batch 4 in 2
+   microbatches, 2 rows a rank, bf16), the same with the batch-pooled norms
+   and decoder norm "bn", a val step and 2 train steps of
+   STUNetTrainer_base_ft (STUNet-B) and ATKTrainerBN (the 32-320
+   PlainConvUNet with BatchNorm) at 128^3 (global batch 2, batch Dice) on
+   one seeded global batch and draws; checking the ranks' weights and
+   teachers bit-identical after every step, world 2 within DDP_LOSS_RTOL,
+   DDP_WEIGHT_TOL and DDP_COUNT_RTOL of world 1, NCCL world 1 bit-equal to
+   no group, each rank's launches by kernel and variant; then, at world 2,
+   PretrainTrainer.run_pretraining (global batch 2, host pipeline) and a
+   resume, and STUNetTrainer_base_ft's run_training, a resume and
+   perform_actual_validation on the trainer and supervised phases'
+   datasets: checkpoint files written by rank 0 alone, each validation case
+   predicted once (rank r the keys [r::2]), summary.json from rank 0.
+   Printed: step ms a rank and at world 1, the gloo all-reduce of the
+   gradients, peak memory a rank;
+16. the out-of-memory ladder: one volume at tile batch 2 under a
    torch.cuda.set_per_process_memory_fraction cap between the uncapped tile
    batch 1 and 2 peaks: the device-resident path must run out at 2, finish
    at 1, and match the uncapped tile batch 1 logits within 1e-3 relative.
 
 A kernel's time is the median of three runs of back-to-back calls, each
-run timed with CUDA events, after a warm-up call. Each main path (7-14)
+run timed with CUDA events, after a warm-up call. Each main path (7-15)
 runs with the launch counts set to 0 just before it and read just after
-(13: each entry), and every launch it makes must be at a shape that phases
-3 and 4 (and 11's, 12's, 13's and 14's gates) held against the plain version
-(kernel #2's: its path shapes in phase 3); phase 15 runs after that check,
+(13: each entry; 15: each rank's runs), and every launch it makes (15: in
+every rank) must be at a shape that phases 3 and 4 (and 11's to 15's
+gates) held against the plain version (kernel #2's: its path shapes in
+phase 3); phase 16 runs after that check,
 as its tile batch 2 launches at B = 16 on the 4-channel PlainConvUNet.
 Between phases, free_memory collects reference
 cycles and empties the allocator's cache, so that each phase's memory
@@ -205,6 +228,7 @@ lines of standard output are the nvidia-smi line, one JSON object {"kernels": [.
 """
 import copy
 import gc
+import hashlib
 import json
 import math
 import os
@@ -252,6 +276,7 @@ from anatomask_torch.ops.conv3x3 import (HOPPER_TILES, conv3d_3x3, conv3d_3x3_fo
 from anatomask_torch.ops.moments import row_moments, row_moments_forward, row_moments_plain
 from anatomask_torch.ops.zslab_conv import (conv3d_zconcat, conv3d_zslab, conv3d_zslab_forward,
                                             conv3d_zslab_plain)
+from anatomask_torch.parallel import mesh
 from anatomask_torch.plans.plans_handler import PlansManager, load_json, save_json
 from anatomask_torch.preprocessing.preprocessor import save_properties
 from anatomask_torch.preprocessing.resampling import compute_new_shape
@@ -3135,6 +3160,440 @@ def cascade_phase(root, gen, checked, shapes):
     return launches, gate_errs, casc_step, casc_case
 
 
+# --- the ddp phase: data parallelism, world 2 against world 1 -------------------
+
+DDP_WORLD = 2
+DDP_GLOBAL, DDP_ACCUM, DDP_STEPS = 4, 2, 3  # pretraining: 2 rows a rank, microbatches of 1
+DDP_SUP_GLOBAL, DDP_SUP_STEPS = 2, 2        # supervised: 1 row a rank
+DDP_MICRO = DDP_GLOBAL // DDP_ACCUM // DDP_WORLD  # a rank's share of a microbatch
+DDP_PRETRAIN = {"STUNet-B SparK": {},
+                "STUNet-B SparK, batch-pooled norms, decoder bn": dict(
+                    norm_batch_pooled=True, decoder_norm="bn")}
+DDP_SUP = ("STUNetTrainer_base_ft", "ATKTrainerBN")
+DDP_SUP_JSON = {"channel_names": {"0": "CT"}, "labels": {"background": 0, "a": 1, "b": 2},
+                "numTraining": 4, "file_ending": ".nii.gz"}
+# a rank's launches: a pretraining step runs DDP_ACCUM microbatches (teacher
+# and student forward, the student's dx), a supervised step one forward and dx
+DDP_STEP_LAUNCHES = {k: DDP_ACCUM * v for k, v in STEP_LAUNCHES.items()}
+DDP_SUP_LAUNCHES = {"STUNetTrainer_base_ft": SUP_STEP_LAUNCHES,
+                    "ATKTrainerBN": path_launches(plain_sites(1), PLAIN_INFER_NORMS, 1, True)}
+# world 2 against world 1 on the same global batch and draws (bf16; the
+# collectives add the ranks' fp32 sums in another order): the losses
+# relative, every weight within this share of the largest weight. Measured
+# on an H100 (the first run of this phase): losses within 3.4e-4, weights
+# within 1.7e-4 of the largest after 3 pretraining steps (7.6e-5 after 2
+# supervised); the limits hold about 6x that
+DDP_LOSS_RTOL, DDP_WEIGHT_TOL = 2e-3, 1e-3
+# the val step's hard Dice counts on the initial weights, each relative: an
+# untrained net's logits nearly tie, and BatchNorm's statistics summed in
+# another order move the argmax of a few voxels (1.3e-3 measured)
+DDP_COUNT_RTOL = 1e-2
+
+
+def ddp_settings():
+    """The numerics every process of the phase shares: no TF32, cuDNN held to
+    its deterministic algorithms (world 1 with a group must equal world 1
+    without one bit for bit)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+
+
+def digest(t):
+    return hashlib.sha256(t.detach().float().cpu().numpy().tobytes()).hexdigest()
+
+
+def flat_params(module):
+    return torch.cat([p.detach().float().reshape(-1) for p in module.parameters()])
+
+
+def ddp_compare(folder, tag, last, tensors):
+    """After a run's `last` step: the world-1 run (no group) saves the flat
+    tensors; a run in a group returns their largest difference from them."""
+    path = os.path.join(folder, f"{tag}.pt")
+    if not last:
+        return {}
+    if not mesh.distributed():
+        torch.save({k: v.cpu() for k, v in tensors.items()}, path)
+        return {}
+    ref = torch.load(path)
+    return {f"d_{k}": float((v - ref[k].to(v.device)).abs().max()) for k, v in tensors.items()}
+
+
+def ddp_pretrain_run(folder, tag, kw):
+    """DDP_STEPS AnatoMask steps of a full-width STUNet-B SparK (patch
+    112x112x128, bf16, decoder width 512) with `kw`, global batch DDP_GLOBAL
+    in DDP_ACCUM microbatches, on this rank's rows of one seeded global batch
+    and noise; a record of each step and of the run."""
+    cfg = PretrainConfig(grad_accum_steps=DDP_ACCUM, **kw)
+    student = build_spark_model(cfg, device="cuda:0", generator=torch.Generator().manual_seed(0))
+    teacher, optimizer = make_teacher(student), make_optimizer(student)
+    L = math.prod(student.fmap)
+    len_loss = int((L - student.len_keep) * 0.25)
+    gen = torch.Generator().manual_seed(31)
+    x = torch.rand((DDP_GLOBAL, 1, *cfg.patch_size), generator=gen).to(torch.bfloat16)
+    noise = torch.rand((DDP_STEPS, 2, DDP_GLOBAL, L), generator=gen)
+    rows = mesh.local_rows(DDP_GLOBAL, DDP_ACCUM)
+    x = (x if rows is None else x[rows]).to("cuda:0").contiguous(
+        memory_format=torch.channels_last_3d)
+    steps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    for step in range(DDP_STEPS):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, _ = anatomask_train_step(student, teacher, optimizer, x, len_loss,
+                                          noise=noise[step].to("cuda:0"),
+                                          grad_accum_steps=DDP_ACCUM)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = since(before)
+        s, t = flat_params(student), flat_params(teacher)
+        steps.append(dict(loss=loss.item(), ms=ms, launches=n, student=digest(s),
+                          teacher=digest(t), scale=float(s.abs().max()),
+                          **ddp_compare(folder, tag, step == DDP_STEPS - 1,
+                                        {"student": s, "teacher": t})))
+    rec = dict(steps=steps, launches=counts(), peak=torch.cuda.max_memory_allocated())
+    if mesh.distributed():  # the gradients' all-reduce alone, as the step makes it
+        grads = torch.cat([p.grad.reshape(-1) for p in student.parameters()])
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.distributed.all_reduce(grads)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        rec.update(allreduce_ms=statistics.median(times), allreduce_bytes=grads.numel() * 4)
+    return rec
+
+
+def ddp_sup_batches(patch, spatial, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn((DDP_SUP_GLOBAL, *spatial, 1), generator=gen),
+            torch.randint(0, 3, (DDP_SUP_GLOBAL, *spatial, 1), generator=gen).to(torch.int16))
+
+
+def ddp_sup_run(folder, preset):
+    """One Trainer.val_step of `preset` (bf16, the supervised phase's 128^3
+    plans: STUNet-B for STUNetTrainer_base_ft, the 32-320 PlainConvUNet with
+    BatchNorm for ATKTrainerBN; batch Dice) on the initial weights, then
+    DDP_SUP_STEPS train_steps, each on this rank's rows of a seeded global
+    batch of DDP_SUP_GLOBAL."""
+    out = os.path.join(folder, f"{preset}-{mesh.world()}-{mesh.distributed()}")
+    t = Trainer(supervised_plans(), "3d_fullres", 0, DDP_SUP_JSON, get_trainer_config(preset),
+                output_folder=out, preprocessed_dataset_folder_base=out, device="cuda:0")
+    t.initialize()
+    rows = mesh.local_rows(DDP_SUP_GLOBAL)
+    data, seg = ddp_sup_batches(PATCH, PATCH, 50)
+    if rows is not None:
+        data, seg = data[rows], seg[rows]
+    val = [v.float().cpu().reshape(-1).tolist() for v in t.val_step(data.to("cuda:0"),
+                                                                     seg.to("cuda:0"))]
+    steps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    for step in range(DDP_SUP_STEPS):
+        data, seg = ddp_sup_batches(PATCH, t.initial_patch_size, 40 + step)
+        if rows is not None:
+            data, seg = data[rows], seg[rows]
+        data, seg = data.to("cuda:0"), seg.to("cuda:0")
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = t.train_step(data, seg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = since(before)
+        w = flat_params(t.network)
+        steps.append(dict(loss=loss.item(), ms=ms, launches=n, weights=digest(w),
+                          scale=float(w.abs().max()),
+                          **ddp_compare(folder, preset, step == DDP_SUP_STEPS - 1,
+                                        {"weights": w})))
+    return dict(steps=steps, peak=torch.cuda.max_memory_allocated(), val=val)
+
+
+def ddp_trainer_runs(root):
+    """run_pretraining and run_training at world 2 on the pretraining and
+    supervised datasets of the phases above (written into `root` first by the
+    parent): a PretrainTrainer run (global batch 2, 1 epoch x 2 iterations,
+    host pipeline) and its resume (1 epoch x 1 iteration); a
+    STUNetTrainer_base_ft run (1 epoch x 2 iterations + 1 validation
+    iteration) and its resume, then perform_actual_validation. Records which
+    rank wrote which checkpoint file and which validation cases each rank
+    predicted."""
+    wrote, predicted = [], []
+    save_pt, save_npz = ckpt_mod.save_trainer_checkpoint, ckpt_mod.save_checkpoint
+    from anatomask_torch.inference import export as export_mod
+    export = export_mod.export_prediction_from_logits
+
+    def record_pt(path, *a, **kw):
+        wrote.append(os.path.basename(path))
+        return save_pt(path, *a, **kw)
+
+    def record_npz(path, *a, **kw):
+        wrote.append(os.path.basename(path))
+        return save_npz(path, *a, **kw)
+
+    def record_export(logits, props, cm, pm, dj, out, *a, **kw):
+        predicted.append(os.path.basename(out))
+        return export(logits, props, cm, pm, dj, out, *a, **kw)
+
+    ckpt_mod.save_trainer_checkpoint, ckpt_mod.save_checkpoint = record_pt, record_npz
+    export_mod.export_prediction_from_logits = record_export
+    try:
+        for which in ("preprocessed", "results"):
+            os.environ[f"ATK_{which}"] = os.path.join(root, which)
+        zero_counts()
+        cfg = PretrainConfig(batch_size=2, grad_accum_steps=1, num_epochs=1, iters_per_epoch=2,
+                             num_workers=2)
+        out = os.path.join(root, "results", "ddp-pretrain")
+        first = PretrainTrainer(TRAINER_DATASET, cfg, device="cuda:0", output_folder=out)
+        h1 = first.run_pretraining()
+        mesh.barrier()
+        again = PretrainTrainer(TRAINER_DATASET, replace(cfg, num_epochs=2, iters_per_epoch=1),
+                                device="cuda:0", output_folder=out)
+        h2 = again.run_pretraining(continue_training=True)
+        pretrain = dict(history=[h1, h2], resumed=[e["epoch"] for e in again.epoch_timings],
+                        micro=again.grad_accum_steps, batch=again.sampler_train.batch_size,
+                        launches=counts())
+        mesh.barrier()
+        zero_counts()
+        plans_file = os.path.join(root, "preprocessed", SUP_DATASET, "ATKPlans.json")
+        scfg = replace(get_trainer_config("STUNetTrainer_base_ft"), num_epochs=1,
+                       num_iterations_per_epoch=2, num_val_iterations_per_epoch=1, save_every=1,
+                       num_workers=2)
+        sout = os.path.join(root, "results", "ddp-finetune")
+        t = Trainer(plans_file, "3d_fullres", 0, DDP_SUP_JSON, scfg, output_folder=sout,
+                    device="cuda:0")
+        t.run_training()
+        mesh.barrier()
+        t2 = Trainer(plans_file, "3d_fullres", 0, DDP_SUP_JSON, replace(scfg, num_epochs=2),
+                     output_folder=sout, device="cuda:0")
+        t2.run_training(continue_training=True)
+        metrics = t2.perform_actual_validation()
+        finetune = dict(losses=t2.logger.logging["train_losses"],
+                        resumed=[e["epoch"] for e in t2.epoch_timings],
+                        summary=None if metrics is None else metrics["foreground_mean"]["Dice"],
+                        val_keys=t2.do_split()[1], launches=counts())
+    finally:
+        ckpt_mod.save_trainer_checkpoint, ckpt_mod.save_checkpoint = save_pt, save_npz
+        export_mod.export_prediction_from_logits = export
+    return dict(pretrain=pretrain, finetune=finetune, wrote=wrote, predicted=predicted)
+
+
+def ddp_rank_main(folder, root, nccl_world1):
+    """The ranks' body (spawned by ddp_phase through parallel/mesh.py
+    launch): the pretraining and supervised runs, then (at world 2) the
+    trainer runs; every kernel launch shape recorded; the record into
+    <folder>/rank<r>[-nccl].json."""
+    ddp_settings()
+    for name in ("conv3x3", "moments", "zslab_conv"):
+        _build.load(name)
+    shapes = LaunchShapes()
+    rec = {"pretrain": {label: ddp_pretrain_run(folder, f"pretrain{i}", kw)
+                        for i, (label, kw) in enumerate(DDP_PRETRAIN.items())},
+           "supervised": {p: ddp_sup_run(folder, p) for p in DDP_SUP}}
+    free_memory()
+    if not nccl_world1:
+        rec["trainers"] = ddp_trainer_runs(root)
+    rec["shapes"] = {k: sorted(getattr(shapes, k)) for k in ("conv", "zslab", "moments")}
+    rec["backend"] = torch.distributed.get_backend()
+    with open(os.path.join(folder, f"rank{mesh.rank()}{'-nccl' if nccl_world1 else ''}.json"),
+              "w") as f:
+        json.dump(rec, f)
+
+
+def ddp_gate_phase(gen, checked):
+    """The launch shapes of a rank's steps, against the plain versions with
+    gate_path's gates, before the ranks run them: the pretraining step at a
+    rank's microbatch B = 1 (its two microbatches, timed), the STUNet-B
+    finetuning step at B = 1 (timed), the 32-320 PlainConvUNet step at B = 1
+    (checked only). Returns per kernel (max abs err, max rel err) and the
+    totals of one rank's pretraining step and STUNet-B step."""
+    errs = {k: [0.0, 0.0] for k in ("conv3x3", "zslab", "moments")}
+    stem = "enc0.conv1"
+    t = gate_path("ddp", SITES, PRETRAIN_NORMS, DDP_MICRO, gen, errs, checked, True, stem)
+    pre = step_totals(t, SITES, PRETRAIN_NORMS, DDP_MICRO, lambda n: 2 * DDP_ACCUM,
+                      lambda n: DDP_ACCUM * int(n != stem))
+    print_totals("ddp", f"one rank's pretraining step ({DDP_ACCUM} microbatches at B="
+                        f"{DDP_MICRO})", pre)
+    t = gate_path("ddp", INFER_SITES, INFER_NORMS, 1, gen, errs, checked, True, stem)
+    sup = step_totals(t, INFER_SITES, INFER_NORMS, 1, lambda n: 1, lambda n: int(n != stem))
+    print_totals("ddp", "one rank's STUNet-B finetuning step at B=1", sup)
+    gate_path("ddp", plain_sites(1), PLAIN_INFER_NORMS, 1, gen, errs, checked, False,
+              "enc0.conv0")
+    return errs, pre, sup
+
+
+def ddp_check_pair(label, got, want, keys):
+    """A rank against world 1: each step's loss within DDP_LOSS_RTOL, the
+    weights (keys) after the last within DDP_WEIGHT_TOL of the largest."""
+    for s, (g, w) in enumerate(zip(got["steps"], want["steps"])):
+        rel = abs(g["loss"] - w["loss"]) / abs(w["loss"])
+        check(math.isfinite(g["loss"]) and rel <= DDP_LOSS_RTOL,
+              f"{label} step {s}: loss {g['loss']} against world 1's {w['loss']}")
+    g, w = got["steps"][-1], want["steps"][-1]
+    for k in keys:
+        check(g[f"d_{k}"] <= DDP_WEIGHT_TOL * w["scale"],
+              f"{label}: {k} {g[f'd_{k}']} from world 1's after the last step (largest "
+              f"{w['scale']})")
+
+
+def ddp_phase(root, gen, checked, shapes):
+    """Data parallelism on the card (parallel/mesh.py), two ranks sharing it
+    over gloo: the AnatoMask step at full STUNet-B width (global batch 4, 2
+    a rank, 2 microbatches, bf16, 3 steps), the same with the batch-pooled
+    norms and decoder norm "bn", and 2 supervised steps of
+    STUNetTrainer_base_ft and ATKTrainerBN (global batch 2, 1 a rank, batch
+    Dice) each against world 1 without a group on the same global batch and
+    draws; the ranks' weights and teachers bit-identical after every step;
+    world 1 over NCCL (a group of one on the card) bit-equal to world 1
+    without a group; then a PretrainTrainer and a Trainer run at world 2 with
+    a resume and the final validation. Returns the launches of the ranks' runs
+    and the kernel errors and totals of ddp_gate_phase."""
+    with shapes.paused():
+        errs, pre_tot, sup_tot = ddp_gate_phase(gen, checked)
+    free_memory()
+    folder = os.path.join(root, "records")
+    os.makedirs(folder)
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    ddp_settings()
+    t0 = time.perf_counter()
+    one = {"pretrain": {label: ddp_pretrain_run(folder, f"pretrain{i}", kw)
+                        for i, (label, kw) in enumerate(DDP_PRETRAIN.items())},
+           "supervised": {p: ddp_sup_run(folder, p) for p in DDP_SUP}}
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    free_memory()
+    print(f"[ddp] world 1 without a group: {time.perf_counter() - t0:.1f} s")
+    write_trainer_dataset(root)
+    write_supervised_dataset(root)
+    t0 = time.perf_counter()
+    mesh.launch(ddp_rank_main, DDP_WORLD, "cuda:0", folder, root, False, backend="gloo")
+    t_gloo = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh.launch(ddp_rank_main, 1, "cuda:0", folder, root, True, backend="nccl")
+    t_nccl = time.perf_counter() - t0
+    ranks = []
+    for r in range(DDP_WORLD):
+        with open(os.path.join(folder, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    with open(os.path.join(folder, "rank0-nccl.json")) as f:
+        nccl = json.load(f)
+    check([r["backend"] for r in ranks] == ["gloo"] * DDP_WORLD and nccl["backend"] == "nccl",
+          f"backends {[r['backend'] for r in ranks]}, {nccl['backend']}")
+    print(f"[ddp] {DDP_WORLD} gloo ranks on one card: {t_gloo:.1f} s of processes; one NCCL "
+          f"rank: {t_nccl:.1f} s")
+    launches = dict.fromkeys(COUNT_KEYS, 0)
+    for r in (*ranks, nccl):
+        for kind in ("pretrain", "supervised"):
+            for run in r[kind].values():
+                for s in run["steps"]:
+                    for k in COUNT_KEYS:
+                        launches[k] += s["launches"][k]
+        if "trainers" in r:
+            for run in ("pretrain", "finetune"):
+                for k in COUNT_KEYS:
+                    launches[k] += r["trainers"][run]["launches"][k]
+        for k in ("conv", "zslab", "moments"):
+            getattr(shapes, k).update(tuple(v) for v in r["shapes"][k])
+
+    for label, want in one["pretrain"].items():
+        got = [r["pretrain"][label] for r in ranks]
+        for s in range(DDP_STEPS):
+            check(len({g["steps"][s]["student"] for g in got}) == 1
+                  and len({g["steps"][s]["teacher"] for g in got}) == 1,
+                  f"{label} step {s}: the ranks' weights or teachers differ")
+            check(all(g["steps"][s]["launches"] == DDP_STEP_LAUNCHES for g in got),
+                  f"{label} step {s}: launches {[g['steps'][s]['launches'] for g in got]}, "
+                  f"expected {DDP_STEP_LAUNCHES} a rank")
+        for g in got:
+            ddp_check_pair(label, g, want, ("student", "teacher"))
+        n = nccl["pretrain"][label]
+        check(all(a["loss"] == b["loss"] and a["student"] == b["student"]
+                  and a["teacher"] == b["teacher"] for a, b in zip(n["steps"], want["steps"]))
+              and n["steps"][-1]["d_student"] == 0 == n["steps"][-1]["d_teacher"],
+              f"{label}: world 1 over NCCL is not bit-equal to world 1 without a group")
+        print(f"[ddp] {label}, global batch {DDP_GLOBAL} in {DDP_ACCUM} microbatches, "
+              f"{DDP_GLOBAL // DDP_WORLD} rows a rank, bf16: losses world 1 "
+              f"{[s['loss'] for s in want['steps']]}, world 2 "
+              f"{[s['loss'] for s in got[0]['steps']]}; largest weight difference from world "
+              f"1 after {DDP_STEPS} steps {[g['steps'][-1]['d_student'] for g in got]} "
+              f"(student), {[g['steps'][-1]['d_teacher'] for g in got]} (teacher), largest weight "
+              f"{want['steps'][-1]['scale']}; the ranks bit-identical after every step; NCCL "
+              f"world 1 bit-equal to no group")
+        print(f"[ddp] {label}: step ms world 1 {[round(s['ms'], 1) for s in want['steps']]}, "
+              f"a rank at world 2 {[[round(s['ms'], 1) for s in g['steps']] for g in got]}, "
+              f"NCCL world 1 {[round(s['ms'], 1) for s in n['steps']]}; gloo all-reduce of "
+              f"{got[0]['allreduce_bytes']} bytes of gradients {got[0]['allreduce_ms']:.1f} ms "
+              f"(NCCL world 1 {n['allreduce_ms']:.3f} ms); peak memory a rank "
+              f"{[round(g['peak'] / 2**30, 2) for g in got]} GiB (world 1 "
+              f"{want['peak'] / 2**30:.2f}); launches a rank a step "
+              f"{got[0]['steps'][0]['launches']}")
+    for preset, want in one["supervised"].items():
+        got = [r["supervised"][preset] for r in ranks]
+        for s in range(DDP_SUP_STEPS):
+            check(len({g["steps"][s]["weights"] for g in got}) == 1,
+                  f"{preset} step {s}: the ranks' weights differ")
+            check(all(g["steps"][s]["launches"] == DDP_SUP_LAUNCHES[preset] for g in got),
+                  f"{preset} step {s}: launches {[g['steps'][s]['launches'] for g in got]}")
+        for g in got:
+            ddp_check_pair(preset, g, want, ("weights",))
+            loss, counts_ = g["val"][0][0], g["val"][1:]
+            check(abs(loss - want["val"][0][0]) <= DDP_LOSS_RTOL * abs(want["val"][0][0])
+                  and all(abs(a - b) <= DDP_COUNT_RTOL * b for x, y in zip(counts_, want["val"][1:])
+                          for a, b in zip(x, y)),
+                  f"{preset}: val loss and counts {g['val']} against world 1's {want['val']}")
+        n = nccl["supervised"][preset]
+        check(all(a["loss"] == b["loss"] and a["weights"] == b["weights"]
+                  for a, b in zip(n["steps"], want["steps"])) and n["val"] == want["val"],
+              f"{preset}: world 1 over NCCL is not bit-equal to world 1 without a group")
+        print(f"[ddp] {preset}, global batch {DDP_SUP_GLOBAL}, 1 row a rank, bf16: losses world "
+              f"1 {[s['loss'] for s in want['steps']]}, world 2 "
+              f"{[s['loss'] for s in got[0]['steps']]}; largest weight difference after "
+              f"{DDP_SUP_STEPS} steps {[g['steps'][-1]['d_weights'] for g in got]} (largest weight "
+              f"{want['steps'][-1]['scale']}); val loss {got[0]['val'][0]} (world 1 "
+              f"{want['val'][0]}), counts {got[0]['val'][1:]} (world 1 {want['val'][1:]}); "
+              f"step ms world 1 {[round(s['ms'], 1) for s in want['steps']]}, a rank "
+              f"{[[round(s['ms'], 1) for s in g['steps']] for g in got]}; peak a rank "
+              f"{[round(g['peak'] / 2**30, 2) for g in got]} GiB (world 1 "
+              f"{want['peak'] / 2**30:.2f}); NCCL world 1 bit-equal")
+
+    tr = [r["trainers"] for r in ranks]
+    check(all(math.isfinite(v) for t in tr for h in t["pretrain"]["history"] for k in h
+              for v in h[k]) and all(t["pretrain"]["resumed"] == [1] for t in tr)
+          and all(t["pretrain"]["batch"] == 1 and t["pretrain"]["micro"] == 1 for t in tr),
+          f"PretrainTrainer at world 2: {[t['pretrain'] for t in tr]}")
+    check(tr[0]["wrote"] and not tr[1]["wrote"],
+          f"checkpoint writers: rank 0 {tr[0]['wrote']}, rank 1 {tr[1]['wrote']}")
+    keys = tr[0]["finetune"]["val_keys"]
+    check(sorted(tr[0]["predicted"] + tr[1]["predicted"]) == sorted(keys)
+          and tr[0]["predicted"] == keys[0::2] and tr[1]["predicted"] == keys[1::2],
+          f"validation cases: rank 0 {tr[0]['predicted']}, rank 1 {tr[1]['predicted']}, "
+          f"of {keys}")
+    summary = os.path.join(root, "results", "ddp-finetune", "fold_0", "validation",
+                           "summary.json")
+    check(os.path.isfile(summary) and tr[1]["finetune"]["summary"] is None
+          and math.isfinite(tr[0]["finetune"]["summary"]),
+          f"summary.json {os.path.isfile(summary)}, ranks' metrics "
+          f"{[t['finetune']['summary'] for t in tr]}")
+    check(all(t["finetune"]["resumed"] == [1] for t in tr), "the finetuning resume")
+    for t in tr:
+        for run in ("pretrain", "finetune"):
+            check(all(t[run]["launches"][k] > 0 for k in ("conv3x3.hopper", "zslab.hopper",
+                                                          "moments")),
+                  f"{run} at world 2 launched {t[run]['launches']}")
+    print(f"[ddp] trainers at world 2: PretrainTrainer losses {tr[0]['pretrain']['history']}, "
+          f"resumed epochs {tr[0]['pretrain']['resumed']}; STUNetTrainer_base_ft train losses "
+          f"{tr[0]['finetune']['losses']}, resumed {tr[0]['finetune']['resumed']}; checkpoint "
+          f"files written by rank 0 {tr[0]['wrote']}, by rank 1 {tr[1]['wrote']}; validation "
+          f"cases rank 0 {tr[0]['predicted']}, rank 1 {tr[1]['predicted']}; summary.json from "
+          f"rank 0, mean Dice {tr[0]['finetune']['summary']}; launches {launches}")
+    return launches, errs, pre_tot, sup_tot
+
+
 def kernel_record(name, source, replaces, launches_by_path, max_abs, max_rel, totals_by_path,
                   per, launches_by_variant=None):
     """totals_by_path: {path: TOTAL_KEYS totals}; launches_by_path: {path:
@@ -3252,6 +3711,14 @@ def main():
     zc_err, zc_rel = max(zc_err, casc_errs["zslab"][0]), max(zc_rel, casc_errs["zslab"][1])
     mom_err, mom_rel = max(mom_err, casc_errs["moments"][0]), max(mom_rel,
                                                                   casc_errs["moments"][1])
+    with tempfile.TemporaryDirectory() as root:
+        ddp_launches, ddp_errs, ddp_pre, ddp_sup = ddp_phase(root, gen, checked, shapes)
+    free_memory()
+    conv_err, conv_rel = max(conv_err, ddp_errs["conv3x3"][0]), max(conv_rel,
+                                                                     ddp_errs["conv3x3"][1])
+    zc_err, zc_rel = max(zc_err, ddp_errs["zslab"][0]), max(zc_rel, ddp_errs["zslab"][1])
+    mom_err, mom_rel = max(mom_err, ddp_errs["moments"][0]), max(mom_rel,
+                                                                 ddp_errs["moments"][1])
     for label, seen in (("conv3x3", shapes.conv), ("zslab", shapes.zslab),
                         ("moments", shapes.moments)):
         check(seen <= checked[label],
@@ -3264,7 +3731,7 @@ def main():
             "files": files, "supervised": supervised, "plain_trainer": plain_trainer,
             "da5_trainer": da5_trainer, "pretrain_h": h_pretrain,
             "pretrain_h_trainer": h_trainer, "finetune_h": h_finetune, "cli": cli_launches,
-            "cascade": casc_launches}
+            "cascade": casc_launches, "ddp": ddp_launches}
     per = ("one pretraining step (B = 4), one inference volume (18 STUNet-B tiles at B = 8), "
            f"one case of the file path ({case_tiles} PlainConvUNet tiles at B = 8), one "
            "STUNet-B finetuning step and one ATKTrainer PlainConvUNet step (B = 2), one "
@@ -3280,8 +3747,11 @@ def main():
            "supervised runs' (training, resume, final validation, checkpoint round trip, bare "
            "steps), the ATKTrainer steps', the H phases' (bare, profiled and ride-along "
            "steps; the H trainer's two runs; the H finetuning steps), the ATKTrainerDA5 steps', "
-           "the command line's (every entry, and the installed model's check) and the cascade's "
-           "(every entry) too")
+           "the command line's (every entry, and the installed model's check), the cascade's "
+           "(every entry) and the ddp phase's (every rank's steps and trainer runs, at world 2 "
+           "over gloo and at world 1 over NCCL) too; ddp_pretrain_rank_step is one rank's "
+           f"pretraining step at world {DDP_WORLD} ({DDP_ACCUM} microbatches at B = "
+           f"{DDP_MICRO}), ddp_supervised_rank_step one rank's STUNet-B finetuning step (B = 1)")
 
     def case(tile):  # one PlainConvUNet tile's totals -> one case's
         return {k: case_tiles * v for k, v in tile.items()}
@@ -3299,7 +3769,8 @@ def main():
          "supervised_step": sup_step["zslab"], "plain_trainer_step": plain_step["zslab"],
          "pretrain_h_step": h_step["zslab"], "finetune_h_step": h_sup["zslab"],
          "cli_plain_step": cli_step["zslab"], "cli_case": cli_case["zslab"],
-         "cascade_step": casc_step["zslab"], "cascade_case": casc_case["zslab"]},
+         "cascade_step": casc_step["zslab"], "cascade_case": casc_case["zslab"],
+         "ddp_pretrain_rank_step": ddp_pre["zslab"], "ddp_supervised_rank_step": ddp_sup["zslab"]},
         per + "; the main paths' per-tap forwards through conv3d_zconcat", by_variant("zslab"))
     zslab_record["probe"] = {"launches_by_variant": zs_variants, **{
         k: zs_probe[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -3313,7 +3784,8 @@ def main():
          "plain_trainer_step": plain_step["moments"], "pretrain_h_step": h_step["moments"],
          "finetune_h_step": h_sup["moments"], "cli_plain_step": cli_step["moments"],
          "cli_case": cli_case["moments"], "cascade_step": casc_step["moments"],
-         "cascade_case": casc_case["moments"]},
+         "cascade_case": casc_case["moments"], "ddp_pretrain_rank_step": ddp_pre["moments"],
+         "ddp_supervised_rank_step": ddp_sup["moments"]},
         per + "; ms is the call (host and device, CUDA events), device_ms the kernel "
         "(torch.profiler)")
     case_dev = None if mom_tile[1] is None else case_tiles * mom_tile[1]
@@ -3332,7 +3804,9 @@ def main():
                        "pretrain_h_step": h_step["conv3x3"], "finetune_h_step": h_sup["conv3x3"],
                        "cli_plain_step": cli_step["conv3x3"], "cli_case": cli_case["conv3x3"],
                        "cascade_step": casc_step["conv3x3"],
-                       "cascade_case": casc_case["conv3x3"]},
+                       "cascade_case": casc_case["conv3x3"],
+                       "ddp_pretrain_rank_step": ddp_pre["conv3x3"],
+                       "ddp_supervised_rank_step": ddp_sup["conv3x3"]},
                       per,
                       by_variant("conv3x3")),
         moments_record,

@@ -5,8 +5,9 @@ from a raw dataset to a configuration choice (plan_and_preprocess -> train
 two folds of ATKTrainer_1epoch on shrunk plans -> predict -> evaluate ->
 ensemble -> find_best_configuration -> apply_postprocessing), the CLI's
 predictions against the Predictor API's on the same folds, pretrain ->
-train -pretrained_weights with the encoder transferred, and the refusals
-(-num_gpus 2; the default CUDA device without one)."""
+train -pretrained_weights with the encoder transferred, training in 2 gloo
+ranks (-num_gpus 2 -device cpu), and the refusals (-num_gpus 2 without two
+cards; the default CUDA device without one)."""
 import argparse
 import importlib
 import json
@@ -67,7 +68,12 @@ def test_entry_options_match_jax(name, monkeypatch):
     ("pretrain", ["1", "-num_gpus", "2"]),
 ])
 def test_more_than_one_gpu_raises(entry, argv):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    """-num_gpus above the visible cards on the default CUDA device raises
+    with the count of visible cards: two ranks never share a card."""
+    visible = torch.cuda.device_count()
+    if visible >= 2:
+        pytest.skip("checks the refusal on a machine with fewer than two CUDA cards")
+    with pytest.raises(RuntimeError, match=f"2 ranks asked for and {visible} CUDA device"):
         getattr(cli, f"{entry}_entry")(argv)
 
 
@@ -251,3 +257,30 @@ def test_train_folder_named_after_tr_unlike_jax(tr, jax_name, planned, tmp_path,
     cli.train_entry(argv + ["-device", "cpu"])
     assert seen["jax"] == (f"{jax_name}__ATKPlans__3d_fullres", jax_name, True)
     assert seen["port"] == (f"{tr}__ATKPlans__3d_fullres", tr, True)
+
+
+def test_train_in_two_gloo_ranks(planned, tmp_path, monkeypatch, capfd):
+    """-num_gpus 2 -device cpu: two spawned gloo ranks train fold all, rank 0
+    writes the checkpoints (best, then final; no leftover latest), each validation case is predicted
+    once (rank r the keys [r::2]), and rank 0 writes summary.json."""
+    dirs, _ = _copy_planned(planned, tmp_path, monkeypatch)
+    tr = "ATKTrainer_1epoch"
+    cli.train_entry(["965", "3d_fullres", "all", "-tr", tr, "-device", "cpu", "-num_gpus", "2"])
+    fold = os.path.join(dirs["results"], DATASET, f"{tr}__ATKPlans__3d_fullres", "fold_all")
+    assert sorted(f for f in os.listdir(fold) if f.startswith("checkpoint")) == [
+        "checkpoint_best.npz", "checkpoint_final.npz"]
+    keys = sorted(f[:-4] for f in os.listdir(os.path.join(
+        dirs["preprocessed"], DATASET, "ATKPlans_3d_fullres")) if f.endswith(".npz")
+        and not f.endswith(".props.npz"))
+    lines = [ln for ln in capfd.readouterr().out.splitlines() if "predicting" in ln]
+    assert sorted(lines) == sorted(f"[validation] rank {i % 2}: predicting {k}"
+                                   for i, k in enumerate(keys))
+    validation = os.path.join(fold, "validation")
+    assert sorted(f for f in os.listdir(validation) if f.endswith(".nii.gz")) == [
+        k + ".nii.gz" for k in keys]
+    with open(os.path.join(validation, "summary.json")) as f:
+        summary = json.load(f)
+    assert np.isfinite(summary["foreground_mean"]["Dice"])
+    # rank 0's metrics read rank 1's predictions too (after the barrier)
+    assert sorted(os.path.basename(c["prediction_file"]) for c in summary["metric_per_case"]) == [
+        k + ".nii.gz" for k in keys]

@@ -55,7 +55,8 @@ def test_package_has_the_mirrored_modules():
                 "planning.topology", "planning.fingerprint", "planning.verify_integrity",
                 "planning.planner", "planning.move_plans", "postprocessing.components",
                 "ensembling.ensemble", "evaluation.find_best_configuration",
-                "utils.model_sharing", "dataset_conversion.generate_dataset_json", "cli"):
+                "utils.model_sharing", "dataset_conversion.generate_dataset_json", "cli",
+                "parallel.mesh"):
         assert f"anatomask_torch.{mod}" in names
 
 
