@@ -12,9 +12,6 @@ What differs from the JAX entries:
   spawned processes of one group (`parallel/mesh.py` `launch`): NCCL, a card
   each; with `-device cpu`, gloo ranks on the CPU;
 - `predict -compute_dtype` maps to torch.bfloat16 / torch.float32.
-
-The dataset converters (`convert_msd`, `convert_challenge`) and
-`plot_overlay_pngs` have no entry here yet.
 """
 from __future__ import annotations
 
@@ -392,6 +389,89 @@ def move_plans_entry(argv: Optional[List[str]] = None):
     a = p.parse_args(argv)
     from anatomask_torch.planning.move_plans import move_plans_between_datasets
     move_plans_between_datasets(a.s, a.t, a.sp, a.tp)
+
+
+def convert_msd_entry(argv: Optional[List[str]] = None):
+    p = argparse.ArgumentParser("atk_torch_convert_msd")
+    p.add_argument("-i", required=True, help="MSD TaskXX_Name folder")
+    p.add_argument("-overwrite_id", type=int, default=None)
+    p.add_argument("-np", type=int, default=4)
+    a = p.parse_args(argv)
+    from anatomask_torch.dataset_conversion.convert_msd import convert_msd_dataset
+    convert_msd_dataset(a.i, a.overwrite_id, a.np)
+
+
+def convert_challenge_entry(argv: Optional[List[str]] = None):
+    """Challenge dataset converters (nnU-Net's Dataset*_*.py scripts)."""
+    p = argparse.ArgumentParser("atk_torch_convert_challenge")
+    sub = p.add_subparsers(dest="task", required=True)
+    for task, default_id in (("kits23", 220), ("amos1", 218), ("amos2", 219),
+                             ("autopet", 221), ("emidec", 115),
+                             ("fluo_c3dh", 73), ("roads", 120)):
+        sp = sub.add_parser(task)
+        sp.add_argument("input_folder")
+        sp.add_argument("-d", type=int, default=default_id)
+        if task in ("emidec", "fluo_c3dh"):
+            sp.add_argument("-t", dest="test_dir", default=None)
+    sp = sub.add_parser("mnms")
+    sp.add_argument("input_folder")
+    sp.add_argument("-csv", default="211230_M&Ms_Dataset_information_diagnosis_opendataset.csv")
+    sp.add_argument("-d", type=int, default=114)
+    sp.add_argument("--custom_splits", action="store_true",
+                    help="append vendor-stratified custom splits (run after "
+                         "plan+preprocess created splits_final.json)")
+    sp = sub.add_parser("old_nnunet")
+    sp.add_argument("input_folder")
+    sp.add_argument("output_dataset_name")
+    sp = sub.add_parser("acdc")
+    sp.add_argument("input_folder")
+    sp.add_argument("-d", type=int, default=27)
+    sp = sub.add_parser("brats_regions")
+    sp.add_argument("input_folder")
+    sp.add_argument("-d", type=int, default=137)
+    sp.add_argument("--no_regions", action="store_true",
+                    help="plain 3-class labels instead of BraTS regions")
+    sp = sub.add_parser("brats_convert_back",
+                        help="convert predictions back to the BraTS labeling "
+                             "convention for submission")
+    sp.add_argument("input_folder")
+    sp.add_argument("output_folder")
+    a = p.parse_args(argv)
+    from anatomask_torch.dataset_conversion import convert_challenges as cc
+    from anatomask_torch.dataset_conversion.convert_acdc import convert_acdc_dataset
+    from anatomask_torch.dataset_conversion.convert_brats import (convert_brats_dataset,
+                                                                  convert_folder_back_to_brats)
+    calls = {
+        "kits23": lambda: cc.convert_kits2023(a.input_folder, a.d),
+        "amos1": lambda: cc.convert_amos_task1(a.input_folder, a.d),
+        "amos2": lambda: cc.convert_amos_task2(a.input_folder, a.d),
+        "autopet": lambda: cc.convert_autopet(a.input_folder, a.d),
+        "emidec": lambda: cc.convert_emidec(a.input_folder, a.test_dir, a.d),
+        "fluo_c3dh": lambda: cc.convert_fluo_c3dh_a549_sim(a.input_folder, a.test_dir, a.d),
+        "roads": lambda: cc.convert_road_segmentation(a.input_folder, a.d),
+        "mnms": lambda: (cc.create_mnms_custom_splits if a.custom_splits
+                         else cc.convert_mnms)(a.input_folder, a.csv, a.d),
+        "old_nnunet": lambda: cc.convert_old_nnunet_dataset(a.input_folder,
+                                                            a.output_dataset_name),
+        "acdc": lambda: convert_acdc_dataset(a.input_folder, a.d),
+        "brats_regions": lambda: convert_brats_dataset(a.input_folder, a.d,
+                                                       use_regions=not a.no_regions),
+        "brats_convert_back": lambda: convert_folder_back_to_brats(a.input_folder,
+                                                                   a.output_folder),
+    }
+    calls[a.task]()
+
+
+def plot_overlay_pngs_entry(argv: Optional[List[str]] = None):
+    p = argparse.ArgumentParser("atk_torch_plot_overlay_pngs")
+    p.add_argument("-i", required=True, help="images folder")
+    p.add_argument("-s", required=True, help="segmentations folder")
+    p.add_argument("-o", required=True, help="output folder")
+    p.add_argument("-djfile", required=True)
+    p.add_argument("-np", type=int, default=4)
+    a = p.parse_args(argv)
+    from anatomask_torch.utils.overlay_plots import generate_overlays_for_folder
+    generate_overlays_for_folder(a.i, a.s, a.o, load_json(a.djfile), a.np)
 
 
 def accumulate_crossval_entry(argv: Optional[List[str]] = None):

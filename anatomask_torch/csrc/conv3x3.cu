@@ -20,15 +20,15 @@
 
 // The simple variant; see conv3x3_igemm::launch for the arguments.
 extern "C" int conv3x3_forward(const void* x, const void* w, void* y, int B, int X, int Y,
-                               int Z, int C, int F, int dtype, int vec_a, int vec_b,
+                               int Z, int C, int F, int p, int dtype, int vec_a, int vec_b,
                                void* stream) {
-  return conv3x3_igemm::launch<false>(x, w, y, B, X, Y, Z, C, F, dtype, vec_a, vec_b, stream);
+  return conv3x3_igemm::launch<false>(x, w, y, B, X, Y, Z, C, F, p, dtype, vec_a, vec_b, stream);
 }
 
 // The hopper variant (bf16, wt = the (F, 27*C) K-major weight); see
 // conv3x3_igemm::hopper::launch for the arguments.
 extern "C" int conv3x3_forward_hopper(const void* x, const void* wt, void* y, int B, int X,
-                                      int Y, int Z, int C, int F, int bk, int bn,
+                                      int Y, int Z, int C, int F, int p, int bk, int bn,
                                       void* stream) {
-  return conv3x3_igemm::hopper::launch<false>(x, wt, y, B, X, Y, Z, C, F, bk, bn, stream);
+  return conv3x3_igemm::hopper::launch<false>(x, wt, y, B, X, Y, Z, C, F, p, bk, bn, stream);
 }

@@ -1,8 +1,14 @@
-// The implicit-GEMM stride-1 "same" 3x3x3 convolution for Hopper (sm_90a),
-// NDHWC x DHWIO, shared by csrc/conv3x3.cu (one rounding) and
-// csrc/zslab_conv.cu (each first-axis tap rounded to the output type).
+// The implicit-GEMM stride-1 3x3x3 convolution for Hopper (sm_90a), NDHWC x
+// DHWIO, shared by csrc/conv3x3.cu (one rounding) and csrc/zslab_conv.cu (each
+// first-axis tap rounded to the output type).
 //
-// Form: M = B*X*Y*Z output voxels (z fastest), N = F, K = 27*C ordered
+// Padding P in {0, 1, 2} on every side: output voxel o reads input voxels
+// o + t - P, t = 0, 1, 2, so an output extent is the input's + 2P - 2. P = 1
+// is the "same" conv of the dense paths; P = 0 the VALID conv of a halo'd
+// block (e^3 -> (e-2)^3, the block-sparse encoder's forward); P = 2 the
+// "full" conv ((e-2)^3 -> e^3), which is that forward's dx.
+//
+// Form: M = B*Xo*Yo*Zo output voxels (z fastest), N = F, K = 27*C ordered
 // (tap = dx*9 + dy*3 + dz, c), so the first-axis taps are the K ranges
 // [0, 9C), [9C, 18C), [18C, 27C). The input tile is gathered on the fly (the
 // zero halo and the ragged edges are masked in the load, never padded in
@@ -87,34 +93,34 @@ __device__ __forceinline__ float round_bf16(float v) {
 }
 
 struct Rows {
-  int x[BM], y[BM], z[BM];
-  long long base[BM];  // element offset of the row's voxel, channel 0
+  int x[BM], y[BM], z[BM];  // the row's output voxel
+  long long base[BM];  // element offset of the input voxel at those coordinates, channel 0
 };
 
 // Offset of input element (row r, k) or -1 where it falls in the zero halo or
-// at or beyond kend (the end of K, or of the current tap). VEC consecutive k
-// share one tap when C % VEC == 0.
+// at or beyond kend (the end of K, or of the current tap). X, Y, Z are the
+// input's extents. VEC consecutive k share one tap when C % VEC == 0.
 __device__ __forceinline__ long long a_offset(const Rows& rows, int r, int k, int kend,
-                                              int X, int Y, int Z, int C) {
+                                              int X, int Y, int Z, int C, int P) {
   if (k >= kend) return -1;
   const int tap = k / C;
   const int c = k - tap * C;
-  const int dx = tap / 9, dy = (tap / 3) % 3, dz = tap % 3;
-  const int xs = rows.x[r] + dx - 1, ys = rows.y[r] + dy - 1, zs = rows.z[r] + dz - 1;
+  const int dx = tap / 9 - P, dy = (tap / 3) % 3 - P, dz = tap % 3 - P;
+  const int xs = rows.x[r] + dx, ys = rows.y[r] + dy, zs = rows.z[r] + dz;
   if (xs < 0 || xs >= X || ys < 0 || ys >= Y || zs < 0 || zs >= Z) return -1;
-  return rows.base[r] + ((long long)((dx - 1) * Y + (dy - 1)) * Z + (dz - 1)) * C + c;
+  return rows.base[r] + ((long long)(dx * Y + dy) * Z + dz) * C + c;
 }
 
 template <typename T, int LDA>
 __device__ __forceinline__ void load_a(T* As, const T* __restrict__ x, const Rows& rows,
-                                       int k0, int kend, int X, int Y, int Z, int C,
+                                       int k0, int kend, int X, int Y, int Z, int C, int P,
                                        bool vec) {
   constexpr int VEC = 16 / sizeof(T);
   if (vec) {
     constexpr int VPR = BK / VEC;
     for (int v = threadIdx.x; v < BM * VPR; v += THREADS) {
       const int r = v / VPR, kk = (v % VPR) * VEC;
-      const long long off = a_offset(rows, r, k0 + kk, kend, X, Y, Z, C);
+      const long long off = a_offset(rows, r, k0 + kk, kend, X, Y, Z, C, P);
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
       if (off >= 0) val = *reinterpret_cast<const uint4*>(x + off);
       *reinterpret_cast<uint4*>(As + r * LDA + kk) = val;
@@ -122,7 +128,7 @@ __device__ __forceinline__ void load_a(T* As, const T* __restrict__ x, const Row
   } else {
     for (int v = threadIdx.x; v < BM * BK; v += THREADS) {
       const int r = v / BK, kk = v % BK;
-      const long long off = a_offset(rows, r, k0 + kk, kend, X, Y, Z, C);
+      const long long off = a_offset(rows, r, k0 + kk, kend, X, Y, Z, C, P);
       As[r * LDA + kk] = off >= 0 ? x[off] : from_float<T>(0.f);
     }
   }
@@ -156,7 +162,7 @@ __device__ __forceinline__ void load_b(T* Bs, const T* __restrict__ w, int k0, i
 template <typename T, bool PER_TAP>
 __global__ void __launch_bounds__(THREADS)
 conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
-               int M, int X, int Y, int Z, int C, int F, int vec_a, int vec_b) {
+               int M, int X, int Y, int Z, int C, int F, int P, int vec_a, int vec_b) {
   constexpr int LDA = BK + Pad<T>::value;
   constexpr int LDB = BN + Pad<T>::value;
   __shared__ __align__(128) T As[BM * LDA];
@@ -168,15 +174,16 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__
   const long long m0 = (long long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
   const int K = 27 * C;
+  const int Xo = X + 2 * P - 2, Yo = Y + 2 * P - 2, Zo = Z + 2 * P - 2;
 
   if (tid < BM) {
     const long long m = m0 + tid;
     if (m < M) {
       long long t = m;
-      rows.z[tid] = (int)(t % Z); t /= Z;
-      rows.y[tid] = (int)(t % Y); t /= Y;
-      rows.x[tid] = (int)(t % X);
-      rows.base[tid] = m * C;
+      rows.z[tid] = (int)(t % Zo); t /= Zo;
+      rows.y[tid] = (int)(t % Yo); t /= Yo;
+      rows.x[tid] = (int)(t % Xo); t /= Xo;
+      rows.base[tid] = (((t * X + rows.x[tid]) * Y + rows.y[tid]) * Z + rows.z[tid]) * C;
     } else {  // past the end: every tap lands outside the volume
       rows.x[tid] = -4; rows.y[tid] = 0; rows.z[tid] = 0; rows.base[tid] = 0;
     }
@@ -206,7 +213,7 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__
         for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
       for (int k0 = one_step ? 0 : kbeg; k0 < kend; k0 += BK) {
         if (!one_step || s == 0)
-          load_a<T, LDA>(As, x, rows, k0, one_step ? K : kend, X, Y, Z, C, vec_a);
+          load_a<T, LDA>(As, x, rows, k0, one_step ? K : kend, X, Y, Z, C, P, vec_a);
         load_b<T, LDB>(Bs, w, k0, n0, kbeg, kend, F, vec_b);
         __syncthreads();
 #pragma unroll
@@ -257,7 +264,7 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
     for (int k0 = 0; k0 < K; k0 += BK) {
-      load_a<T, LDA>(As, x, rows, k0, K, X, Y, Z, C, vec_a);
+      load_a<T, LDA>(As, x, rows, k0, K, X, Y, Z, C, P, vec_a);
       load_b<T, LDB>(Bs, w, k0, n0, 0, K, F, vec_b);
       __syncthreads();
 #pragma unroll 4
@@ -288,14 +295,23 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__
   }
 }
 
-// x: (B, X, Y, Z, C) contiguous; w: (27*C, F) contiguous; y: (B, X, Y, Z, F).
-// dtype: 0 = float32, 1 = bfloat16. vec_a / vec_b: 16-byte loads are allowed
-// (C resp. F is a multiple of 16 bytes' worth of elements and the pointer is
-// 16-byte aligned). Launches on `stream`; returns cudaGetLastError().
+// Output voxels of a (B, X, Y, Z) input at padding P, or -1 where P is not
+// 0, 1 or 2 or an output extent is empty.
+inline long long out_voxels(int B, int X, int Y, int Z, int P) {
+  if (P < 0 || P > 2 || B <= 0 || X + 2 * P - 2 <= 0 || Y + 2 * P - 2 <= 0 || Z + 2 * P - 2 <= 0)
+    return -1;
+  return (long long)B * (X + 2 * P - 2) * (Y + 2 * P - 2) * (Z + 2 * P - 2);
+}
+
+// x: (B, X, Y, Z, C) contiguous; w: (27*C, F) contiguous; y: (B, X + 2P - 2,
+// Y + 2P - 2, Z + 2P - 2, F). dtype: 0 = float32, 1 = bfloat16. vec_a /
+// vec_b: 16-byte loads are allowed (C resp. F is a multiple of 16 bytes'
+// worth of elements and the pointer is 16-byte aligned). Launches on
+// `stream`; returns cudaGetLastError().
 template <bool PER_TAP>
 int launch(const void* x, const void* w, void* y, int B, int X, int Y, int Z, int C, int F,
-           int dtype, int vec_a, int vec_b, void* stream) {
-  const long long M = (long long)B * X * Y * Z;
+           int P, int dtype, int vec_a, int vec_b, void* stream) {
+  const long long M = out_voxels(B, X, Y, Z, P);
   if (M <= 0 || M > 0x7fffffffLL || C <= 0 || F <= 0 || 27LL * C > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((F + BN - 1) / BN));
@@ -303,11 +319,11 @@ int launch(const void* x, const void* w, void* y, int B, int X, int Y, int Z, in
   if (dtype == 1) {
     conv3x3_kernel<bf16, PER_TAP><<<grid, THREADS, 0, s>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<bf16*>(y),
-        (int)M, X, Y, Z, C, F, vec_a, vec_b);
+        (int)M, X, Y, Z, C, F, P, vec_a, vec_b);
   } else if (dtype == 0) {
     conv3x3_kernel<float, PER_TAP><<<grid, THREADS, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(y),
-        (int)M, X, Y, Z, C, F, vec_a, vec_b);
+        (int)M, X, Y, Z, C, F, P, vec_a, vec_b);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -478,12 +494,12 @@ __device__ __forceinline__ float2 unpack_bf16x2(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
-// x: (M voxels, C) bf16; wt: (F, 27*C) bf16, K contiguous; y: (M, F) bf16.
-// Grid (ceil(M / 128), F / BN).
+// x: (B, X, Y, Z, C) bf16; wt: (F, 27*C) bf16, K contiguous; y: (M output
+// voxels, F) bf16 at padding P. Grid (ceil(M / 128), F / BN).
 template <int BK, int BN, bool PER_TAP>
 __global__ void __launch_bounds__(THREADS, 1)
 conv3x3_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ wt, bf16* __restrict__ y,
-              int M, int X, int Y, int Z, int C, int F) {
+              int M, int X, int Y, int Z, int C, int F, int P) {
   using T = Tile<BK, BN>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ long long tap_off[27];  // element offset of each tap's input voxel
@@ -494,9 +510,10 @@ conv3x3_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ wt, bf16* __r
   const int K = 27 * C;
   const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
 
+  const int Xo = X + 2 * P - 2, Yo = Y + 2 * P - 2, Zo = Z + 2 * P - 2;
   if (tid < 27) {
-    const int dx = tid / 9, dy = tid / 3 % 3, dz = tid % 3;
-    tap_off[tid] = (long long)(((dx - 1) * Y + (dy - 1)) * Z + (dz - 1)) * C;
+    const int dx = tid / 9 - P, dy = tid / 3 % 3 - P, dz = tid % 3 - P;
+    tap_off[tid] = (long long)((dx * Y + dy) * Z + dz) * C;
   }
   // A: this thread copies chunk `ja` of rows tid / CPR + i * (THREADS / CPR)
   const int ja = tid % T::CPR;
@@ -512,17 +529,23 @@ conv3x3_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ wt, bf16* __r
     a_src[i] = x;
     if (m < M) {
       int t = m;
-      const int vz = t % Z; t /= Z;
-      const int vy = t % Y; t /= Y;
-      const int vx = t % X;
-      // bit d: coordinate + d - 1 lies inside [0, extent)
-      const uint32_t mx = (vx > 0) | 2u | ((vx < X - 1) << 2);
-      const uint32_t my = (vy > 0) | 2u | ((vy < Y - 1) << 2);
-      const uint32_t mz = (vz > 0) | 2u | ((vz < Z - 1) << 2);
+      const int vz = t % Zo; t /= Zo;
+      const int vy = t % Yo; t /= Yo;
+      const int vx = t % Xo; t /= Xo;
+      // bit d: input coordinate o + d - P lies inside [0, extent)
+      auto inside = [P](int o, int n) {
+        uint32_t bits = 0;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) bits |= (uint32_t)((unsigned)(o + d - P) < (unsigned)n) << d;
+        return bits;
+      };
+      const uint32_t mx = inside(vx, X), my = inside(vy, Y), mz = inside(vz, Z);
 #pragma unroll
       for (int tap = 0; tap < 27; ++tap)
         a_taps[i] |= ((mx >> (tap / 9)) & (my >> (tap / 3 % 3)) & (mz >> (tap % 3)) & 1u) << tap;
-      a_src[i] = x + (long long)m * C + ja * 8;
+      // the input voxel at the output's coordinates (outside the input where
+      // P = 2; only its in-volume taps are read)
+      a_src[i] = x + ((((long long)t * X + vx) * Y + vy) * Z + vz) * C + ja * 8;
     }
   }
   // B: chunk idx = tid + i * THREADS of the BN x CPR chunks
@@ -644,7 +667,7 @@ conv3x3_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ wt, bf16* __r
 
 template <int BK, int BN, bool PER_TAP>
 int launch_tile(const void* x, const void* wt, void* y, int M, int X, int Y, int Z, int C, int F,
-                cudaStream_t stream) {
+                int P, cudaStream_t stream) {
   auto kernel = conv3x3_wgmma<BK, BN, PER_TAP>;
   const int smem = Tile<BK, BN>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -652,17 +675,18 @@ int launch_tile(const void* x, const void* wt, void* y, int M, int X, int Y, int
   const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)(F / BN));
   kernel<<<grid, THREADS, smem, stream>>>(static_cast<const bf16*>(x),
                                           static_cast<const bf16*>(wt), static_cast<bf16*>(y),
-                                          M, X, Y, Z, C, F);
+                                          M, X, Y, Z, C, F, P);
   return (int)cudaGetLastError();
 }
 
-// x: (B, X, Y, Z, C) bf16; wt: (F, 27*C) bf16 (K contiguous); y: (B, X, Y, Z, F)
-// bf16; all 16-byte aligned. (bk, bn) must be one of CONV3X3_HOPPER_TILES with
-// bk dividing C and bn dividing F. Launches on `stream`; returns the CUDA error.
+// x: (B, X, Y, Z, C) bf16; wt: (F, 27*C) bf16 (K contiguous); y: (B, X + 2P -
+// 2, Y + 2P - 2, Z + 2P - 2, F) bf16; all 16-byte aligned. (bk, bn) must be one
+// of CONV3X3_HOPPER_TILES with bk dividing C and bn dividing F. Launches on
+// `stream`; returns the CUDA error.
 template <bool PER_TAP>
 int launch(const void* x, const void* wt, void* y, int B, int X, int Y, int Z, int C, int F,
-           int bk, int bn, void* stream) {
-  const long long M = (long long)B * X * Y * Z;
+           int P, int bk, int bn, void* stream) {
+  const long long M = out_voxels(B, X, Y, Z, P);
   if (M <= 0 || M > 0x7fffffffLL - BM || C <= 0 || F <= 0 || 27LL * C > 0x7fffffffLL ||
       C % bk != 0 || F % bn != 0 ||
       ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wt) |
@@ -670,7 +694,7 @@ int launch(const void* x, const void* wt, void* y, int B, int X, int Y, int Z, i
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CONV3X3_HOPPER_CASE(BK_, BN_) \
-  if (bk == BK_ && bn == BN_) return launch_tile<BK_, BN_, PER_TAP>(x, wt, y, (int)M, X, Y, Z, C, F, s);
+  if (bk == BK_ && bn == BN_) return launch_tile<BK_, BN_, PER_TAP>(x, wt, y, (int)M, X, Y, Z, C, F, P, s);
   CONV3X3_HOPPER_TILES(CONV3X3_HOPPER_CASE)
 #undef CONV3X3_HOPPER_CASE
   return (int)cudaErrorInvalidValue;

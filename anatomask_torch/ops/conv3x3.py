@@ -1,4 +1,4 @@
-"""Stride-1 "same" 3x3x3 convolution: the hand-written CUDA kernel, its plain
+"""Stride-1 3x3x3 convolution: the hand-written CUDA kernel, its plain
 PyTorch version and its autograd Function.
 
 Replaces the TPU kernel `anatomask_tpu/ops/pallas_conv.py`
@@ -6,19 +6,26 @@ Replaces the TPU kernel `anatomask_tpu/ops/pallas_conv.py`
 layout at this module's public functions is the JAX package's: activations
 NDHWC, weights DHWIO.
 
-- `conv3d_3x3(x, w)`: differentiable. The forward is the kernel
+- `conv3d_3x3(x, w, padding=1)`: differentiable. The forward is the kernel
   (`csrc/conv3x3.cu`); dx is the same kernel on the output gradient with the
   weight flipped on its three spatial axes and C/F swapped, as the TPU kernel's
-  VJP does. dw is not a product of the kernel: like the TPU kernel, which
-  leaves dw to XLA, it goes to torch's weight-gradient convolution.
-- `conv3d_3x3_plain(x, w)`: the same arithmetic in plain PyTorch (27 shifted
-  slices of the zero-padded input times the (27*C, F) weight, fp32
-  accumulation, one rounding). A CPU tensor goes through it; a CUDA tensor
-  always launches the kernel, and anything the kernel does not take raises.
+  VJP does, at padding 2 - padding. dw is not a product of the kernel: like
+  the TPU kernel, which leaves dw to XLA, it goes to torch's weight-gradient
+  convolution.
+- `conv3d_3x3_plain(x, w, padding=1)`: the same arithmetic in plain PyTorch
+  (27 shifted slices of the zero-padded input times the (27*C, F) weight,
+  fp32 accumulation, one rounding). A CPU tensor goes through it; a CUDA
+  tensor always launches the kernel, and anything the kernel does not take
+  raises.
 - `check_args`, `igemm_variant`, `igemm_tile`, `pack_weight` and
   `launch_igemm`: the input checks, the variant and tile choice, the weight
   layout and the ctypes launch shared with `ops/zslab_conv.py`, whose kernel
   is the same implicit GEMM (`csrc/conv3x3_igemm.cuh`) with per-tap rounding.
+
+`padding` p is 0, 1 or 2 on every side: output voxel o reads input voxels
+o + t - p, so an output extent is the input's + 2p - 2. p = 1 is the "same"
+conv of the dense paths; p = 0 the VALID conv of a halo'd block and p = 2 its
+dx (the block-sparse encoder, `ops/block_sparse.py`).
 
 Bound on the H100: the paths' convs (C, F >= 32, volumes of 7x7x8 up to
 128^3) do at least 2*27*32 FLOP per byte moved, so the bf16 tensor-core rate
@@ -35,9 +42,9 @@ hand-written kernels; a failed build or launch raises):
 - "simple": everything else (fp32, the stem, other channel counts): 64 x 64
   tiles on wmma fragments (bf16) or FMA (fp32), one shared-memory stage.
 
-Each wrapper counts its launches in total (`launches`) and by variant
-(`launches_by_variant`). Their gap to the bound is measured by chip_smoke.py
-and kept in PERF.md.
+Each wrapper counts its launches in total (`launches`), by variant
+(`launches_by_variant`) and by padding (`launches_by_padding`). Their gap to
+the bound is measured by chip_smoke.py and kept in PERF.md.
 """
 from __future__ import annotations
 
@@ -53,10 +60,22 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PLAIN_CHUNK_BYTES = 1 << 28  # fp32 im2col slab per matmul in the plain version
 
 
-def check_args(x: torch.Tensor, w: torch.Tensor, name: str = "conv3d_3x3") -> None:
+PADDINGS = (0, 1, 2)
+
+
+def out_extents(x: torch.Tensor, padding: int) -> tuple[int, int, int]:
+    """The output's spatial extents of a 3x3x3 conv of x (NDHWC) at `padding`."""
+    return tuple(n + 2 * padding - 2 for n in x.shape[1:4])
+
+
+def check_args(x: torch.Tensor, w: torch.Tensor, name: str = "conv3d_3x3",
+               padding: int = 1) -> None:
     """Raise ValueError for what the kernels of csrc/conv3x3_igemm.cuh do not take."""
     if x.dim() != 5:
         raise ValueError(f"{name} expects NDHWC input, got shape {tuple(x.shape)}")
+    if padding not in PADDINGS or min(out_extents(x, padding)) <= 0:
+        raise ValueError(f"{name} takes padding 0, 1 or 2 with a non-empty output, got "
+                         f"padding {padding!r} for input {tuple(x.shape)}")
     if w.dim() != 5 or tuple(w.shape[:3]) != (3, 3, 3) or w.shape[3] != x.shape[4]:
         raise ValueError(f"{name} expects a (3, 3, 3, {x.shape[4]}, F) weight, "
                          f"got {tuple(w.shape)}")
@@ -69,12 +88,14 @@ def check_args(x: torch.Tensor, w: torch.Tensor, name: str = "conv3d_3x3") -> No
         raise ValueError(f"{name} expects a contiguous NDHWC input")
 
 
-def conv3d_3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (B, X, Y, Z, C), w (3, 3, 3, C, F) -> (B, X, Y, Z, F) in x.dtype.
-    Chunked over X so that the im2col slab stays under 256 MiB."""
-    B, X, Y, Z, C = x.shape
+def conv3d_3x3_plain(x: torch.Tensor, w: torch.Tensor, padding: int = 1) -> torch.Tensor:
+    """x (B, X', Y', Z', C), w (3, 3, 3, C, F) -> (B, X, Y, Z, F) in x.dtype,
+    each extent the input's + 2 * padding - 2. Chunked over X so that the
+    im2col slab stays under 256 MiB."""
+    B, C = x.shape[0], x.shape[-1]
+    X, Y, Z = out_extents(x, padding)
     F = w.shape[-1]
-    xp = fn.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
+    xp = fn.pad(x, (0, 0) + (padding,) * 6)
     w2 = w.reshape(27 * C, F).float()
     out = torch.empty((B, X, Y, Z, F), dtype=x.dtype, device=x.device)
     step = max(1, _PLAIN_CHUNK_BYTES // (4 * B * Y * Z * 27 * C))
@@ -126,8 +147,8 @@ def _entry(library: str, symbol: str, n_ints: int):
     return f
 
 
-def launch_igemm(x: torch.Tensor, w: torch.Tensor, library: str,
-                 symbol: str) -> tuple[torch.Tensor, str]:
+def launch_igemm(x: torch.Tensor, w: torch.Tensor, library: str, symbol: str,
+                 padding: int = 1) -> tuple[torch.Tensor, str]:
     """One launch of a kernel of csrc/conv3x3_igemm.cuh through the C
     launcher `symbol` (simple variant) or `symbol`_hopper, on the current
     stream of x's device. Returns the output and the variant; counting is the
@@ -136,78 +157,84 @@ def launch_igemm(x: torch.Tensor, w: torch.Tensor, library: str,
     F = w.shape[-1]
     variant = igemm_variant(x, w)
     w2 = pack_weight(w, variant)
-    y = torch.empty((B, X, Y, Z, F), dtype=x.dtype, device=x.device)
+    y = torch.empty((B, *out_extents(x, padding), F), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y, variant
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if variant == "hopper":
-            err = _entry(library, f"{symbol}_hopper", 8)(
-                x.data_ptr(), w2.data_ptr(), y.data_ptr(), B, X, Y, Z, C, F,
+            err = _entry(library, f"{symbol}_hopper", 9)(
+                x.data_ptr(), w2.data_ptr(), y.data_ptr(), B, X, Y, Z, C, F, padding,
                 *igemm_tile(C, F), stream)
         else:
             vec = 16 // x.element_size()
             vec_a = C % vec == 0 and x.data_ptr() % 16 == 0
             vec_b = F % vec == 0 and w2.data_ptr() % 16 == 0
-            err = _entry(library, symbol, 9)(
-                x.data_ptr(), w2.data_ptr(), y.data_ptr(), B, X, Y, Z, C, F,
+            err = _entry(library, symbol, 10)(
+                x.data_ptr(), w2.data_ptr(), y.data_ptr(), B, X, Y, Z, C, F, padding,
                 _DTYPE_CODES[x.dtype], int(vec_a), int(vec_b), stream)
     if err != 0:
         raise RuntimeError(f"{symbol} ({variant}) kernel launch failed with CUDA error {err} "
-                           f"(x {tuple(x.shape)}, F {F}, {x.dtype})")
+                           f"(x {tuple(x.shape)}, F {F}, padding {padding}, {x.dtype})")
     return y, variant
 
 
-def count_launch(fn, variant: str) -> None:
+def count_launch(fn, variant: str, padding: int) -> None:
     fn.launches += 1
     fn.launches_by_variant[variant] += 1
+    fn.launches_by_padding[padding] += 1
 
 
 def zero_launch_counts(fn) -> None:
-    """Set a conv wrapper's launch counts, total and by variant, to 0."""
+    """Set a conv wrapper's launch counts, total, by variant and by padding, to 0."""
     fn.launches = 0
     fn.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+    fn.launches_by_padding = dict.fromkeys(PADDINGS, 0)
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    y, variant = launch_igemm(x, w, "conv3x3", "conv3x3_forward")
-    count_launch(conv3d_3x3, variant)
+def _launch(x: torch.Tensor, w: torch.Tensor, padding: int) -> torch.Tensor:
+    y, variant = launch_igemm(x, w, "conv3x3", "conv3x3_forward", padding)
+    count_launch(conv3d_3x3, variant, padding)
     return y
 
 
-def conv3d_3x3_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def conv3d_3x3_forward(x: torch.Tensor, w: torch.Tensor, padding: int = 1) -> torch.Tensor:
     """Forward only: the kernel for a CUDA tensor, the plain version for a CPU
     tensor, an error for anything else."""
-    check_args(x, w)
+    check_args(x, w, padding=padding)
     if x.device.type == "cuda":
-        return _launch(x, w)
+        return _launch(x, w, padding)
     if x.device.type == "cpu":
-        return conv3d_3x3_plain(x, w)
+        return conv3d_3x3_plain(x, w, padding)
     raise ValueError(f"conv3d_3x3 runs on cuda (kernel) or cpu (plain), not {x.device}")
 
 
 def flip_weight(w: torch.Tensor) -> torch.Tensor:
     """(3, 3, 3, C, F) -> (3, 3, 3, F, C), flipped on the spatial axes: the
-    weight whose 'same' conv of the output gradient is dx."""
+    weight whose conv of the output gradient at padding 2 - p is the dx of
+    the conv at padding p."""
     return torch.flip(w, (0, 1, 2)).transpose(3, 4)
 
 
-def weight_grad(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """dw (3, 3, 3, C, F) of the 'same' conv from the output gradient g and
-    the input x (both NDHWC): torch's convolution backward, the counterpart of
-    the XLA correlation that the TPU kernels' VJPs leave outside them."""
+def weight_grad(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                padding: int = 1) -> torch.Tensor:
+    """dw (3, 3, 3, C, F) of the conv at `padding` from the output gradient g
+    and the input x (both NDHWC): torch's convolution backward, the
+    counterpart of the XLA correlation that the TPU kernels' VJPs leave
+    outside them."""
     dw = torch.ops.aten.convolution_backward(
         g.permute(0, 4, 1, 2, 3), x.permute(0, 4, 1, 2, 3),
-        w.permute(4, 3, 0, 1, 2), None, [1, 1, 1], [1, 1, 1], [1, 1, 1],
+        w.permute(4, 3, 0, 1, 2), None, [1, 1, 1], [padding] * 3, [1, 1, 1],
         False, [0, 0, 0], 1, [False, True, False])[1]
     return dw.permute(2, 3, 4, 1, 0).to(w.dtype)
 
 
 class Conv3x3Function(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, padding):
         ctx.save_for_backward(x, w)
-        return conv3d_3x3_forward(x, w)
+        ctx.padding = padding
+        return conv3d_3x3_forward(x, w, padding)
 
     @staticmethod
     def backward(ctx, g):
@@ -215,16 +242,17 @@ class Conv3x3Function(torch.autograd.Function):
         g = g.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = conv3d_3x3_forward(g, flip_weight(w).to(g.dtype))
+            dx = conv3d_3x3_forward(g, flip_weight(w).to(g.dtype), 2 - ctx.padding)
         if ctx.needs_input_grad[1]:
-            dw = weight_grad(g, x, w)
-        return dx, dw
+            dw = weight_grad(g, x, w, ctx.padding)
+        return dx, dw, None
 
 
-def conv3d_3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Differentiable stride-1 'same' 3x3x3 conv, x NDHWC, w DHWIO."""
-    return Conv3x3Function.apply(x, w)
+def conv3d_3x3(x: torch.Tensor, w: torch.Tensor, padding: int = 1) -> torch.Tensor:
+    """Differentiable stride-1 3x3x3 conv at `padding` (1: 'same'), x NDHWC,
+    w DHWIO."""
+    return Conv3x3Function.apply(x, w, padding)
 
 
-# kernel launches, in total and by variant, since the caller last set them to 0
+# kernel launches, in total, by variant and by padding, since the caller last set them to 0
 zero_launch_counts(conv3d_3x3)

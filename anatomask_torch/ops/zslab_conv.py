@@ -1,6 +1,7 @@
-"""Stride-1 "same" 3x3x3 convolution with the z-slab rounding: the
-hand-written CUDA kernel, its plain PyTorch version and two autograd
-Functions.
+"""Stride-1 3x3x3 convolution with the z-slab rounding: the hand-written
+CUDA kernel, its plain PyTorch version and two autograd Functions. Padding 1
+("same") unless the caller passes 0 or 2 (`ops/conv3x3.py` says what each
+means).
 
 Replaces the TPU kernel `anatomask_tpu/ops/pallas_zslab_conv.py` `_fwd_impl`
 (public `conv3d_zslab`, custom VJP `_fwd_vjp`/`_bwd_vjp`). Layouts are the JAX
@@ -42,20 +43,22 @@ import torch
 import torch.nn.functional as fn
 
 from anatomask_torch.ops.conv3x3 import (Conv3x3Function, check_args, count_launch,
-                                         flip_weight, launch_igemm, weight_grad,
+                                         flip_weight, launch_igemm, out_extents, weight_grad,
                                          zero_launch_counts)
 
 _PLAIN_CHUNK_BYTES = 1 << 28  # fp32 im2col slab per matmul in the plain version
 
 
-def conv3d_zslab_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (B, D, H, W, C), w (3, 3, 3, C, F) -> (B, D, H, W, F) in x.dtype: per
-    tap d of the first axis, the 9 (dy, dx) shifted slices times w[d] in fp32,
-    rounded to x.dtype, then added in x.dtype in the order d = 0, 1, 2.
-    Chunked over D so that the im2col slab stays under 256 MiB."""
-    B, D, H, W, C = x.shape
+def conv3d_zslab_plain(x: torch.Tensor, w: torch.Tensor, padding: int = 1) -> torch.Tensor:
+    """x (B, D', H', W', C), w (3, 3, 3, C, F) -> (B, D, H, W, F) in x.dtype,
+    each extent the input's + 2 * padding - 2: per tap d of the first axis,
+    the 9 (dy, dx) shifted slices times w[d] in fp32, rounded to x.dtype,
+    then added in x.dtype in the order d = 0, 1, 2. Chunked over D so that
+    the im2col slab stays under 256 MiB."""
+    B, C = x.shape[0], x.shape[-1]
+    D, H, W = out_extents(x, padding)
     F = w.shape[-1]
-    xp = fn.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
+    xp = fn.pad(x, (0, 0) + (padding,) * 6)
     w3 = w.reshape(3, 9 * C, F).float()
     out = torch.empty((B, D, H, W, F), dtype=x.dtype, device=x.device)
     step = max(1, _PLAIN_CHUNK_BYTES // (4 * B * H * W * 9 * C))
@@ -72,20 +75,20 @@ def conv3d_zslab_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    y, variant = launch_igemm(x, w, "zslab_conv", "zslab_forward")
-    count_launch(conv3d_zslab, variant)
+def _launch(x: torch.Tensor, w: torch.Tensor, padding: int) -> torch.Tensor:
+    y, variant = launch_igemm(x, w, "zslab_conv", "zslab_forward", padding)
+    count_launch(conv3d_zslab, variant, padding)
     return y
 
 
-def conv3d_zslab_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def conv3d_zslab_forward(x: torch.Tensor, w: torch.Tensor, padding: int = 1) -> torch.Tensor:
     """Forward only: the kernel for a CUDA tensor, the plain version for a CPU
     tensor, an error for anything else."""
-    check_args(x, w, "conv3d_zslab")
+    check_args(x, w, "conv3d_zslab", padding)
     if x.device.type == "cuda":
-        return _launch(x, w)
+        return _launch(x, w, padding)
     if x.device.type == "cpu":
-        return conv3d_zslab_plain(x, w)
+        return conv3d_zslab_plain(x, w, padding)
     raise ValueError(f"conv3d_zslab runs on cuda (kernel) or cpu (plain), not {x.device}")
 
 
@@ -115,19 +118,24 @@ def conv3d_zslab(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 class ZconcatConvFunction(Conv3x3Function):
     """Forward per tap (this kernel); backward inherited from conv3d_3x3's
-    Function: dx rounded once (kernel #1), dw by weight_grad."""
+    Function: dx rounded once (kernel #1 at padding 2 - padding), dw by
+    weight_grad."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, padding):
         ctx.save_for_backward(x, w)
-        return conv3d_zslab_forward(x, w)
+        ctx.padding = padding
+        return conv3d_zslab_forward(x, w, padding)
 
 
-def conv3d_zconcat(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Differentiable stride-1 'same' 3x3x3 conv rounded as the JAX main
-    path's `conv3d_zconcat`: the forward per tap, dx once. x NDHWC, w DHWIO."""
-    return ZconcatConvFunction.apply(x, w)
+def conv3d_zconcat(x: torch.Tensor, w: torch.Tensor, padding: int = 1) -> torch.Tensor:
+    """Differentiable stride-1 3x3x3 conv rounded as the JAX package's
+    `conv3d_zconcat_folded`: the forward per tap, dx once. padding 1 is the
+    main path's 'same' conv, padding 0 the block-sparse encoder's VALID conv
+    of a halo'd block (whose dx is kernel #1's 'full' conv, padding 2). x
+    NDHWC, w DHWIO."""
+    return ZconcatConvFunction.apply(x, w, padding)
 
 
-# kernel launches, in total and by variant, since the caller last set them to 0
+# kernel launches, in total, by variant and by padding, since the caller last set them to 0
 zero_launch_counts(conv3d_zslab)

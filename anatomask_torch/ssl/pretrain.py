@@ -141,8 +141,12 @@ def build_spark_model(cfg: PretrainConfig, in_channels: int = 1, device="cuda",
         depth = (tuple(cfg.encoder_depth) if cfg.encoder_depth
                  else (_STUNET_DEPTHS[size],) * len(dims))
         remat, pooled = cfg.remat or size == "H", cfg.norm_batch_pooled
+        # the mask's visible patches a sample, as SparK computes them: the
+        # block-sparse route's static block count (ATK_BLOCK_SPARSE=1)
+        fmap = [int(p) // 2 ** (len(dims) - 1) for p in cfg.patch_size]
+        len_keep = round(math.prod(fmap) * (1 - cfg.mask_ratio))
         enc = SparseSTUNetEncoder(in_channels, dims, dtype, generator, depth=depth, remat=remat,
-                                  norm_batch_pooled=pooled)
+                                  norm_batch_pooled=pooled, len_keep=len_keep)
     dec = LightDecoder(enc.get_downsample_ratio(), cfg.decoder_width or enc.dims[-1],
                        in_channels, dtype, generator, norm=cfg.decoder_norm, remat=remat)
     model = SparK(enc, dec, cfg.patch_size, dtype, generator, mask_ratio=cfg.mask_ratio,

@@ -1,6 +1,5 @@
-"""Masked ("sparse") 3D layers for SparK-style pretraining, dense-masked path.
-Counterpart of anatomask_tpu/ssl/sparse.py (the block-sparse route, opt-in
-there through ATK_BLOCK_SPARSE, is not ported).
+"""Masked ("sparse") 3D layers for SparK-style pretraining. Counterpart of
+anatomask_tpu/ssl/sparse.py, with its opt-in block-sparse route.
 
 The mask is passed explicitly to every layer as (B, 1, f1, f2, f3) bool,
 True = visible, and dilated to any resolution by integer repeats (the
@@ -12,6 +11,14 @@ reference torch STUNet head (`conv_blocks_context.{stage}.{block}.conv1...`).
   blocks, the first strided with the 1x1 skip), `SparseSTUNetEncoder`, with
   activation checkpointing a stage where `remat` (the JAX package's
   `nn.remat(_SparseResStage)`);
+- the block-sparse route (`ATK_BLOCK_SPARSE=1`, the first
+  `ATK_BLOCK_SPARSE_STAGES` stages, default 2, read at each forward as JAX
+  reads them at trace time): the encoder gathers the `len_keep` active
+  blocks of each sample once (`ops/block_sparse.py`) and runs those stages
+  on them alone with `SparseBasicResBlock.forward_blocks`, JAX's
+  `BlockSparseResBlock` over the same parameters, scattering each stage's
+  output to a dense feature; `block_stage_count` holds JAX's rules for when
+  it applies;
 - norms: `SparseInstanceNorm` and `SparseBatchNorm` on the moments kernel's
   per-row sums (kernel #3), `SparseLayerNorm` and `SparseGroupNorm` in plain
   torch (JAX computes them outside any Pallas kernel);
@@ -20,6 +27,7 @@ reference torch STUNet head (`conv_blocks_context.{stage}.{block}.conv1...`).
 """
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -27,6 +35,9 @@ import torch.nn as nn
 import torch.nn.functional as fn
 
 from anatomask_torch.models.layers import CL3D, ConvND, leaky_relu, run_remat, trunc_normal_
+from anatomask_torch.ops.block_sparse import (active_block_indices, block_conv1x1, block_conv3,
+                                              block_conv3_s2, block_gather, block_moments,
+                                              block_scatter, halo_exchange, neighbor_positions)
 from anatomask_torch.ops.moments import row_moments
 from anatomask_torch.parallel import mesh
 
@@ -278,6 +289,40 @@ class SparseBasicResBlock(nn.Module):
             x = x * mask_to_resolution(active, x.shape[2:5]).to(self.dtype)
         return leaky_relu(y + x)
 
+    def forward_blocks(self, x: torch.Tensor, nb: torch.Tensor) -> torch.Tensor:
+        """The same block on active-block layout (the JAX package's
+        BlockSparseResBlock): x (B, K, bs, bs, bs, C) -> (B, K, bs', bs', bs',
+        F), bs' = bs / stride, halos from the neighbour table `nb`. Every
+        voxel of a block is visible, so nothing is re-masked."""
+        dt = self.dtype
+        x = x.to(dt)
+        conv3 = block_conv3 if self.conv1.stride[0] == 1 else block_conv3_s2
+        y = conv3(halo_exchange(x, nb), _dhwio(self.conv1)) + self.conv1.bias.to(dt)
+        y = leaky_relu(_block_instance_norm(y, self.norm1))
+        y = block_conv3(halo_exchange(y, nb), _dhwio(self.conv2)) + self.conv2.bias.to(dt)
+        y = _block_instance_norm(y, self.norm2)
+        if self.conv3 is not None:
+            x = block_conv1x1(x, _dhwio(self.conv3), self.conv3.stride[0])
+            x = x + self.conv3.bias.to(dt)
+        return leaky_relu(y + x)
+
+
+def _dhwio(conv: ConvND) -> torch.Tensor:
+    """A ConvND's (F, C, kz, ky, kx) weight as the compute dtype's DHWIO."""
+    return conv.weight.to(conv.dtype).permute(2, 3, 4, 1, 0)
+
+
+def _block_instance_norm(blocks: torch.Tensor, norm: SparseInstanceNorm) -> torch.Tensor:
+    """SparseInstanceNorm on (B, K, bs, bs, bs, C) active blocks, rounded as
+    the JAX package's `_block_instance_norm`: fp32 moments of the block
+    interiors (x squared in fp32), a = rsqrt(var + eps) * scale and b = bias -
+    mean * a in fp32, then x * a + b in the compute dtype."""
+    mean, var = block_moments(blocks)
+    a = torch.rsqrt(var + norm.eps) * norm.weight.float()
+    b = norm.bias.float() - mean * a
+    dt = norm.dtype
+    return blocks.to(dt) * a.to(dt)[:, None, None, None, None] + b.to(dt)[:, None, None, None, None]
+
 
 class _SparseResStage(nn.ModuleList):
     """One encoder stage: `depth` blocks, the first strided with the 1x1 skip.
@@ -289,10 +334,53 @@ class _SparseResStage(nn.ModuleList):
         super().__init__([SparseBasicResBlock(cin, cout, stride, use_1x1conv=True, **dd)]
                          + [SparseBasicResBlock(cout, cout, 1, **dd) for _ in range(1, depth)])
 
-    def forward(self, x: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, active: torch.Tensor,
+                nb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Dense-masked x (B, C, X, Y, Z), or with the neighbour table `nb`
+        active blocks (B, K, bs, bs, bs, C)."""
         for block in self:
-            x = block(x, active)
+            x = block(x, active) if nb is None else block.forward_blocks(x, nb)
         return x
+
+
+def block_stage_count(in_shape: Sequence[int], grid: Sequence[int],
+                      strides: Sequence[Sequence[int]], kernels: Sequence[Sequence[int]],
+                      len_keep: Optional[int], norm_batch_pooled: bool) -> int:
+    """How many leading stages run block-sparse (0: none), by the JAX
+    package's `SparseSTUNetEncoder._block_stage_count`: ATK_BLOCK_SPARSE=1,
+    a static keep-count, per-sample norms, cubic blocks with the patch grid
+    dividing the input, stage 0 at stride 1, stride-2 cubic downsampling
+    after, 3x3x3 kernels, blocks that stay >= 4 voxels, and at most
+    ATK_BLOCK_SPARSE_STAGES (default 2) stages. Both variables are read at
+    each call. `strides` and `kernels` (per stage) keep JAX's rules whole so
+    that they can be held against JAX's over its stride tables; the port's
+    encoder always passes stride 1 then 2 and 3x3x3 kernels."""
+    if (len_keep is None or norm_batch_pooled
+            or os.environ.get("ATK_BLOCK_SPARSE", "0") != "1"):
+        return 0
+    want = int(os.environ.get("ATK_BLOCK_SPARSE_STAGES", "2"))
+    in_shape, grid = tuple(int(v) for v in in_shape), tuple(int(v) for v in grid)
+    if any(s % g for s, g in zip(in_shape, grid)):
+        return 0
+    sizes = {s // g for s, g in zip(in_shape, grid)}
+    if len(sizes) != 1:
+        return 0
+    bs = sizes.pop()
+    n = 0
+    for d in range(min(want, len(strides))):
+        if tuple(kernels[d]) != (3, 3, 3):
+            break
+        if d == 0:
+            if tuple(strides[d]) != (1, 1, 1):
+                break
+        else:
+            if tuple(strides[d]) != (2, 2, 2) or bs % 2:
+                break
+            bs //= 2
+        if bs < 4:
+            break
+        n = d + 1
+    return n
 
 
 class SparseSTUNetEncoder(nn.Module):
@@ -300,17 +388,19 @@ class SparseSTUNetEncoder(nn.Module):
     Stage 0 has stride 1, every later stage stride 2; depth[d] blocks in
     stage d (default one). With `remat` each stage runs under activation
     checkpointing; with `norm_batch_pooled` every norm pools its statistics
-    over the batch (the reference's B > 1 law)."""
+    over the batch (the reference's B > 1 law). `len_keep`, the mask's
+    visible patches a sample, enables the block-sparse route of the first
+    stages where `block_stage_count` allows it."""
 
     def __init__(self, in_channels: int = 1, dims: Sequence[int] = (32, 64, 128, 256, 512),
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None,
                  depth: Optional[Sequence[int]] = None, remat: bool = False,
-                 norm_batch_pooled: bool = False):
+                 norm_batch_pooled: bool = False, len_keep: Optional[int] = None):
         super().__init__()
         self.dims = list(dims)
         self.depth = list(depth) if depth is not None else [1] * len(self.dims)
-        self.remat = remat
+        self.remat, self.norm_batch_pooled, self.len_keep = remat, norm_batch_pooled, len_keep
         self.strides = [1] + [2] * (len(dims) - 1)
         cins = [in_channels] + self.dims[:-1]
         self.conv_blocks_context = nn.ModuleList(
@@ -320,9 +410,26 @@ class SparseSTUNetEncoder(nn.Module):
     def get_downsample_ratio(self) -> int:
         return 2 ** (len(self.dims) - 1)
 
+    def _block_stage_count(self, x: torch.Tensor, active: torch.Tensor) -> int:
+        return block_stage_count(x.shape[2:5], active.shape[2:5],
+                                 [(s,) * 3 for s in self.strides], [(3, 3, 3)] * len(self.dims),
+                                 self.len_keep, self.norm_batch_pooled)
+
     def forward(self, x: torch.Tensor, active: torch.Tensor) -> List[torch.Tensor]:
         feats = []
-        for stage in self.conv_blocks_context:
+        n_bs = self._block_stage_count(x, active)
+        if n_bs:
+            grid = tuple(int(v) for v in active.shape[2:5])
+            bs = int(x.shape[2]) // grid[0]
+            idx = active_block_indices(active, self.len_keep)
+            nb = neighbor_positions(idx, grid)
+            xb = block_gather(x.permute(0, 2, 3, 4, 1), idx, grid, bs)
+            for d in range(n_bs):
+                xb = run_remat(self.remat, self.conv_blocks_context[d], xb, active, nb)
+                bs //= self.strides[d]
+                x = block_scatter(xb, idx, grid, bs).permute(0, 4, 1, 2, 3)
+                feats.append(x)
+        for stage in self.conv_blocks_context[n_bs:]:
             x = run_remat(self.remat, stage, x, active)
             feats.append(x)
         return feats

@@ -53,6 +53,15 @@ Phases, each of which raises on a failed check:
    max|kernel #2 - kernel #1| / max|kernel #1| in bf16. The probe's timed
    calls are this kernel's path: its count is set to 0 just before them,
    and every one of its launches must run the hopper variant;
+5b. the block-sparse route's launches (ATK_BLOCK_SPARSE=1 on the pretraining
+   step: stages 0-1 on the 4 x 157 visible 16^3 patches alone): kernel #2 at
+   padding 0 (VALID on 628 halo'd blocks of 18^3 and 10^3) forward and
+   kernel #1 at padding 2 (its dx) against the plain versions with the gates
+   of 3 (bf16 <= 1e-2, bit-equal >= 95%), off-path shapes at both paddings
+   on both kernels in bf16 (<= 1e-2) and fp32 (<= 1e-5), the block norms'
+   moments (no mask, x squared in fp32; <= 1e-5, two calls bit-equal); each
+   launch's time beside its bound, the plain version's and F.conv3d's or
+   torch.var_mean's;
 6. references: a tiny SparK (also with densify norm "bn", with "ln", in
    the batch-pooled mode with decoder norm "bn", and with the MedNeXt
    encoder), the three ablation decoders and SparseConvNeXtBlock, and a tiny
@@ -68,7 +77,15 @@ Phases, each of which raises on a failed check:
    steps, checking finite losses, the hard masks, the launches by kernel and
    variant (kernel #1 34 hopper, kernel #2 14 hopper and the stem's 2
    simple, 44 moments; `path_launches` counts them from the site tables) and
-   the EMA law, and timing the last 3 steps;
+   the EMA law, timing the last 3 steps, and a torch.profiler split of 3
+   more;
+7b. the block-sparse route: the STUNet-B encoder in fp32 with
+   ATK_BLOCK_SPARSE=1 against without it (every feature within 1e-5 of its
+   largest entry), two bf16 backward passes through it (bit-equal
+   gradients), then 7's 5 steps with it from the same weights and draws,
+   checking the launches by kernel and variant (as 7's) and by padding
+   (kernel #2 6 at 0, kernel #1 2 at 2), printing step ms, patches/s and
+   peak memory beside 7's dense step, and a profiler split;
 8. inference: bench_inference.py's configuration at full width through the
    Predictor: STUNet-B (6 stages, 1 input channel, 3 classes), a
    240x240x155 volume, patch 128^3, step 0.5, 18 tiles, 8-flip mirror TTA,
@@ -212,12 +229,12 @@ Phases, each of which raises on a failed check:
    at 1, and match the uncapped tile batch 1 logits within 1e-3 relative.
 
 A kernel's time is the median of three runs of back-to-back calls, each
-run timed with CUDA events, after a warm-up call. Each main path (7-15)
-runs with the launch counts set to 0 just before it and read just after
-(13: each entry; 15: each rank's runs), and every launch it makes (15: in
-every rank) must be at a shape that phases 3 and 4 (and 11's to 15's
-gates) held against the plain version (kernel #2's: its path shapes in
-phase 3); phase 16 runs after that check,
+run timed with CUDA events, after a warm-up call. Each main path (7-15,
+7b included) runs with the launch counts set to 0 just before it and read
+just after (13: each entry; 15: each rank's runs), and every launch it
+makes (15: in every rank) must be at a shape that phases 3, 4 and 5b (and
+11's to 15's gates) held against the plain version (kernel #2's: its path
+shapes in phase 3); phase 16 runs after that check,
 as its tile batch 2 launches at B = 16 on the 4-channel PlainConvUNet.
 Between phases, free_memory collects reference
 cycles and empties the allocator's cache, so that each phase's memory
@@ -286,7 +303,8 @@ from anatomask_torch.ssl.pretrain import (Lamb, PretrainConfig, PretrainTrainer,
                                           make_optimizer, make_teacher)
 from anatomask_torch.ssl import pretrain as pretrain_mod
 from anatomask_torch.ssl.decoder import DSDecoder, SMiMDecoder, SMiMTwoDecoder
-from anatomask_torch.ssl.sparse import SparseConvNeXtBlock, mask_to_resolution, upsample_mask
+from anatomask_torch.ssl.sparse import (SparseConvNeXtBlock, SparseSTUNetEncoder,
+                                        mask_to_resolution, upsample_mask)
 from anatomask_torch.ssl.spark import random_keep_mask, spark_loss
 from anatomask_torch.training import checkpoint as ckpt_mod
 from anatomask_torch.training import trainer as trainer_mod
@@ -453,6 +471,23 @@ CASCADE_IN = 1 + 2
 DA5_STEPS = 3
 STEPS, WARMUP = 5, 2
 FMAP, LEN_KEEP = (7, 7, 8), 157  # the step's patch grid and visible patches
+# the block-sparse route (ATK_BLOCK_SPARSE=1, two stages): stages 0 and 1 of
+# the step's encoder run on the LEN_KEEP visible 16^3 patches a sample alone,
+# BLOCKS blocks of 16^3 at stage 0 and 8^3 at stage 1
+BLOCKS = BATCH * LEN_KEEP
+# (call site, C, F, halo'd edge e) of each stride-1 block conv of one forward:
+# kernel #2 at padding 0 (e^3 -> (e-2)^3); the dx of each but the stem is
+# kernel #1 at padding 2 ((e-2)^3 -> e^3)
+BLOCK_SITES = (("enc0.conv1", 1, 32, 18), ("enc0.conv2", 32, 32, 18), ("enc1.conv2", 64, 64, 10))
+# (call site, block edge, C) of each block norm: the moments of (B, K * bs,
+# bs, bs, C), no mask, x squared in fp32
+BLOCK_NORMS = (("enc0.norm1", 16, 32), ("enc0.norm2", 16, 32), ("enc1.norm1", 8, 64),
+               ("enc1.norm2", 8, 64))
+# a block step's launches by padding (two forwards, the student's dx): the
+# block sites' forwards at 0, their dx at 2, every other conv at 1 as in a
+# dense step
+BLOCK_STEP_PADDINGS = {"conv3x3.p0": 0, "conv3x3.p1": 32, "conv3x3.p2": 2,
+                       "zslab.p0": 6, "zslab.p1": 10, "zslab.p2": 0}
 # bench_inference.py's configuration
 VOLUME, NUM_CLASSES, PATCH = (240, 240, 155), 3, (128, 128, 128)
 TILES, VOLUMES = 18, 3
@@ -552,6 +587,14 @@ def since(before):
     return {k: now[k] - before[k] for k in COUNT_KEYS}
 
 
+def padding_counts():
+    """Each conv kernel's launches so far by padding (1: 'same'; 0 and 2: the
+    block-sparse route's VALID forward and its dx)."""
+    return {f"{label}.p{p}": n for label, fn_ in (("conv3x3", conv3d_3x3), ("zslab", conv3d_zslab))
+            for p, n in fn_.launches_by_padding.items()}
+
+
+
 def per_tap(vol):
     """The main path rounds this 3x3x3 conv per tap: its forward runs kernel #2
     (models/layers.py ConvND), its dx kernel #1."""
@@ -577,6 +620,9 @@ def path_launches(sites, norms, forwards, backward, stem=True):
 # step and a tile forward
 STEP_LAUNCHES = path_launches(SITES, PRETRAIN_NORMS, 2, True)
 VAL_LAUNCHES = path_launches(SITES, PRETRAIN_NORMS, 1, False)
+# a dense step's launches by padding: every conv at 1
+STEP_PADDINGS = {k: (STEP_LAUNCHES[f"{k[:-3]}.hopper"] + STEP_LAUNCHES[f"{k[:-3]}.simple"]
+                     if k.endswith("p1") else 0) for k in BLOCK_STEP_PADDINGS}
 TILE_LAUNCHES = path_launches(INFER_SITES, INFER_NORMS, 1, False)
 PLAIN_TILE_LAUNCHES = path_launches(PLAIN_INFER_SITES, PLAIN_INFER_NORMS, 1, False)
 # the supervised paths: a STUNet-B finetuning step (one forward, dx everywhere
@@ -1081,7 +1127,7 @@ def moments_phase(gen):
           f"{plain_tile['bound_ms']:.3f} ms, var_mean {plain_tile['library_ms']:.3f} ms")
     checked = {(b, *vol, C, masked, sq) for b, vol, C, masked in timed for sq in (False, True)}
     return (max_abs, max_rel, (step, step_dev), (volume, volume_dev),
-            (plain_tile, plain_tile_dev), checked)
+            (plain_tile, plain_tile_dev), checked, timed)
 
 
 def zconcat_site(C, F, vol, batch, gen, dx, timed=True):
@@ -1165,13 +1211,14 @@ def zconcat_phase(gen, k1_step, k1_infer):
           f"tile {plain_tile['ms']:.3f} ms (bound {plain_tile['bound_ms']:.3f}, F.conv3d "
           f"{plain_tile['library_ms']:.3f})")
     checked = {(b, *vol, C, F) for b, C, F, vol in timed}
-    return max_abs, max_rel, step, volume, plain_tile, checked
+    return max_abs, max_rel, step, volume, plain_tile, checked, timed
 
 
 class LaunchShapes:
     """Records the shape of every kernel launch while it is on: each conv's
-    (B, X, Y, Z, C, F) and the moments' (B, X, Y, Z, C, masked,
-    square_in_dtype). It wraps each module's launch function and leaves the
+    (B, X, Y, Z, C, F) at padding 1, (B, X, Y, Z, C, F, padding) at 0 or 2
+    (the block-sparse route; X, Y, Z the input's), and the moments' (B, X,
+    Y, Z, C, masked, square_in_dtype). It wraps each module's launch function and leaves the
     launch counts to the wrappers; `paused` is a stretch whose launches (a
     gate's, inside a path's phase) it does not record."""
 
@@ -1181,15 +1228,18 @@ class LaunchShapes:
         conv_launch, zslab_launch = conv_mod._launch, zslab_mod._launch
         moments_launch = moments_mod._launch
 
-        def conv(x, w):
-            if self.on:
-                self.conv.add((*x.shape, w.shape[-1]))
-            return conv_launch(x, w)
+        def key(x, w, padding):
+            return (*x.shape, w.shape[-1]) + (() if padding == 1 else (padding,))
 
-        def zslab(x, w):
+        def conv(x, w, padding):
             if self.on:
-                self.zslab.add((*x.shape, w.shape[-1]))
-            return zslab_launch(x, w)
+                self.conv.add(key(x, w, padding))
+            return conv_launch(x, w, padding)
+
+        def zslab(x, w, padding):
+            if self.on:
+                self.zslab.add(key(x, w, padding))
+            return zslab_launch(x, w, padding)
 
         def moments(x, mask, square_in_dtype):
             if self.on:
@@ -1353,7 +1403,13 @@ def remat_phase():
     return worst
 
 
-def slice_phase():
+def slice_phase(block=False):
+    """5 AnatoMask steps at full STUNet-B width, the dense route or with
+    `block` the block-sparse one (ATK_BLOCK_SPARSE=1 set by the caller), from
+    the same seeded weights and draws. Returns the launches of the 5 steps,
+    the step ms (median of steps 3-5), the peak memory and the losses."""
+    tag = "[block]" if block else "[slice]"
+    want_pads = BLOCK_STEP_PADDINGS if block else STEP_PADDINGS
     cfg = PretrainConfig()
     student = build_spark_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
     teacher = make_teacher(student)
@@ -1366,16 +1422,19 @@ def slice_phase():
     check(student.fmap == FMAP and student.len_keep == LEN_KEEP and len_loss == 58,
           f"main-path sizes {student.fmap} {student.len_keep} {len_loss}")
     n_params = sum(p.numel() for p in student.parameters())
-    print(f"[slice] STUNet-B SparK, {n_params} parameters, patch {cfg.patch_size}, "
+    encoder = student.sparse_encoder.sp_cnn
+    n_block = encoder._block_stage_count(x, torch.ones((1, 1, *FMAP), dtype=torch.bool))
+    check(n_block == (2 if block else 0), f"{tag} block-sparse stages {n_block}")
+    print(f"{tag} STUNet-B SparK, {n_params} parameters, patch {cfg.patch_size}, "
           f"batch {BATCH}, bf16; fmap {student.fmap}, keep {student.len_keep}, "
-          f"forced {len_loss}")
+          f"forced {len_loss}, block-sparse stages {n_block}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times, losses = [], []
     # counts from here on belong to the pretraining path
     zero_counts()
     for step in range(STEPS):
-        before = counts()
+        before, pads = counts(), padding_counts()
         old = [p.detach().clone() for p in teacher.parameters()]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1395,20 +1454,264 @@ def slice_phase():
         # the stem's two (C = 1) simple; 44 moments
         n = since(before)
         check(n == STEP_LAUNCHES, f"step {step}: launches {n}, expected {STEP_LAUNCHES}")
+        n_pad = {k: v - pads[k] for k, v in padding_counts().items()}
+        check(n_pad == want_pads, f"{tag} step {step}: launches by padding {n_pad}, "
+              f"expected {want_pads}")
         moved = False
         for e, o, p in zip(teacher.parameters(), old, student.parameters()):
             want = o + 0.001 * (p.detach() - o)
             check((e - want).abs().max().item() <= 1e-6, f"step {step}: EMA law broken")
             moved = moved or not torch.equal(e, o)
         check(moved, f"step {step}: the teacher did not move")
-        print(f"[slice] step {step}: loss {losses[-1]:.6f}, {times[-1]:.1f} ms, launches {n}")
+        print(f"{tag} step {step}: loss {losses[-1]:.6f}, {times[-1]:.1f} ms, launches {n}"
+              f"{f', by padding {n_pad}' if block else ''}")
     launches = counts()
     step_ms = statistics.median(times[WARMUP:])
     peak = torch.cuda.max_memory_allocated()
-    print(f"[slice] step {step_ms:.1f} ms (median of {STEPS - WARMUP}), "
+    print(f"{tag} step {step_ms:.1f} ms (median of {STEPS - WARMUP}), "
           f"{BATCH / step_ms * 1e3:.3f} patches/s, peak memory {peak / 2**30:.2f} GiB "
           f"({peak} bytes), launches in {STEPS} steps {launches}")
-    return launches, step_ms
+    split = profile_steps(lambda: anatomask_train_step(student, teacher, optimizer, x, len_loss,
+                                                       gen), PROFILED_STEPS)
+    print(f"{tag} profiled ({PROFILED_STEPS} more steps, device ms a step by kernel group): "
+          f"{split}")
+    return launches, step_ms, peak, losses
+
+
+def block_flops(C, F, e_in, e_out, batch=BLOCKS):
+    """The operations one padded 3x3x3 conv of `batch` blocks of e_in^3 into
+    e_out^3 voxels needs: those of the VALID conv between the two, 27 taps
+    for each of the min(e_in, e_out)^3 voxels (the dx at padding 2 is the
+    forward at padding 0 transposed; its other taps read the padding)."""
+    return 2 * batch * min(e_in, e_out) ** 3 * 27 * C * F
+
+
+def block_bound_ms(C, F, e_in, e_out, batch=BLOCKS):
+    """(FLOP ms, byte ms) of one padded 3x3x3 conv of `batch` blocks of e_in^3
+    into e_out^3 voxels."""
+    n_in, n_out = batch * e_in ** 3, batch * e_out ** 3
+    flops = block_flops(C, F, e_in, e_out, batch)
+    nbytes = (n_in * C + 27 * C * F + n_out * F) * 2
+    return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def block_site(C, F, e, gen):
+    """Kernel #2 at padding 0 on BLOCKS halo'd blocks of e^3 and, for C > 1,
+    dx through conv3d_zconcat (kernel #1 at padding 2) against the plain
+    versions, with zconcat_site's gates (rel. max error <= 1e-2, bit-equal
+    on >= 95%, kernel #1's one rounding at least 10 points fewer on the
+    forward); then the times of each beside the plain version's and
+    F.conv3d's at the same padding. Returns max abs err, max rel err, the
+    variant and {"fwd": (ms, plain, lib)[, "dx": ...]}."""
+    x, w = conv_inputs(C, F, (e,) * 3, BLOCKS, torch.bfloat16, gen)
+    variant = igemm_variant(x, w)
+    y_k, y_p = conv3d_zslab_forward(x, w, 0), conv3d_zslab_plain(x, w, 0)
+    once = (conv3d_3x3_forward(x, w, 0) == y_p).float().mean().item()
+    errs, shares = [rel_err(y_k, y_p)], [(y_k == y_p).float().mean().item()]
+    abs_err = (y_k.float() - y_p.float()).abs().max().item()
+    del y_k, y_p
+    xc, wc = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous()
+    times = {"fwd": (time_ms(lambda: conv3d_zslab_forward(x, w, 0), 3),
+                     time_ms(lambda: conv3d_zslab_plain(x, w, 0), 1),
+                     time_ms(lambda: fn.conv3d(xc, wc, None, 1, 0), 3))}
+    if C > 1:
+        g = torch.randn((BLOCKS, *(e - 2,) * 3, F), generator=gen, device="cuda").to(torch.bfloat16)
+        xg = x.detach().requires_grad_(True)
+        dx_k, = torch.autograd.grad(conv3d_zconcat(xg, w, 0), xg, g)
+        wf = flip_weight(w)
+        dx_p = conv3d_3x3_plain(g, wf, 2)
+        errs.append(rel_err(dx_k, dx_p))
+        shares.append((dx_k == dx_p).float().mean().item())
+        abs_err = max(abs_err, (dx_k.float() - dx_p.float()).abs().max().item())
+        del xg, dx_k, dx_p
+        gc_, wfc = g.permute(0, 4, 1, 2, 3), wf.permute(4, 3, 0, 1, 2).contiguous()
+        times["dx"] = (time_ms(lambda: conv3d_3x3_forward(g, wf, 2), 3),
+                       time_ms(lambda: conv3d_3x3_plain(g, wf, 2), 1),
+                       time_ms(lambda: fn.conv3d(gc_, wfc, None, 1, 2), 3))
+    torch.cuda.synchronize()
+    check(all(math.isfinite(e_) and e_ <= 1e-2 for e_ in errs),
+          f"block {C}->{F} @{e}^3: rel errors (fwd, dx) {errs} > 1e-2")
+    check(min(shares) >= 0.95 and once <= shares[0] - 0.1,
+          f"block {C}->{F} @{e}^3: bit-equal shares (fwd, dx) {shares}, kernel #1 fwd {once}")
+    print(f"[block] kernel #2 p=0 {C:>2}->{F:<2} {BLOCKS} x {e}^3 ({variant}): rel err "
+          f"{max(errs):.3e}, bit-equal to plain fwd {shares[0]:.6f}"
+          f"{f', dx (kernel #1 p=2) {shares[1]:.6f}' if C > 1 else ''}, kernel #1 fwd {once:.6f}")
+    torch.cuda.empty_cache()
+    return abs_err, max(errs), variant, times
+
+
+def block_gate_phase(gen):
+    """The block-sparse route's kernel launches held against the plain
+    versions at every shape of its step: kernel #2 at padding 0 and kernel #1
+    at padding 2 (block_site), bf16 off-path shapes at both paddings on both
+    kernels (ragged M, BN = 32; <= 1e-2), fp32 ones (<= 1e-5), and the block
+    norms' moments (bf16 and fp32, with and without square_in_dtype; <= 1e-5,
+    two calls bit-equal). Prints each block launch's time beside its bound,
+    the plain version's and the library call's. Returns {kernel: (max abs,
+    max rel)}, the times by block site and norm, and the checked shapes."""
+    errs = {"conv3x3": (0.0, 0.0), "zslab": (0.0, 0.0), "moments": (0.0, 0.0)}
+    checked = {"conv3x3": set(), "zslab": set(), "moments": set()}
+
+    def worst(kernel, a, r):
+        errs[kernel] = (max(errs[kernel][0], a), max(errs[kernel][1], r))
+
+    sites = {}
+    for name, C, F, e in BLOCK_SITES:
+        a, r, variant, times = block_site(C, F, e, gen)
+        worst("zslab", a, r)
+        if C > 1:
+            worst("conv3x3", a, r)
+            checked["conv3x3"].add((BLOCKS, *(e - 2,) * 3, F, C, 2))
+        checked["zslab"].add((BLOCKS, *(e,) * 3, C, F, 0))
+        sites[name] = times
+        for part, (ms, plain, lib) in times.items():
+            c_in, c_out, e_in, e_out = (C, F, e, e - 2) if part == "fwd" else (F, C, e - 2, e)
+            flop_ms, byte_ms = block_bound_ms(c_in, c_out, e_in, e_out)
+            tflops = block_flops(c_in, c_out, e_in, e_out) / ms / 1e9
+            kernel = "kernel #2 p=0" if part == "fwd" else "kernel #1 p=2"
+            by = "operations" if flop_ms >= byte_ms else "bytes"
+            print(f"[block] {name} {part} ({kernel}) {c_in}->{c_out} {e_in}^3 -> {e_out}^3: "
+                  f"{ms:.3f} ms ({tflops:.1f} TFLOP/s), bound {max(flop_ms, byte_ms):.3f} ms "
+                  f"({by}), plain {plain:.3f} ms, F.conv3d {lib:.3f} ms")
+    # (B, vol, C, F): ragged M with BN = 32 (F = 96, 160) in bf16; the simple
+    # variant's fp32 at C = 32, the C = 1 stem and C != F over one N tile
+    edge = ((torch.bfloat16, 1e-2, ((5, (7, 9, 11), 64, 96), (3, (10, 10, 10), 32, 160))),
+            (torch.float32, 1e-5, ((2, (10, 11, 12), 32, 32), (2, (9, 9, 9), 1, 32),
+                                   (3, (6, 7, 8), 48, 80))))
+    for dtype, tol, shapes in edge:
+        for batch, vol, C, F in shapes:
+            x, w = conv_inputs(C, F, vol, batch, dtype, gen)
+            for padding in (0, 2):
+                for label, kern, plain_fn in (("conv3x3", conv3d_3x3_forward, conv3d_3x3_plain),
+                                              ("zslab", conv3d_zslab_forward, conv3d_zslab_plain)):
+                    y_k, y_p = kern(x, w, padding), plain_fn(x, w, padding)
+                    r = rel_err(y_k, y_p)
+                    check(math.isfinite(r) and r <= tol, f"{label} p={padding} {C}->{F} @{vol} "
+                          f"B={batch} {dtype}: rel error {r} > {tol}")
+                    worst(label, (y_k.float() - y_p.float()).abs().max().item(), r)
+            print(f"[block] {str(dtype)[6:]} B={batch} {C}->{F} @{vol} ({igemm_variant(x, w)}): "
+                  f"both kernels at p=0 and p=2 within {tol} of the plain versions")
+    norms = {}
+    for bs, C in sorted({(bs, C) for _, bs, C in BLOCK_NORMS}):
+        vol = (LEN_KEEP * bs, bs, bs)
+        for dtype in (torch.bfloat16, torch.float32):
+            x, _ = moments_inputs(BATCH, vol, C, False, dtype, gen)
+            for square in (False, True):
+                a, r = moments_err(x, None, square)
+                check(math.isfinite(r) and r <= 1e-5, f"block moments {vol} C={C} {dtype} "
+                      f"square_in_dtype={square}: rel error {r} > 1e-5")
+                worst("moments", a, r)
+            if dtype == torch.bfloat16:
+                ms = time_ms(lambda: row_moments_forward(x, None, False), 20)
+                plain = time_ms(lambda: row_moments_plain(x, None, False), 3)
+                lib = time_ms(lambda: torch.var_mean(x, dim=(1, 2, 3), correction=0), 5)
+                visible = BATCH * math.prod(vol)
+                norms[(bs, C)] = (ms, plain, lib, moments_bound_ms(BATCH, vol, C, False, visible))
+                flop_ms, byte_ms = norms[(bs, C)][3]
+                print(f"[block] moments B={BATCH} {vol} C={C}, no mask, square_in_dtype=0: "
+                      f"{ms:.4f} ms, bound {max(flop_ms, byte_ms):.4f} ms, plain {plain:.4f} ms, "
+                      f"var_mean {lib:.4f} ms; bf16 and fp32 within 1e-5, two calls bit-equal")
+        checked["moments"].add((BATCH, *vol, C, False, False))
+        torch.cuda.empty_cache()
+    return errs, (sites, norms), checked
+
+
+def block_step_totals(k1_step, zc_timed, mom_timed, block):
+    """One block step's TOTAL_KEYS totals a kernel: the dense step's
+    launches (conv_phase, zconcat_phase, moments_phase times) with the block
+    sites' and norms' in place of the dense ones they replace."""
+    sites, norms = block
+    replaced = {name for name, *_ in BLOCK_SITES}
+    totals = {k: dict.fromkeys(TOTAL_KEYS, 0.0) for k in ("conv3x3", "zslab", "moments")}
+    for name, C, F, vol in SITES:
+        if per_tap(vol) and name not in replaced:
+            add_totals(totals["zslab"], 2, *zc_timed[(BATCH, C, F, vol)], *bound_ms(C, F, vol))
+        elif not per_tap(vol):
+            add_totals(totals["conv3x3"], 2, *k1_step[(C, F, vol)], *bound_ms(C, F, vol))
+        if name not in replaced:  # the dx of every conv but the stem and the block sites'
+            add_totals(totals["conv3x3"], 1, *k1_step[(F, C, vol)], *bound_ms(F, C, vol))
+    for name, C, F, e in BLOCK_SITES:
+        add_totals(totals["zslab"], 2, *sites[name]["fwd"], *block_bound_ms(C, F, e, e - 2))
+        if "dx" in sites[name]:
+            add_totals(totals["conv3x3"], 1, *sites[name]["dx"], *block_bound_ms(F, C, e - 2, e))
+    block_norms = {name for name, *_ in BLOCK_NORMS}
+    for name, vol, C, masked in PRETRAIN_NORMS:
+        if name not in block_norms:
+            ms, plain, lib, visible = mom_timed[(BATCH, vol, C, masked)]
+            add_totals(totals["moments"], 2, ms[1], plain, lib,
+                       *moments_bound_ms(BATCH, vol, C, masked, visible))
+    for _, bs, C in BLOCK_NORMS:
+        ms, plain, lib, bounds = norms[(bs, C)]
+        add_totals(totals["moments"], 2, ms, plain, lib, *bounds)
+    for kernel, t in totals.items():
+        print(f"[block] step {kernel}: {t['ms']:.3f} ms, bound {t['bound_ms']:.3f} ms, plain "
+              f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms")
+    return totals
+
+
+def block_step_phase(dense_step_ms, dense_losses, shapes):
+    """The block-sparse route at full width: the STUNet-B encoder in fp32
+    with ATK_BLOCK_SPARSE=1 against without it on one masked batch (every
+    feature within 1e-5 of its largest entry), two backward passes of it in
+    bf16 through the route (bit-equal gradients), then slice_phase's 5
+    AnatoMask steps with it (launches by kernel and variant as a dense
+    step's, by padding BLOCK_STEP_PADDINGS), printed beside the dense step
+    of this process. Returns the launches, step ms, peak memory."""
+    os.environ["ATK_BLOCK_SPARSE"] = "1"
+    os.environ.pop("ATK_BLOCK_SPARSE_STAGES", None)
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        enc = SparseSTUNetEncoder(1, (32, 64, 128, 256, 512), torch.float32,
+                                  torch.Generator().manual_seed(3), len_keep=LEN_KEEP).to("cuda")
+        keep = random_keep_mask(BATCH, FMAP, LEN_KEEP, gen)
+        x = torch.rand((BATCH, 1, *PretrainConfig().patch_size), generator=gen, device="cuda")
+        x = (x * upsample_mask(keep, (16, 16, 16))).contiguous(memory_format=torch.channels_last_3d)
+        check(enc._block_stage_count(x, keep) == 2, "the encoder does not take the block route")
+        with shapes.paused(), torch.no_grad():  # fp32: a check, not the path
+            before = padding_counts()
+            got = enc(x, keep)
+            torch.cuda.synchronize()
+            pads = {k: v - before[k] for k, v in padding_counts().items()}
+            os.environ["ATK_BLOCK_SPARSE"] = "0"
+            want = enc(x, keep)
+            os.environ["ATK_BLOCK_SPARSE"] = "1"
+        errs = [rel_err(a, b) for a, b in zip(got, want)]
+        check(pads["zslab.p0"] == 3 and all(math.isfinite(e) and e <= 1e-5 for e in errs),
+              f"block encoder fp32 vs dense: rel errors {errs}, launches by padding {pads}")
+        print(f"[block] STUNet-B encoder fp32, B={BATCH}, keep {LEN_KEEP}: block route vs dense, "
+              f"rel err by feature {', '.join(f'{e:.3e}' for e in errs)}; launches by padding "
+              f"{pads}")
+        del enc, got, want
+        # two backward passes through the route in bf16, the step's dtype, with
+        # cuDNN held to its deterministic algorithms: the same bits (the halo's
+        # backward gathers; it has no atomics)
+        enc = SparseSTUNetEncoder(1, (32, 64, 128, 256, 512), torch.bfloat16,
+                                  torch.Generator().manual_seed(3), len_keep=LEN_KEEP).to("cuda")
+        saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        grads = []
+        try:
+            with shapes.paused():
+                for _ in range(2):
+                    enc.zero_grad(set_to_none=True)
+                    sum(f.float().square().mean() for f in enc(x, keep)).backward()
+                    grads.append([p.grad.clone() for p in enc.parameters()])
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+        check(all(torch.equal(a, b) for a, b in zip(*grads)),
+              "block route: two bf16 backward passes gave different gradients")
+        print(f"[block] STUNet-B encoder bf16: two backward passes through the route, gradients "
+              f"bit-equal over {len(grads[0])} leaves")
+        del enc, grads, x
+        free_memory()
+        launches, step_ms, peak, losses = slice_phase(block=True)
+    finally:
+        os.environ.pop("ATK_BLOCK_SPARSE", None)
+    print(f"[block] step {step_ms:.1f} ms against the dense step's {dense_step_ms:.1f} ms "
+          f"({step_ms / dense_step_ms:.4f}x), {BATCH / step_ms * 1e3:.3f} patches/s, peak "
+          f"{peak / 2**30:.2f} GiB; first loss {losses[0]:.6f} against the dense route's "
+          f"{dense_losses[0]:.6f} (same weights and draws)")
+    return launches, step_ms, peak
 
 
 def inference_reference_phase():
@@ -3641,10 +3944,11 @@ def main():
     (conv_err, conv_rel, conv_step, conv_volume, conv_tile, conv_checked, k1_step,
      k1_infer) = conv_phase(gen)
     free_memory()
-    zc_err, zc_rel, zc_step, zc_volume, zc_tile, zc_checked = zconcat_phase(gen, k1_step,
-                                                                             k1_infer)
+    zc_err, zc_rel, zc_step, zc_volume, zc_tile, zc_checked, zc_timed = zconcat_phase(
+        gen, k1_step, k1_infer)
     free_memory()
-    mom_err, mom_rel, mom_step, mom_volume, mom_tile, mom_checked = moments_phase(gen)
+    (mom_err, mom_rel, mom_step, mom_volume, mom_tile, mom_checked,
+     mom_timed) = moments_phase(gen)
     free_memory()
     zs_err, zs_rel, zs_probe, zs_variants = zslab_phase(gen)
     zc_err, zc_rel = max(zc_err, zs_err), max(zc_rel, zs_rel)
@@ -3661,13 +3965,23 @@ def main():
     zc_err, zc_rel = max(zc_err, h_errs["zslab"][0]), max(zc_rel, h_errs["zslab"][1])
     mom_err, mom_rel = max(mom_err, h_errs["moments"][0]), max(mom_rel, h_errs["moments"][1])
     free_memory()
+    block_errs, block_times, block_checked = block_gate_phase(gen)
+    conv_err, conv_rel = (max(conv_err, block_errs["conv3x3"][0]),
+                          max(conv_rel, block_errs["conv3x3"][1]))
+    zc_err, zc_rel = max(zc_err, block_errs["zslab"][0]), max(zc_rel, block_errs["zslab"][1])
+    mom_err, mom_rel = (max(mom_err, block_errs["moments"][0]),
+                        max(mom_rel, block_errs["moments"][1]))
+    block_tot = block_step_totals(k1_step, zc_timed, mom_timed, block_times)
+    free_memory()
 
     reference_phase()
     remat_phase()
     inference_reference_phase()
     free_memory()
     shapes = LaunchShapes()  # from here on, only the main paths launch kernels
-    pretrain, bare_step_ms = slice_phase()
+    pretrain, bare_step_ms, _, dense_losses = slice_phase()
+    free_memory()
+    block_launches, _, _ = block_step_phase(bare_step_ms, dense_losses, shapes)
     free_memory()
     inference = inference_phase()
     free_memory()
@@ -3692,9 +4006,9 @@ def main():
         free_memory()
         h_finetune = h_transfer_phase(root, h_final)
     free_memory()
-    checked = {"conv3x3": conv_checked | sup_checked["conv3x3"] | h_checked["conv3x3"],
-               "zslab": zc_checked | sup_checked["zslab"] | h_checked["zslab"],
-               "moments": mom_checked | sup_checked["moments"] | h_checked["moments"]}
+    checked = {k: v | sup_checked[k] | h_checked[k] | block_checked[k]
+               for k, v in (("conv3x3", conv_checked), ("zslab", zc_checked),
+                            ("moments", mom_checked))}
     with tempfile.TemporaryDirectory() as root:
         cli_launches, cli_errs, cli_step, cli_case = cli_phase(root, gen, checked, shapes)
     free_memory()
@@ -3731,7 +4045,7 @@ def main():
             "files": files, "supervised": supervised, "plain_trainer": plain_trainer,
             "da5_trainer": da5_trainer, "pretrain_h": h_pretrain,
             "pretrain_h_trainer": h_trainer, "finetune_h": h_finetune, "cli": cli_launches,
-            "cascade": casc_launches, "ddp": ddp_launches}
+            "cascade": casc_launches, "ddp": ddp_launches, "block_step": block_launches}
     per = ("one pretraining step (B = 4), one inference volume (18 STUNet-B tiles at B = 8), "
            f"one case of the file path ({case_tiles} PlainConvUNet tiles at B = 8), one "
            "STUNet-B finetuning step and one ATKTrainer PlainConvUNet step (B = 2), one "
@@ -3751,7 +4065,10 @@ def main():
            "(every entry) and the ddp phase's (every rank's steps and trainer runs, at world 2 "
            "over gloo and at world 1 over NCCL) too; ddp_pretrain_rank_step is one rank's "
            f"pretraining step at world {DDP_WORLD} ({DDP_ACCUM} microbatches at B = "
-           f"{DDP_MICRO}), ddp_supervised_rank_step one rank's STUNet-B finetuning step (B = 1)")
+           f"{DDP_MICRO}), ddp_supervised_rank_step one rank's STUNet-B finetuning step (B = 1); "
+           "block_step is one pretraining step (B = 4) with ATK_BLOCK_SPARSE=1: stages 0-1 on "
+           f"{BLOCKS} blocks (kernel #2 at padding 0, kernel #1's dx at padding 2, the block "
+           "norms' moments), the rest as the step's")
 
     def case(tile):  # one PlainConvUNet tile's totals -> one case's
         return {k: case_tiles * v for k, v in tile.items()}
@@ -3770,7 +4087,8 @@ def main():
          "pretrain_h_step": h_step["zslab"], "finetune_h_step": h_sup["zslab"],
          "cli_plain_step": cli_step["zslab"], "cli_case": cli_case["zslab"],
          "cascade_step": casc_step["zslab"], "cascade_case": casc_case["zslab"],
-         "ddp_pretrain_rank_step": ddp_pre["zslab"], "ddp_supervised_rank_step": ddp_sup["zslab"]},
+         "ddp_pretrain_rank_step": ddp_pre["zslab"], "ddp_supervised_rank_step": ddp_sup["zslab"],
+         "block_step": block_tot["zslab"]},
         per + "; the main paths' per-tap forwards through conv3d_zconcat", by_variant("zslab"))
     zslab_record["probe"] = {"launches_by_variant": zs_variants, **{
         k: zs_probe[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -3785,7 +4103,7 @@ def main():
          "finetune_h_step": h_sup["moments"], "cli_plain_step": cli_step["moments"],
          "cli_case": cli_case["moments"], "cascade_step": casc_step["moments"],
          "cascade_case": casc_case["moments"], "ddp_pretrain_rank_step": ddp_pre["moments"],
-         "ddp_supervised_rank_step": ddp_sup["moments"]},
+         "ddp_supervised_rank_step": ddp_sup["moments"], "block_step": block_tot["moments"]},
         per + "; ms is the call (host and device, CUDA events), device_ms the kernel "
         "(torch.profiler)")
     case_dev = None if mom_tile[1] is None else case_tiles * mom_tile[1]
@@ -3806,7 +4124,8 @@ def main():
                        "cascade_step": casc_step["conv3x3"],
                        "cascade_case": casc_case["conv3x3"],
                        "ddp_pretrain_rank_step": ddp_pre["conv3x3"],
-                       "ddp_supervised_rank_step": ddp_sup["conv3x3"]},
+                       "ddp_supervised_rank_step": ddp_sup["conv3x3"],
+                       "block_step": block_tot["conv3x3"]},
                       per,
                       by_variant("conv3x3")),
         moments_record,

@@ -86,7 +86,7 @@ def test_dx_pass_runs_only_where_the_input_needs_it(monkeypatch, x_needs_grad, p
     calls = []
     forward = conv_mod.conv3d_3x3_forward
     monkeypatch.setattr(conv_mod, "conv3d_3x3_forward",
-                        lambda x, w: calls.append(x.shape) or forward(x, w))
+                        lambda x, w, padding=1: calls.append(x.shape) or forward(x, w, padding))
     x, w = _inputs((1, 4, 4, 4, 1), 2, seed=3)
     xt = torch.from_numpy(x).requires_grad_(x_needs_grad)
     wt = torch.from_numpy(w).requires_grad_(True)

@@ -56,7 +56,11 @@ def test_package_has_the_mirrored_modules():
                 "planning.planner", "planning.move_plans", "postprocessing.components",
                 "ensembling.ensemble", "evaluation.find_best_configuration",
                 "utils.model_sharing", "dataset_conversion.generate_dataset_json", "cli",
-                "parallel.mesh"):
+                "parallel.mesh", "ops.block_sparse", "dataset_conversion.convert_msd",
+                "dataset_conversion.convert_challenges", "dataset_conversion.convert_acdc",
+                "dataset_conversion.convert_brats",
+                "dataset_conversion.integration_test_datasets", "utils.batch_running",
+                "utils.collate", "utils.overlay_plots"):
         assert f"anatomask_torch.{mod}" in names
 
 
