@@ -11,6 +11,18 @@ What differs from the JAX entries:
   visible cards raises). Above one, the entry's body runs in that many
   spawned processes of one group (`parallel/mesh.py` `launch`): NCCL, a card
   each; with `-device cpu`, gloo ranks on the CPU;
+- on several nodes, the counterpart of the JAX entries' multi-host start:
+  PyTorch's launcher starts one process a rank on every node,
+
+      torchrun --nnodes 2 --nproc_per_node 8 --node_rank K --master_addr HOST \
+          --master_port PORT -m anatomask_torch.cli train 950 3d_fullres 0
+
+  and each joins the group its variables describe (`mesh.run_joined`) and
+  runs the entry's body as that rank, on its node's card LOCAL_RANK (NCCL;
+  gloo with `-device cpu` or a device that names one card, which the
+  node's ranks then share). It never spawns; `-num_gpus`, if given, must be
+  the launcher's WORLD_SIZE. A partial set of the launcher's variables or a
+  failed join raises (JAX carries on in one process);
 - `predict -compute_dtype` maps to torch.bfloat16 / torch.float32.
 """
 from __future__ import annotations
@@ -34,12 +46,16 @@ def _verify_integrity(dataset_name_or_id, num_processes: int) -> None:
 
 
 def _run_ranks(body, a: argparse.Namespace) -> None:
-    """body(a) in this process at one rank, else in `launch`'s ranks."""
+    """body(a) as this process's rank of the launcher's group where its
+    variables are set, else in this process at one rank, else in `launch`'s
+    ranks."""
     from anatomask_torch.device import resolve_device
     from anatomask_torch.parallel import mesh
     world = mesh.world_size_for(a.device, a.num_gpus)
     resolve_device(a.device)
-    if world == 1:
+    if mesh.launcher_env() is not None:
+        mesh.run_joined(body, a.device, a)
+    elif world == 1:
         body(a)
     else:
         mesh.launch(body, world, a.device, a)
@@ -138,7 +154,8 @@ def train_entry(argv: Optional[List[str]] = None):
     p.add_argument("--disable_checkpointing", action="store_true")
     p.add_argument("-num_gpus", type=int, default=None,
                    help="ranks, one a card (default: every visible card; with -device cpu, "
-                        "gloo ranks, default 1)")
+                        "gloo ranks, default 1; under torchrun: its WORLD_SIZE, which a "
+                        "given value must equal)")
     _device_argument(p)
     _run_ranks(_train, p.parse_args(argv))
 
@@ -194,7 +211,8 @@ def pretrain_entry(argv: Optional[List[str]] = None):
                    help="microbatches a step, gradients summed (exact for per-sample norms)")
     p.add_argument("-num_gpus", type=int, default=None,
                    help="ranks, one a card (default: every visible card; with -device cpu, "
-                        "gloo ranks, default 1)")
+                        "gloo ranks, default 1; under torchrun: its WORLD_SIZE, which a "
+                        "given value must equal)")
     _device_argument(p)
     _run_ranks(_pretrain, p.parse_args(argv))
 
@@ -504,3 +522,19 @@ def download_model_entry(argv: Optional[List[str]] = None):
         print(f"downloading {a.url} ...")
         urllib.request.urlretrieve(a.url, f.name)
         install_model_from_zip_file(f.name)
+
+
+def main(argv: Optional[List[str]] = None):
+    """`python -m anatomask_torch.cli <name> <arguments>`: the entry
+    `<name>_entry`, e.g. under torchrun, which starts a module or a script
+    and not a console script."""
+    import sys
+    argv = sys.argv[1:] if argv is None else argv
+    names = sorted(k[:-len("_entry")] for k in globals() if k.endswith("_entry"))
+    if not argv or argv[0] not in names:
+        raise SystemExit(f"usage: python -m anatomask_torch.cli {{{','.join(names)}}} ...")
+    return globals()[f"{argv[0]}_entry"](argv[1:])
+
+
+if __name__ == "__main__":
+    main()

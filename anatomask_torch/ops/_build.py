@@ -13,6 +13,7 @@ import functools
 import hashlib
 import os
 import shutil
+import socket
 import subprocess
 from pathlib import Path
 
@@ -51,7 +52,8 @@ def build(name: str) -> Path:
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    # the ranks of every node that shares the checkout may build at once
+    tmp = out.with_name(f"{out.name}.{socket.gethostname()}.{os.getpid()}.tmp")
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     res = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if res.returncode != 0:

@@ -14,15 +14,24 @@ all-reduce after the microbatches (`all_reduce_mean_`), is JAX's gradient.
 Without a process group (world 1) every helper is the identity and no
 collective runs. With a group, whatever its size, the collectives run.
 
-The launcher follows the reference nnU-Net's run_training.py:108-142:
-`torch.multiprocessing.spawn`, `init_process_group`, the card set per rank,
-`destroy_process_group`. A rank's exception fails the parent.
+Two ways into a group, one per process:
+- `launch` follows the reference nnU-Net's run_training.py:108-142 on one
+  machine: `torch.multiprocessing.spawn`, `init_process_group`, the card set
+  per rank, `destroy_process_group`. A rank's exception fails the parent.
+- `run_joined` is the counterpart of the JAX package's multi-host start
+  (anatomask_tpu/parallel/mesh.py `maybe_initialize_distributed`): a
+  process that PyTorch's launcher (`torchrun`) started on any node joins the
+  group its variables describe (the env:// rendezvous) as that one rank, on
+  its node's card LOCAL_RANK. Unlike JAX, which carries on in one process
+  when its start fails, a partial set of the variables or a failed join
+  raises: one node alone would train at the wrong global batch.
 """
 from __future__ import annotations
 
+import itertools
 import os
 import socket
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -82,13 +91,61 @@ def barrier() -> None:
         dist.barrier()
 
 
+# what `torchrun` (python -m torch.distributed.run) sets for each process
+LAUNCHER_VARIABLES = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
+                      "LOCAL_WORLD_SIZE")
+
+
+class LauncherEnv(NamedTuple):
+    world: int
+    rank: int
+    local_rank: int
+    local_world: int
+
+
+def launcher_env() -> Optional[LauncherEnv]:
+    """This process's place in the launcher's group, from its variables;
+    None when none of them is set. A partial or inconsistent set raises."""
+    found = {k: os.environ[k] for k in LAUNCHER_VARIABLES if k in os.environ}
+    if not found:
+        return None
+    missing = [k for k in LAUNCHER_VARIABLES if k not in found]
+    if missing:
+        raise RuntimeError(f"launcher variables {sorted(found)} set without {missing}: start "
+                           f"each process with torchrun, or set none of {LAUNCHER_VARIABLES}")
+    try:
+        env = LauncherEnv(*(int(found[k]) for k in LAUNCHER_VARIABLES[2:]))
+    except ValueError as e:
+        raise RuntimeError(f"launcher variables {found}: {e}") from None
+    if not (0 <= env.rank < env.world and 0 <= env.local_rank < env.local_world <= env.world):
+        raise RuntimeError(f"inconsistent launcher variables: RANK {env.rank} of WORLD_SIZE "
+                           f"{env.world}, LOCAL_RANK {env.local_rank} of LOCAL_WORLD_SIZE "
+                           f"{env.local_world}")
+    return env
+
+
 def world_size_for(device, cap: Optional[int] = None) -> int:
-    """The ranks a run takes, as JAX sizes its mesh: every visible CUDA card,
-    capped by `cap` (-num_gpus) or ATK_NUM_DEVICES; on the CPU the cap, else
-    1. A cap above the visible cards raises: two ranks never share a card."""
+    """The ranks a run takes, as JAX sizes its mesh: under the launcher its
+    WORLD_SIZE, else every visible CUDA card, capped by `cap` (-num_gpus) or
+    ATK_NUM_DEVICES; on the CPU the cap, else 1. A cap that is not the
+    launcher's WORLD_SIZE raises (JAX's cap counts the global mesh), as do a
+    cap above the visible cards and, under the launcher with "cuda", more
+    ranks on a node than it has cards: two ranks never share a card unless
+    the device names one (cuda:0)."""
     if not cap:
         cap = int(os.environ.get("ATK_NUM_DEVICES", "0")) or None
-    if torch.device(device).type != "cuda":
+    device = torch.device(device)
+    env = launcher_env()
+    if env is not None:
+        if cap is not None and cap != env.world:
+            raise RuntimeError(f"{cap} ranks asked for (-num_gpus or ATK_NUM_DEVICES) and the "
+                               f"launcher's WORLD_SIZE is {env.world}")
+        visible = torch.cuda.device_count()
+        if device.type == "cuda" and device.index is None and env.local_world > visible:
+            raise RuntimeError(f"LOCAL_WORLD_SIZE {env.local_world} ranks on this node and "
+                               f"{visible} CUDA device(s) visible: one rank a card")
+        return env.world
+    if device.type != "cuda":
         return cap or 1
     visible = torch.cuda.device_count()
     if cap is not None and cap > visible:
@@ -195,16 +252,24 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor],
     return None if extra is None else flat[off:].view_as(extra).to(extra.dtype)
 
 
-# --- the launcher --------------------------------------------------------------
+# --- the launchers -------------------------------------------------------------
 
 def rank_device(device) -> torch.device:
-    """This rank's device: "cuda" without an index is the rank's own card;
-    a device with an index (cuda:0) is every rank's (gloo only), the CPU the
-    CPU."""
+    """This rank's device: "cuda" without an index is the rank's own card on
+    its node (LOCAL_RANK under the launcher, the rank under `launch`); a
+    device with an index (cuda:0) is every rank's (gloo), the CPU the CPU."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None and distributed():
-        return torch.device("cuda", rank())
+        env = launcher_env()
+        return torch.device("cuda", env.local_rank if env is not None else rank())
     return device
+
+
+def backend_for(device) -> str:
+    """NCCL when each rank has its own card ("cuda"), else gloo: on the CPU,
+    and where every rank of a node shares the card that the device names."""
+    device = torch.device(device)
+    return "nccl" if device.type == "cuda" and device.index is None else "gloo"
 
 
 def _free_port() -> int:
@@ -213,27 +278,54 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank_: int, fn: Callable, world_size: int, backend: str, port: int,
-               device: str, args: tuple) -> None:
+def _in_group(fn: Callable, args: tuple, device, local_rank: int, backend: str,
+              **init) -> None:
+    """fn(*args) in the process group that init_process_group(backend, **init)
+    joins, on this process's card; the group is left whatever fn does."""
     device = torch.device(device)
     if device.type == "cuda":
-        torch.cuda.set_device(device.index if device.index is not None else rank_)
-    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", rank=rank_,
-                            world_size=world_size)
+        torch.cuda.set_device(device.index if device.index is not None else local_rank)
+    dist.init_process_group(backend, **init)
     try:
         fn(*args)
     finally:
         dist.destroy_process_group()
 
 
-def launch(fn: Callable, world_size: int, device, *args, backend: Optional[str] = None):
-    """fn(*args) in `world_size` spawned ranks of one process group on
-    localhost (NCCL for CUDA, gloo for the CPU unless `backend` says), each
-    on its rank_device(device); returns when all have ended and raises if one
-    failed (the others are ended then). fn must be importable by name."""
-    device = str(torch.device(device))
-    if backend is None:
-        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
-    torch.multiprocessing.spawn(_rank_main, nprocs=world_size, join=True,
-                                args=(fn, world_size, backend, _free_port(), device, args))
+def _rank_main(rank_: int, fn: Callable, world_size: int, backend: str, port: int,
+               device: str, args: tuple) -> None:
+    _in_group(fn, args, device, rank_, backend, init_method=f"tcp://localhost:{port}",
+              rank=rank_, world_size=world_size)
 
+
+def launch(fn: Callable, world_size: int, device, *args):
+    """fn(*args) in `world_size` spawned ranks of one process group on
+    localhost (backend_for(device)), each on its rank_device(device); returns
+    when all have ended and raises if one failed (the others are ended then).
+    fn must be importable by name."""
+    device = str(torch.device(device))
+    torch.multiprocessing.spawn(_rank_main, nprocs=world_size, join=True,
+                                args=(fn, world_size, backend_for(device), _free_port(),
+                                      device, args))
+
+
+# this process's joins so far: each join keys its rendezvous apart in the
+# launcher's store (a group left and joined again under the same keys would
+# read the first group's addresses)
+_JOINS = itertools.count()
+
+
+def run_joined(fn: Callable, device, *args) -> None:
+    """fn(*args) in this process as its rank of the group that the
+    launcher's variables describe (the "env://" rendezvous, backend_for(device),
+    the node's card LOCAL_RANK for "cuda"), then the group is left. Never
+    spawns. Every rank must make the same sequence of joins. Raises without
+    the variables, on a partial set, and when the join fails: no fallback to
+    another backend or to one process."""
+    env = launcher_env()
+    if env is None:
+        raise RuntimeError(f"run_joined needs the launcher's variables {LAUNCHER_VARIABLES}")
+    store, _, _ = next(dist.rendezvous("env://"))
+    _in_group(fn, args, device, env.local_rank, backend_for(device),
+              store=dist.PrefixStore(f"anatomask_join{next(_JOINS)}", store), rank=env.rank,
+              world_size=env.world)

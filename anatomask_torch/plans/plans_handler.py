@@ -10,6 +10,8 @@ looked up by name in the port's registries, at first use.
 from __future__ import annotations
 
 import json
+import os
+import socket
 from copy import deepcopy
 from functools import partial
 from typing import List, Optional, Union
@@ -21,8 +23,13 @@ def load_json(path: str) -> dict:
 
 
 def save_json(obj, path: str, sort_keys: bool = True):
-    with open(path, "w") as f:
+    """Written under a name of this host and process, then renamed: a reader
+    on any node (another rank reading splits_final.json) sees no file or
+    the whole one."""
+    tmp = f"{path}.{socket.gethostname()}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
         json.dump(obj, f, sort_keys=sort_keys, indent=4)
+    os.replace(tmp, path)
 
 
 class ConfigurationManager:

@@ -162,7 +162,7 @@ Phases, each of which raises on a failed check:
    PretrainTrainer.run_pretraining at H for 1 epoch x 2 iterations with the
    case cache, validation and checkpoints (an epoch's one ~12.8 GB file
    under all its names, written into a temporary folder after a check that
-   the disk holds three, its GB and seconds printed), a resumed epoch; then
+   the disk holds three, its GB and seconds printed); then
    load_ssl_encoder_into_trainer
    from its checkpoint_final.pt into STUNetTrainer_huge (remat) and 2 bare
    supervised steps at 128^3, batch 2; step ms and peak memory of each;
@@ -180,11 +180,11 @@ Phases, each of which raises on a failed check:
    pretraining microbatch B = 2); pretrain (atk_pretrain's defaults at
    STUNet-B, 1 epoch x 3 iterations); train ATKTrainer_1epoch folds 0 and 1
    --npz and STUNetTrainer_base_ft from the pretraining checkpoint (10
-   iterations, 2 validation iterations); predict the test cases with both
+   iterations, 2 validation iterations); predict the test case with both
    (launches by kernel and variant checked per forward); ensemble;
    evaluate; find_best_configuration; apply_postprocessing;
-   accumulate_crossval_results; export_model and install_model into a
-   second results tree, whose fold 0 must predict logits equal to the
+   accumulate_crossval_results; export_model (fold 0) and install_model
+   into a second results tree, whose fold 0 must predict logits equal to the
    original's; move_plans_between_datasets. Every output is read back;
    pretrain, both trains and predict must each launch all three kernels.
    Printed: each entry's seconds, peak memory and launches, the steps'
@@ -201,45 +201,57 @@ Phases, each of which raises on a failed check:
    Checked: the plans, every case's predicted_next_stage, the cascade
    network's 3 input channels, its summary.json, every output's raw shape
    and labels, each entry's launches by kernel and variant;
-15. data parallelism (anatomask_torch/parallel/mesh.py), two gloo ranks
-   sharing the card: the per-rank launch shapes held against the plain
-   versions first (the pretraining microbatch B = 1 and the STUNet-B
-   finetuning step at B = 1, timed; the 32-320 PlainConvUNet at B = 1);
-   then, each at world 1 without a group in this process, at world 2
-   (spawned ranks) and at world 1 over NCCL (one spawned rank, a group of
-   one): 3 AnatoMask steps at full STUNet-B width (global batch 4 in 2
-   microbatches, 2 rows a rank, bf16), the same with the batch-pooled norms
-   and decoder norm "bn", a val step and 2 train steps of
-   STUNetTrainer_base_ft (STUNet-B) and ATKTrainerBN (the 32-320
-   PlainConvUNet with BatchNorm) at 128^3 (global batch 2, batch Dice) on
-   one seeded global batch and draws; checking the ranks' weights and
-   teachers bit-identical after every step, world 2 within DDP_LOSS_RTOL,
-   DDP_WEIGHT_TOL and DDP_COUNT_RTOL of world 1, NCCL world 1 bit-equal to
-   no group, each rank's launches by kernel and variant; then, at world 2,
-   PretrainTrainer.run_pretraining (global batch 2, host pipeline) and a
-   resume, and STUNetTrainer_base_ft's run_training, a resume and
-   perform_actual_validation on the trainer and supervised phases'
-   datasets: checkpoint files written by rank 0 alone, each validation case
-   predicted once (rank r the keys [r::2]), summary.json from rank 0.
-   Printed: step ms a rank and at world 1, the gloo all-reduce of the
-   gradients, peak memory a rank;
+15. data parallelism (anatomask_torch/parallel/mesh.py): the per-rank
+   launch shapes held against the plain versions first (the pretraining
+   microbatch B = 1 and the STUNet-B finetuning step at B = 1, timed; the
+   32-320 PlainConvUNet at B = 1); then, at world 1 without a group in this
+   process: 3 AnatoMask steps at full STUNet-B width (global batch 4 in 2
+   microbatches, bf16), the same with the batch-pooled norms and decoder
+   norm "bn", a val step and 2 train steps of STUNetTrainer_base_ft
+   (STUNet-B) and ATKTrainerBN (the 32-320 PlainConvUNet with BatchNorm)
+   at 128^3 (global batch 2, batch Dice) on one seeded global batch and
+   draws, recorded for 15b; then a rank that mesh.launch spawns at world 1
+   on "cuda" (NCCL, card 0) runs the first pretraining case, which must
+   equal world 1 without a group bit for bit;
+15b. training across nodes (parallel/mesh.py run_joined, cli.py), in 15's
+   folder, after it: PyTorch's launcher (python -m torch.distributed.run)
+   starts one node of one process over NCCL (-device cuda: its card
+   LOCAL_RANK), which runs 15's step cases bit-equal to world 1 without a
+   group; then two nodes on 127.0.0.1 of one process each (this script
+   with --multinode-rank), which join one group from its variables and
+   share the card over gloo (-device cuda:0); as global ranks 0 and 1 they
+   run 15's step cases at world 2 (2 rows a rank, 1 in the supervised
+   cases): the ranks' weights and teachers bit-identical after every step,
+   world 2 within DDP_LOSS_RTOL, DDP_WEIGHT_TOL and DDP_COUNT_RTOL of world
+   1, each rank's launches by kernel and variant; then `pretrain`
+   (STUNet-B, global batch 2, 1 epoch x 2 iterations) and a resume, and
+   `train` STUNetTrainer_base_ft fold 0 (1 epoch x 2 iterations + 1
+   validation iteration) and a resume, each with its final validation,
+   through cli.main as `torchrun -m anatomask_torch.cli` runs them:
+   checkpoint files written by global rank 0 alone, validation cases
+   [rank::2] of fold 0, rank 0's summary.json listing every case, kernels
+   #1, #2 and #3 launched by every rank in every entry. Printed: each start's
+   seconds, a rank's step ms at world 1 and 2, the gloo all-reduce of the
+   gradients, peak memory a rank, each entry's seconds;
 16. the out-of-memory ladder: one volume at tile batch 2 under a
    torch.cuda.set_per_process_memory_fraction cap between the uncapped tile
    batch 1 and 2 peaks: the device-resident path must run out at 2, finish
    at 1, and match the uncapped tile batch 1 logits within 1e-3 relative.
 
 A kernel's time is the median of three runs of back-to-back calls, each
-run timed with CUDA events, after a warm-up call. Each main path (7-15,
+run timed with CUDA events, after a warm-up call. Each main path (7-15b,
 7b included) runs with the launch counts set to 0 just before it and read
-just after (13: each entry; 15: each rank's runs), and every launch it
-makes (15: in every rank) must be at a shape that phases 3, 4 and 5b (and
-11's to 15's gates) held against the plain version (kernel #2's: its path
+just after (13: each entry; 15: the spawned rank's runs; 15b: each rank's
+runs and entries), and every launch it makes (15, 15b: in every rank) must be
+at a shape that phases 3, 4 and 5b (and 11's to 15's gates) held against
+the plain version (kernel #2's: its path
 shapes in phase 3); phase 16 runs after that check,
 as its tile batch 2 launches at B = 16 on the 4-channel PlainConvUNet.
 Between phases, free_memory collects reference
 cycles and empties the allocator's cache, so that each phase's memory
 peaks count its own tensors; after phase 11 it prints what stayed allocated
-before and after the collection. The last three
+before and after the collection. A [time] line after each phase gives the
+script's seconds so far. The last three
 lines of standard output are the nvidia-smi line, one JSON object {"kernels": [...]}, and
 {"ok": true, "device": {...}}.
 """
@@ -430,13 +442,13 @@ SUP_EPOCHS, SUP_ITERS, SUP_VAL_ITERS, PLAIN_STEPS = 2, 5, 2, 3
 # kidney, tumour) that the port's command line plans, pretrains on, trains,
 # predicts, ensembles and postprocesses. Case (name, array shape (z, y, x),
 # spacing in mm): 6 training cases at the target spacing, 2 coarser ones
-# that preprocessing resamples, 2 test cases with labels
+# that preprocessing resamples, a test case with labels
 CLI_ID = 953
 CLI_DATASET, CLI_TARGET = f"Dataset{CLI_ID}_ChipSmokeCli", "Dataset954_ChipSmokeCliTarget"
 CLI_LABELS = {"background": 0, "kidney": 1, "tumor": 2}
 CLI_TRAIN = ([(f"case_{i:03d}", (160, 192, 192), (1.5, 0.8, 0.8)) for i in range(6)]
              + [(f"case_{i:03d}", (120, 144, 144), (2.0, 1.0, 1.0)) for i in (6, 7)])
-CLI_TEST = [(f"test_{i:03d}", (160, 192, 192), (1.5, 0.8, 0.8)) for i in range(2)]
+CLI_TEST = [("test_000", (160, 192, 192), (1.5, 0.8, 0.8))]
 # what the JAX planner plans for it: nnU-Net's 3d_fullres PlainConvUNet
 # (PLAIN_FEATURES, PLAIN_RES) for one channel, patch 128^3, batch 2; 2d
 # at patch 192^2, batch 64; no 3d_lowres
@@ -2826,12 +2838,12 @@ def h_step_phase():
 def h_trainer_phase(root, bare_step_ms):
     """PretrainTrainer.run_pretraining at STUNet-H (H_CFG) on
     write_trainer_dataset's cases: 1 epoch x 2 iterations with the GPU case
-    cache, validation and the checkpoints, then a resumed epoch. Each run
-    writes one checkpoint (~16 bytes a parameter: student, teacher, two AdamW
-    moments) and links its other names to it; they go to `root`, which the
-    caller deletes; the phase first checks that the disk holds three.
-    Returns the launches of both runs and the resumed run's
-    checkpoint_final.pt."""
+    cache, validation and the checkpoints. The run writes one checkpoint
+    (~16 bytes a parameter: student, teacher, two AdamW moments) and links
+    its other names to it; they go to `root`, which the caller deletes; the
+    phase first checks that the disk holds three. (The resume is checked at
+    STUNet-B: the trainer, multinode and cli phases.) Returns the run's
+    launches and its checkpoint_final.pt."""
     write_trainer_dataset(root)
     for which in ("preprocessed", "results"):
         os.environ[f"ATK_{which}"] = os.path.join(root, which)
@@ -2871,29 +2883,10 @@ def h_trainer_phase(root, bare_step_ms):
         print(f"[pretrain-H trainer] checkpoint written once ({', '.join(names)} one file): "
               + ", ".join(f"{name} {size / 1e9:.3f} GB in {s:.3f} s" for name, s, size in writes))
         del t, trainer
-        free_memory()
-        writes.clear()
-        t0 = time.perf_counter()
-        resume = replace(cfg, num_epochs=2)
-        t2, history2, launches2, peak2 = trainer_run(resume, True, out, step=H_STEP_LAUNCHES,
-                                                     val=H_VAL_LAUNCHES)
-        total = time.perf_counter() - t0
     finally:
         ckpt_mod.save_trainer_checkpoint = save
-    check(t2.current_epoch == 1 and len(history2["train_loss"]) == 1 and len(writes) == 1
-          and t2._optimizer_count() == 4, f"H resume ran epoch {t2.current_epoch}, history "
-          f"{history2}, optimizer count {t2._optimizer_count()}, wrote {writes}")
-    e = t2.epoch_timings[-1]
-    print(f"[pretrain-H trainer] resumed at epoch {e['epoch']} from checkpoint_latest "
-          f"({total:.3f} s with the model built and the checkpoint loaded): epoch "
-          f"{e['total']:.3f} s (train {e['train']:.3f} s, val {e['val']:.3f} s, snapshot "
-          f"{e['ckpt']:.3f} s); losses {history2}; peak memory {peak2 / 2**30:.2f} GiB; "
-          f"checkpoints " + ", ".join(f"{name} {size / 1e9:.3f} GB in {s:.3f} s"
-                                      for name, s, size in writes))
-    del t2
     free_memory()
-    return {k: launches[k] + launches2[k] for k in COUNT_KEYS}, os.path.join(
-        out, "checkpoint_final.pt")
+    return launches, os.path.join(out, "checkpoint_final.pt")
 
 
 def h_transfer_phase(root, pretrain_checkpoint):
@@ -3240,7 +3233,7 @@ def cli_phase(root, gen, checked, shapes):
 
         zip_file = os.path.join(root, "model.zip")
         run("export_model", cli.export_model_entry,
-            [str(CLI_ID), "-o", zip_file, "-tr", tr, "-c", "3d_fullres", "-f", "0", "1"])
+            [str(CLI_ID), "-o", zip_file, "-tr", tr, "-c", "3d_fullres", "-f", "0"])
         installed = os.path.join(root, "results_installed")
         os.environ["ATK_results"] = installed
         run("install_model", cli.install_model_entry, ["-i", zip_file])
@@ -3578,13 +3571,13 @@ def ddp_sup_batches(patch, spatial, seed):
             torch.randint(0, 3, (DDP_SUP_GLOBAL, *spatial, 1), generator=gen).to(torch.int16))
 
 
-def ddp_sup_run(folder, preset):
+def ddp_sup_run(folder, preset, tag=""):
     """One Trainer.val_step of `preset` (bf16, the supervised phase's 128^3
     plans: STUNet-B for STUNetTrainer_base_ft, the 32-320 PlainConvUNet with
     BatchNorm for ATKTrainerBN; batch Dice) on the initial weights, then
     DDP_SUP_STEPS train_steps, each on this rank's rows of a seeded global
     batch of DDP_SUP_GLOBAL."""
-    out = os.path.join(folder, f"{preset}-{mesh.world()}-{mesh.distributed()}")
+    out = os.path.join(folder, f"{tag}{preset}-{mesh.world()}-{mesh.distributed()}")
     t = Trainer(supervised_plans(), "3d_fullres", 0, DDP_SUP_JSON, get_trainer_config(preset),
                 output_folder=out, preprocessed_dataset_folder_base=out, device="cuda:0")
     t.initialize()
@@ -3618,94 +3611,34 @@ def ddp_sup_run(folder, preset):
     return dict(steps=steps, peak=torch.cuda.max_memory_allocated(), val=val)
 
 
-def ddp_trainer_runs(root):
-    """run_pretraining and run_training at world 2 on the pretraining and
-    supervised datasets of the phases above (written into `root` first by the
-    parent): a PretrainTrainer run (global batch 2, 1 epoch x 2 iterations,
-    host pipeline) and its resume (1 epoch x 1 iteration); a
-    STUNetTrainer_base_ft run (1 epoch x 2 iterations + 1 validation
-    iteration) and its resume, then perform_actual_validation. Records which
-    rank wrote which checkpoint file and which validation cases each rank
-    predicted."""
-    wrote, predicted = [], []
-    save_pt, save_npz = ckpt_mod.save_trainer_checkpoint, ckpt_mod.save_checkpoint
-    from anatomask_torch.inference import export as export_mod
-    export = export_mod.export_prediction_from_logits
-
-    def record_pt(path, *a, **kw):
-        wrote.append(os.path.basename(path))
-        return save_pt(path, *a, **kw)
-
-    def record_npz(path, *a, **kw):
-        wrote.append(os.path.basename(path))
-        return save_npz(path, *a, **kw)
-
-    def record_export(logits, props, cm, pm, dj, out, *a, **kw):
-        predicted.append(os.path.basename(out))
-        return export(logits, props, cm, pm, dj, out, *a, **kw)
-
-    ckpt_mod.save_trainer_checkpoint, ckpt_mod.save_checkpoint = record_pt, record_npz
-    export_mod.export_prediction_from_logits = record_export
-    try:
-        for which in ("preprocessed", "results"):
-            os.environ[f"ATK_{which}"] = os.path.join(root, which)
-        zero_counts()
-        cfg = PretrainConfig(batch_size=2, grad_accum_steps=1, num_epochs=1, iters_per_epoch=2,
-                             num_workers=2)
-        out = os.path.join(root, "results", "ddp-pretrain")
-        first = PretrainTrainer(TRAINER_DATASET, cfg, device="cuda:0", output_folder=out)
-        h1 = first.run_pretraining()
-        mesh.barrier()
-        again = PretrainTrainer(TRAINER_DATASET, replace(cfg, num_epochs=2, iters_per_epoch=1),
-                                device="cuda:0", output_folder=out)
-        h2 = again.run_pretraining(continue_training=True)
-        pretrain = dict(history=[h1, h2], resumed=[e["epoch"] for e in again.epoch_timings],
-                        micro=again.grad_accum_steps, batch=again.sampler_train.batch_size,
-                        launches=counts())
-        mesh.barrier()
-        zero_counts()
-        plans_file = os.path.join(root, "preprocessed", SUP_DATASET, "ATKPlans.json")
-        scfg = replace(get_trainer_config("STUNetTrainer_base_ft"), num_epochs=1,
-                       num_iterations_per_epoch=2, num_val_iterations_per_epoch=1, save_every=1,
-                       num_workers=2)
-        sout = os.path.join(root, "results", "ddp-finetune")
-        t = Trainer(plans_file, "3d_fullres", 0, DDP_SUP_JSON, scfg, output_folder=sout,
-                    device="cuda:0")
-        t.run_training()
-        mesh.barrier()
-        t2 = Trainer(plans_file, "3d_fullres", 0, DDP_SUP_JSON, replace(scfg, num_epochs=2),
-                     output_folder=sout, device="cuda:0")
-        t2.run_training(continue_training=True)
-        metrics = t2.perform_actual_validation()
-        finetune = dict(losses=t2.logger.logging["train_losses"],
-                        resumed=[e["epoch"] for e in t2.epoch_timings],
-                        summary=None if metrics is None else metrics["foreground_mean"]["Dice"],
-                        val_keys=t2.do_split()[1], launches=counts())
-    finally:
-        ckpt_mod.save_trainer_checkpoint, ckpt_mod.save_checkpoint = save_pt, save_npz
-        export_mod.export_prediction_from_logits = export
-    return dict(pretrain=pretrain, finetune=finetune, wrote=wrote, predicted=predicted)
+def ddp_step_records(folder, tag):
+    """The pretraining and supervised runs of this rank of a group, every
+    kernel launch shape recorded; the record into <folder>/<tag>rank<r>.json."""
+    shapes = LaunchShapes()
+    rec = {"pretrain": {label: ddp_pretrain_run(folder, f"pretrain{i}", kw)
+                        for i, (label, kw) in enumerate(DDP_PRETRAIN.items())},
+           "supervised": {p: ddp_sup_run(folder, p, tag) for p in DDP_SUP}}
+    free_memory()
+    rec["shapes"] = {k: sorted(getattr(shapes, k)) for k in ("conv", "zslab", "moments")}
+    rec["backend"] = torch.distributed.get_backend()
+    with open(os.path.join(folder, f"{tag}rank{mesh.rank()}.json"), "w") as f:
+        json.dump(rec, f)
 
 
-def ddp_rank_main(folder, root, nccl_world1):
-    """The ranks' body (spawned by ddp_phase through parallel/mesh.py
-    launch): the pretraining and supervised runs, then (at world 2) the
-    trainer runs; every kernel launch shape recorded; the record into
-    <folder>/rank<r>[-nccl].json."""
+def ddp_nccl_main(folder):
+    """The rank that ddp_phase spawns through parallel/mesh.py launch at
+    world 1 on "cuda" (NCCL, card 0): the kernels loaded, the numerics of
+    ddp_settings, the first pretraining case; its record into
+    <folder>/launch-nccl.json."""
     ddp_settings()
     for name in ("conv3x3", "moments", "zslab_conv"):
         _build.load(name)
     shapes = LaunchShapes()
-    rec = {"pretrain": {label: ddp_pretrain_run(folder, f"pretrain{i}", kw)
-                        for i, (label, kw) in enumerate(DDP_PRETRAIN.items())},
-           "supervised": {p: ddp_sup_run(folder, p) for p in DDP_SUP}}
-    free_memory()
-    if not nccl_world1:
-        rec["trainers"] = ddp_trainer_runs(root)
-    rec["shapes"] = {k: sorted(getattr(shapes, k)) for k in ("conv", "zslab", "moments")}
-    rec["backend"] = torch.distributed.get_backend()
-    with open(os.path.join(folder, f"rank{mesh.rank()}{'-nccl' if nccl_world1 else ''}.json"),
-              "w") as f:
+    label, kw = next(iter(DDP_PRETRAIN.items()))
+    rec = {"pretrain": {label: ddp_pretrain_run(folder, "pretrain0", kw)}, "supervised": {},
+           "backend": torch.distributed.get_backend(), "device": str(mesh.rank_device("cuda")),
+           "shapes": {k: sorted(getattr(shapes, k)) for k in ("conv", "zslab", "moments")}}
+    with open(os.path.join(folder, "launch-nccl.json"), "w") as f:
         json.dump(rec, f)
 
 
@@ -3745,18 +3678,42 @@ def ddp_check_pair(label, got, want, keys):
               f"{w['scale']})")
 
 
+def ddp_launches(records):
+    """The launches of the records' steps, by COUNT_KEYS."""
+    launches = dict.fromkeys(COUNT_KEYS, 0)
+    for r in records:
+        for kind in ("pretrain", "supervised"):
+            for run in r[kind].values():
+                for s in run["steps"]:
+                    for k in COUNT_KEYS:
+                        launches[k] += s["launches"][k]
+    return launches
+
+
+def add_shapes(shapes, records):
+    for r in records:
+        for k in ("conv", "zslab", "moments"):
+            getattr(shapes, k).update(tuple(v) for v in r["shapes"][k])
+
+
+def same_steps(got, want, keys):
+    """Whether two records' runs agree bit for bit: each step's loss and the
+    digests of `keys`."""
+    return all(a["loss"] == b["loss"] and all(a[k] == b[k] for k in keys)
+               for a, b in zip(got["steps"], want["steps"]))
+
+
 def ddp_phase(root, gen, checked, shapes):
-    """Data parallelism on the card (parallel/mesh.py), two ranks sharing it
-    over gloo: the AnatoMask step at full STUNet-B width (global batch 4, 2
-    a rank, 2 microbatches, bf16, 3 steps), the same with the batch-pooled
-    norms and decoder norm "bn", and 2 supervised steps of
-    STUNetTrainer_base_ft and ATKTrainerBN (global batch 2, 1 a rank, batch
-    Dice) each against world 1 without a group on the same global batch and
-    draws; the ranks' weights and teachers bit-identical after every step;
-    world 1 over NCCL (a group of one on the card) bit-equal to world 1
-    without a group; then a PretrainTrainer and a Trainer run at world 2 with
-    a resume and the final validation. Returns the launches of the ranks' runs
-    and the kernel errors and totals of ddp_gate_phase."""
+    """Data parallelism on the card (parallel/mesh.py): the AnatoMask step
+    at full STUNet-B width (global batch 4, 2 microbatches, bf16, 3 steps),
+    the same with the batch-pooled norms and decoder norm "bn", and 2
+    supervised steps of STUNetTrainer_base_ft and ATKTrainerBN (global batch
+    2, batch Dice) at world 1 without a group, recorded for the multinode
+    phase's ranks; then `launch` at world 1 on "cuda" (a spawned rank, NCCL,
+    card 0) runs the first pretraining case, bit-equal to no group. Writes
+    the trainer and supervised datasets into `root` for the multinode phase.
+    Returns the launches of the spawned rank's run, the kernel errors and
+    totals of ddp_gate_phase, and the records (the folder, world 1's)."""
     with shapes.paused():
         errs, pre_tot, sup_tot = ddp_gate_phase(gen, checked)
     free_memory()
@@ -3774,35 +3731,152 @@ def ddp_phase(root, gen, checked, shapes):
     write_trainer_dataset(root)
     write_supervised_dataset(root)
     t0 = time.perf_counter()
-    mesh.launch(ddp_rank_main, DDP_WORLD, "cuda:0", folder, root, False, backend="gloo")
-    t_gloo = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    mesh.launch(ddp_rank_main, 1, "cuda:0", folder, root, True, backend="nccl")
+    mesh.launch(ddp_nccl_main, 1, "cuda", folder)
     t_nccl = time.perf_counter() - t0
-    ranks = []
-    for r in range(DDP_WORLD):
-        with open(os.path.join(folder, f"rank{r}.json")) as f:
-            ranks.append(json.load(f))
-    with open(os.path.join(folder, "rank0-nccl.json")) as f:
+    with open(os.path.join(folder, "launch-nccl.json")) as f:
         nccl = json.load(f)
-    check([r["backend"] for r in ranks] == ["gloo"] * DDP_WORLD and nccl["backend"] == "nccl",
-          f"backends {[r['backend'] for r in ranks]}, {nccl['backend']}")
-    print(f"[ddp] {DDP_WORLD} gloo ranks on one card: {t_gloo:.1f} s of processes; one NCCL "
-          f"rank: {t_nccl:.1f} s")
-    launches = dict.fromkeys(COUNT_KEYS, 0)
-    for r in (*ranks, nccl):
-        for kind in ("pretrain", "supervised"):
-            for run in r[kind].values():
-                for s in run["steps"]:
-                    for k in COUNT_KEYS:
-                        launches[k] += s["launches"][k]
-        if "trainers" in r:
-            for run in ("pretrain", "finetune"):
-                for k in COUNT_KEYS:
-                    launches[k] += r["trainers"][run]["launches"][k]
-        for k in ("conv", "zslab", "moments"):
-            getattr(shapes, k).update(tuple(v) for v in r["shapes"][k])
+    check(nccl["backend"] == "nccl" and nccl["device"] == "cuda:0",
+          f"launch's rank: backend {nccl['backend']}, device {nccl['device']}")
+    add_shapes(shapes, [nccl])
+    (label, n), = nccl["pretrain"].items()
+    want = one["pretrain"][label]
+    check(same_steps(n, want, ("student", "teacher", "launches"))
+          and n["steps"][-1]["d_student"] == 0 == n["steps"][-1]["d_teacher"],
+          f"{label}: world 1 over NCCL through launch is not bit-equal to world 1 without a "
+          f"group")
+    print(f"[ddp] {label}, global batch {DDP_GLOBAL} in {DDP_ACCUM} microbatches: world 1 "
+          f"over NCCL through launch (a spawned rank on {nccl['device']}, {t_nccl:.1f} s of "
+          f"process) bit-equal to no group, losses {[s['loss'] for s in n['steps']]}; step ms "
+          f"{[round(s['ms'], 1) for s in n['steps']]} (no group "
+          f"{[round(s['ms'], 1) for s in want['steps']]}); NCCL all-reduce of "
+          f"{n['allreduce_bytes']} bytes {n['allreduce_ms']:.3f} ms; launches a step "
+          f"{n['steps'][0]['launches']}")
+    return ddp_launches([nccl]), errs, pre_tot, sup_tot, (folder, one)
 
+
+# --- the multinode phase: PyTorch's launcher across two nodes -------------------
+
+MN_NODES = 2
+MN_TIMEOUT = 600  # seconds a launcher node may take before it is killed
+# the entries' runs: the pretraining entry at
+# global batch 2 in one microbatch (1 row a rank), 1 epoch x 2 iterations,
+# then a resume for 1 x 1; STUNetTrainer_base_ft fold 0, 1 epoch x 2
+# iterations + 1 validation iteration, then a resume for a second epoch; each
+# train run ends with the final validation
+MN_PRETRAIN = ["pretrain", TRAINER_DATASET, "-model", "B", "-batch_size", "2", "-grad_accum",
+               "1", "-device", "cuda:0"]
+MN_TRAIN = ["train", SUP_DATASET, "3d_fullres", "0", "-tr", "STUNetTrainer_base_ft", "-device",
+            "cuda:0"]
+MN_ENTRIES = (("pretrain", None, MN_PRETRAIN + ["-epochs", "1", "-iters_per_epoch", "2"]),
+              ("pretrain resume", None,
+               MN_PRETRAIN + ["-epochs", "2", "-iters_per_epoch", "1", "--continue"]),
+              ("train", 1, MN_TRAIN), ("train resume", 2, MN_TRAIN + ["--c"]))
+
+
+def multinode_entries(folder):
+    """MN_ENTRIES through `cli.main` as a user's `torchrun ... -m
+    anatomask_torch.cli` runs them, each joining the launcher's group anew
+    (the epochs of a train run set on its preset); records which checkpoint
+    files and validation cases this rank wrote, each entry's seconds and
+    launches, and the launch shapes, into <folder>/entries-rank<RANK>.json."""
+    from anatomask_torch.inference import export as export_mod
+    wrote, predicted, runs = [], [], {}
+    save_pt, save_npz, link = (ckpt_mod.save_trainer_checkpoint, ckpt_mod.save_checkpoint,
+                               ckpt_mod.link_checkpoint)
+    export, get_config = export_mod.export_prediction_from_logits, trainer_mod.get_trainer_config
+
+    def record(write, at):
+        def wrapped(*a, **kw):
+            wrote.append(os.path.basename(a[at]))
+            return write(*a, **kw)
+        return wrapped
+
+    def record_export(logits, props, cm, pm, dj, out, *a, **kw):
+        predicted.append(os.path.basename(out))
+        return export(logits, props, cm, pm, dj, out, *a, **kw)
+
+    ckpt_mod.save_trainer_checkpoint, ckpt_mod.save_checkpoint = record(save_pt, 0), record(
+        save_npz, 0)
+    ckpt_mod.link_checkpoint = record(link, 1)
+    export_mod.export_prediction_from_logits = record_export
+    shapes = LaunchShapes()
+    try:
+        for label, epochs, argv in MN_ENTRIES:
+            trainer_mod.get_trainer_config = (
+                get_config if epochs is None
+                else lambda name, n=epochs: replace(get_config(name), num_epochs=n))
+            zero_counts()
+            t0 = time.perf_counter()
+            cli.main(argv)
+            runs[label] = dict(seconds=time.perf_counter() - t0, launches=counts())
+    finally:
+        ckpt_mod.save_trainer_checkpoint, ckpt_mod.save_checkpoint = save_pt, save_npz
+        ckpt_mod.link_checkpoint = link
+        export_mod.export_prediction_from_logits = export
+        trainer_mod.get_trainer_config = get_config
+    rec = dict(runs=runs, wrote=wrote, predicted=predicted,
+               shapes={k: sorted(getattr(shapes, k)) for k in ("conv", "zslab", "moments")})
+    with open(os.path.join(folder, f"entries-rank{os.environ['RANK']}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def multinode_rank_main(mode, folder):
+    """A process that the launcher started (`--multinode-rank`): the kernels
+    loaded, ddp_settings; mode "gloo": the ddp phase's step cases as its
+    rank of the two nodes on cuda:0 (`mesh.run_joined`), then the entries;
+    mode "nccl": the step cases on its node's card over NCCL."""
+    ddp_settings()
+    for name in ("conv3x3", "moments", "zslab_conv"):
+        _build.load(name)
+    device = "cuda" if mode == "nccl" else "cuda:0"
+
+    def steps():
+        ddp_step_records(folder, f"{mode}-")
+        with open(os.path.join(folder, f"{mode}-device{mesh.rank()}.json"), "w") as f:
+            json.dump({"device": str(mesh.rank_device(device)),
+                       "local_rank": os.environ["LOCAL_RANK"]}, f)
+
+    mesh.run_joined(steps, device)
+    if mode == "gloo":
+        free_memory()
+        multinode_entries(folder)
+
+
+def run_nodes(nodes, per_node, args, env):
+    """`nodes` launcher nodes on 127.0.0.1 (torch.distributed.run, a free
+    port found once), each `per_node` processes of this script with `args`;
+    waits for them all and fails if one fails or outlasts MN_TIMEOUT (every
+    node is killed then). Returns the seconds from their start to the end of
+    the last."""
+    port = str(mesh._free_port())
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--nnodes", str(nodes),
+         "--nproc_per_node", str(per_node), "--node_rank", str(k), "--master_addr", "127.0.0.1",
+         "--master_port", port, os.path.abspath(__file__), "--multinode-rank", *args], env=env)
+        for k in range(nodes)]
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, MN_TIMEOUT - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                check(False, f"a launcher node ran over {MN_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(all(p.returncode == 0 for p in procs),
+          f"launcher nodes exited {[p.returncode for p in procs]}")
+    return time.perf_counter() - t0
+
+
+def check_world2(one, ranks):
+    """The launcher nodes' step records at world 2 against world 1 without a
+    group (the ddp phase's `one`): each step's launches, the ranks' weights
+    and teachers bit-identical after every step, losses and weights within
+    DDP_LOSS_RTOL / DDP_WEIGHT_TOL, the val step's loss and counts within
+    DDP_LOSS_RTOL / DDP_COUNT_RTOL."""
     for label, want in one["pretrain"].items():
         got = [r["pretrain"][label] for r in ranks]
         for s in range(DDP_STEPS):
@@ -3814,24 +3888,17 @@ def ddp_phase(root, gen, checked, shapes):
                   f"expected {DDP_STEP_LAUNCHES} a rank")
         for g in got:
             ddp_check_pair(label, g, want, ("student", "teacher"))
-        n = nccl["pretrain"][label]
-        check(all(a["loss"] == b["loss"] and a["student"] == b["student"]
-                  and a["teacher"] == b["teacher"] for a, b in zip(n["steps"], want["steps"]))
-              and n["steps"][-1]["d_student"] == 0 == n["steps"][-1]["d_teacher"],
-              f"{label}: world 1 over NCCL is not bit-equal to world 1 without a group")
-        print(f"[ddp] {label}, global batch {DDP_GLOBAL} in {DDP_ACCUM} microbatches, "
+        print(f"[multinode] {label}, global batch {DDP_GLOBAL} in {DDP_ACCUM} microbatches, "
               f"{DDP_GLOBAL // DDP_WORLD} rows a rank, bf16: losses world 1 "
               f"{[s['loss'] for s in want['steps']]}, world 2 "
               f"{[s['loss'] for s in got[0]['steps']]}; largest weight difference from world "
               f"1 after {DDP_STEPS} steps {[g['steps'][-1]['d_student'] for g in got]} "
               f"(student), {[g['steps'][-1]['d_teacher'] for g in got]} (teacher), largest weight "
-              f"{want['steps'][-1]['scale']}; the ranks bit-identical after every step; NCCL "
-              f"world 1 bit-equal to no group")
-        print(f"[ddp] {label}: step ms world 1 {[round(s['ms'], 1) for s in want['steps']]}, "
-              f"a rank at world 2 {[[round(s['ms'], 1) for s in g['steps']] for g in got]}, "
-              f"NCCL world 1 {[round(s['ms'], 1) for s in n['steps']]}; gloo all-reduce of "
-              f"{got[0]['allreduce_bytes']} bytes of gradients {got[0]['allreduce_ms']:.1f} ms "
-              f"(NCCL world 1 {n['allreduce_ms']:.3f} ms); peak memory a rank "
+              f"{want['steps'][-1]['scale']}; the ranks bit-identical after every step")
+        print(f"[multinode] {label}: step ms world 1 {[round(s['ms'], 1) for s in want['steps']]}"
+              f", a rank at world 2 {[[round(s['ms'], 1) for s in g['steps']] for g in got]}; "
+              f"gloo all-reduce of {got[0]['allreduce_bytes']} bytes of gradients "
+              f"{got[0]['allreduce_ms']:.1f} ms; peak memory a rank "
               f"{[round(g['peak'] / 2**30, 2) for g in got]} GiB (world 1 "
               f"{want['peak'] / 2**30:.2f}); launches a rank a step "
               f"{got[0]['steps'][0]['launches']}")
@@ -3849,12 +3916,8 @@ def ddp_phase(root, gen, checked, shapes):
                   and all(abs(a - b) <= DDP_COUNT_RTOL * b for x, y in zip(counts_, want["val"][1:])
                           for a, b in zip(x, y)),
                   f"{preset}: val loss and counts {g['val']} against world 1's {want['val']}")
-        n = nccl["supervised"][preset]
-        check(all(a["loss"] == b["loss"] and a["weights"] == b["weights"]
-                  for a, b in zip(n["steps"], want["steps"])) and n["val"] == want["val"],
-              f"{preset}: world 1 over NCCL is not bit-equal to world 1 without a group")
-        print(f"[ddp] {preset}, global batch {DDP_SUP_GLOBAL}, 1 row a rank, bf16: losses world "
-              f"1 {[s['loss'] for s in want['steps']]}, world 2 "
+        print(f"[multinode] {preset}, global batch {DDP_SUP_GLOBAL}, 1 row a rank, bf16: losses "
+              f"world 1 {[s['loss'] for s in want['steps']]}, world 2 "
               f"{[s['loss'] for s in got[0]['steps']]}; largest weight difference after "
               f"{DDP_SUP_STEPS} steps {[g['steps'][-1]['d_weights'] for g in got]} (largest weight "
               f"{want['steps'][-1]['scale']}); val loss {got[0]['val'][0]} (world 1 "
@@ -3862,39 +3925,105 @@ def ddp_phase(root, gen, checked, shapes):
               f"step ms world 1 {[round(s['ms'], 1) for s in want['steps']]}, a rank "
               f"{[[round(s['ms'], 1) for s in g['steps']] for g in got]}; peak a rank "
               f"{[round(g['peak'] / 2**30, 2) for g in got]} GiB (world 1 "
-              f"{want['peak'] / 2**30:.2f}); NCCL world 1 bit-equal")
+              f"{want['peak'] / 2**30:.2f})")
 
-    tr = [r["trainers"] for r in ranks]
-    check(all(math.isfinite(v) for t in tr for h in t["pretrain"]["history"] for k in h
-              for v in h[k]) and all(t["pretrain"]["resumed"] == [1] for t in tr)
-          and all(t["pretrain"]["batch"] == 1 and t["pretrain"]["micro"] == 1 for t in tr),
-          f"PretrainTrainer at world 2: {[t['pretrain'] for t in tr]}")
-    check(tr[0]["wrote"] and not tr[1]["wrote"],
-          f"checkpoint writers: rank 0 {tr[0]['wrote']}, rank 1 {tr[1]['wrote']}")
-    keys = tr[0]["finetune"]["val_keys"]
-    check(sorted(tr[0]["predicted"] + tr[1]["predicted"]) == sorted(keys)
-          and tr[0]["predicted"] == keys[0::2] and tr[1]["predicted"] == keys[1::2],
-          f"validation cases: rank 0 {tr[0]['predicted']}, rank 1 {tr[1]['predicted']}, "
-          f"of {keys}")
-    summary = os.path.join(root, "results", "ddp-finetune", "fold_0", "validation",
-                           "summary.json")
-    check(os.path.isfile(summary) and tr[1]["finetune"]["summary"] is None
-          and math.isfinite(tr[0]["finetune"]["summary"]),
-          f"summary.json {os.path.isfile(summary)}, ranks' metrics "
-          f"{[t['finetune']['summary'] for t in tr]}")
-    check(all(t["finetune"]["resumed"] == [1] for t in tr), "the finetuning resume")
-    for t in tr:
-        for run in ("pretrain", "finetune"):
-            check(all(t[run]["launches"][k] > 0 for k in ("conv3x3.hopper", "zslab.hopper",
+
+def multinode_phase(root, records, shapes):
+    """Training across nodes through PyTorch's launcher (parallel/mesh.py
+    run_joined, cli.py), on the ddp phase's records and datasets in `root`:
+    one node of one process over NCCL (`--multinode-rank nccl`, -device
+    cuda: its card LOCAL_RANK) runs the ddp phase's step cases bit-equal to
+    world 1 without a group; then two nodes of one process each sharing the
+    card over gloo (`--multinode-rank gloo`, -device cuda:0; NCCL refuses
+    two ranks on one card) run them at world 2 as global ranks 0 and 1
+    (check_world2), then pretrain and train (STUNetTrainer_base_ft) through
+    the entries with a resume each and the final validation: checkpoints
+    from global rank 0 alone, validation cases [rank::2], rank 0's
+    summary.json of every case, kernels #1, #2 and #3 launched by every rank
+    in every entry. The nodes run one start after the other, nothing else
+    beside them. Returns the launches of every process's runs."""
+    folder, one = records
+    env = dict(os.environ, ATK_preprocessed=os.path.join(root, "preprocessed"),
+               ATK_results=os.path.join(root, "results"), ATK_raw=os.path.join(root, "raw"),
+               ATK_N_PROC_DA="2", ATK_ITERS_PER_EPOCH="2", ATK_VAL_ITERS="1")
+    for k in mesh.LAUNCHER_VARIABLES:
+        env.pop(k, None)
+    t_nccl = run_nodes(1, 1, ["nccl", folder], env)
+    t_gloo = run_nodes(MN_NODES, 1, ["gloo", folder], env)
+    load = lambda name: json.load(open(os.path.join(folder, name)))  # noqa: E731
+    print(f"[multinode] one node of one NCCL rank: {t_nccl:.1f} s of process; {MN_NODES} "
+          f"launcher nodes of one gloo rank on the card: {t_gloo:.1f} s of processes")
+    nodes = [load(f"gloo-rank{r}.json") for r in range(MN_NODES)]
+    nccl = load("nccl-rank0.json")
+    entries = [load(f"entries-rank{r}.json") for r in range(MN_NODES)]
+    devices = [load(f"gloo-device{r}.json") for r in range(MN_NODES)] + [
+        load("nccl-device0.json")]
+    check([r["backend"] for r in nodes] == ["gloo"] * MN_NODES and nccl["backend"] == "nccl",
+          f"backends {[r['backend'] for r in nodes]}, {nccl['backend']}")
+    check([d["device"] for d in devices] == ["cuda:0"] * (MN_NODES + 1),
+          f"the ranks' devices {devices}")
+    add_shapes(shapes, [*nodes, nccl, *entries])
+    launches = ddp_launches([*nodes, nccl])
+    for e in entries:
+        for k in COUNT_KEYS:
+            launches[k] += sum(run["launches"][k] for run in e["runs"].values())
+
+    check_world2(one, nodes)
+    for kind, keys in (("pretrain", ("student", "teacher")), ("supervised", ("weights",))):
+        for label, want in one[kind].items():
+            n = nccl[kind][label]
+            check(same_steps(n, want, keys + ("launches",)) and n.get("val") == want.get("val")
+                  and all(n["steps"][-1][f"d_{k}"] == 0 for k in keys),
+                  f"{label}: NCCL world 1 through the launcher is not bit-equal to world 1 "
+                  f"without a group")
+    ms = {label: [round(s["ms"], 1) for s in r["steps"]]
+          for kind in ("pretrain", "supervised") for label, r in nccl[kind].items()}
+    print(f"[multinode] NCCL world 1 through the launcher bit-equal to no group in every case; "
+          f"step ms {ms}")
+
+    for e in entries:
+        for label, run in e["runs"].items():
+            check(all(run["launches"][k] > 0 for k in ("conv3x3.hopper", "zslab.hopper",
                                                           "moments")),
-                  f"{run} at world 2 launched {t[run]['launches']}")
-    print(f"[ddp] trainers at world 2: PretrainTrainer losses {tr[0]['pretrain']['history']}, "
-          f"resumed epochs {tr[0]['pretrain']['resumed']}; STUNetTrainer_base_ft train losses "
-          f"{tr[0]['finetune']['losses']}, resumed {tr[0]['finetune']['resumed']}; checkpoint "
-          f"files written by rank 0 {tr[0]['wrote']}, by rank 1 {tr[1]['wrote']}; validation "
-          f"cases rank 0 {tr[0]['predicted']}, rank 1 {tr[1]['predicted']}; summary.json from "
-          f"rank 0, mean Dice {tr[0]['finetune']['summary']}; launches {launches}")
-    return launches, errs, pre_tot, sup_tot
+                  f"{label} launched {run['launches']}")
+    check(entries[0]["wrote"] and not entries[1]["wrote"],
+          f"checkpoint writers: rank 0 {entries[0]['wrote']}, rank 1 {entries[1]['wrote']}")
+    results = os.path.join(root, "results")
+    pretrain_folder = os.path.join(results, TRAINER_DATASET, "pretrain_anatomask_B")
+    with open(os.path.join(pretrain_folder, "pretrain_log.txt")) as f:
+        log = f.read()
+    check(os.path.isfile(os.path.join(pretrain_folder, "checkpoint_final.pt"))
+          and "resumed at epoch 1" in log
+          and re.findall(r"^epoch (\d+):", log, re.M) == ["0", "1"],
+          f"the pretraining entries: {os.listdir(pretrain_folder)}, log {log[-400:]}")
+    fold = os.path.join(results, SUP_DATASET, "STUNetTrainer_base_ft__ATKPlans__3d_fullres",
+                        "fold_0")
+    _, meta = ckpt_mod.load_checkpoint(os.path.join(fold, "checkpoint_final.npz"))
+    with open(os.path.join(fold, "training_log.txt")) as f:
+        check("resuming from" in f.read() and meta["current_epoch"] == 2,
+              f"the training resume: epoch {meta['current_epoch']}")
+    keys = load_json(os.path.join(root, "preprocessed", SUP_DATASET, "splits_final.json"))[0]["val"]
+    check(all(e["predicted"] == keys[r::MN_NODES] * 2 for r, e in enumerate(entries)),
+          f"validation cases: {[e['predicted'] for e in entries]} of {keys}, twice")
+    with open(os.path.join(fold, "validation", "summary.json")) as f:
+        summary = json.load(f)
+    check(sorted(os.path.basename(c["prediction_file"]) for c in summary["metric_per_case"])
+          == sorted(k + ".nii.gz" for k in keys)
+          and math.isfinite(summary["foreground_mean"]["Dice"]),
+          f"summary.json of {[c['prediction_file'] for c in summary['metric_per_case']]}")
+    print(f"[multinode] entries through the launcher, rank 0's seconds "
+          f"{ {k: round(v['seconds'], 1) for k, v in entries[0]['runs'].items()} }, rank 1's "
+          f"{ {k: round(v['seconds'], 1) for k, v in entries[1]['runs'].items()} }; checkpoint "
+          f"files written by rank 0 {entries[0]['wrote']}, by rank 1 {entries[1]['wrote']}; "
+          f"validation cases rank 0 {entries[0]['predicted']}, rank 1 {entries[1]['predicted']}; "
+          f"summary.json from rank 0, mean Dice {summary['foreground_mean']['Dice']}; launches "
+          f"{launches}")
+    return launches
+
+
+def mark(phase, start=time.perf_counter()):
+    """A [time] line: the seconds since the script started, after `phase`."""
+    print(f"[time] {phase} ended at {time.perf_counter() - start:.1f} s")
 
 
 def kernel_record(name, source, replaces, launches_by_path, max_abs, max_rel, totals_by_path,
@@ -3916,6 +4045,9 @@ def kernel_record(name, source, replaces, launches_by_path, max_abs, max_rel, to
 
 
 def main():
+    if sys.argv[1:2] == ["--multinode-rank"]:  # a process that the multinode phase launched
+        multinode_rank_main(*sys.argv[2:])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
         return 1
@@ -3935,6 +4067,7 @@ def main():
         build_report(name)
     for name in ("conv3x3", "zslab_conv"):
         check_hgmma(name)
+    mark("build")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3973,23 +4106,29 @@ def main():
                         max(mom_rel, block_errs["moments"][1]))
     block_tot = block_step_totals(k1_step, zc_timed, mom_timed, block_times)
     free_memory()
+    mark("kernel phases")
 
     reference_phase()
     remat_phase()
     inference_reference_phase()
     free_memory()
+    mark("reference phases")
     shapes = LaunchShapes()  # from here on, only the main paths launch kernels
     pretrain, bare_step_ms, _, dense_losses = slice_phase()
     free_memory()
     block_launches, _, _ = block_step_phase(bare_step_ms, dense_losses, shapes)
     free_memory()
+    mark("slice and block step phases")
     inference = inference_phase()
     free_memory()
+    mark("inference phase")
     trainer = trainer_phase(bare_step_ms, pretrained)
     free_memory()
+    mark("trainer phase")
     with tempfile.TemporaryDirectory() as root:
         files, predictor, ladder_data, case_tiles = files_phase(root)
     free_memory()
+    mark("files phase")
     with tempfile.TemporaryDirectory() as root:
         supervised, plain_trainer, da5_trainer = supervised_phase(root, pretrained)
     work.cleanup()
@@ -3999,40 +4138,39 @@ def main():
     print(f"[memory] allocated after the supervised phase: {held / 2**30:.2f} GiB ({held} "
           f"bytes); after gc.collect(): {left / 2**30:.2f} GiB ({left} bytes, the files "
           f"phase's predictor among it)")
+    mark("supervised phase")
     h_pretrain, h_step_ms = h_step_phase()
     free_memory()
+    mark("H step phase")
     with tempfile.TemporaryDirectory() as root:
         h_trainer, h_final = h_trainer_phase(root, h_step_ms)
         free_memory()
         h_finetune = h_transfer_phase(root, h_final)
     free_memory()
+    mark("H trainer and transfer phases")
     checked = {k: v | sup_checked[k] | h_checked[k] | block_checked[k]
                for k, v in (("conv3x3", conv_checked), ("zslab", zc_checked),
                             ("moments", mom_checked))}
     with tempfile.TemporaryDirectory() as root:
         cli_launches, cli_errs, cli_step, cli_case = cli_phase(root, gen, checked, shapes)
     free_memory()
-    conv_err, conv_rel = max(conv_err, cli_errs["conv3x3"][0]), max(conv_rel,
-                                                                    cli_errs["conv3x3"][1])
-    zc_err, zc_rel = max(zc_err, cli_errs["zslab"][0]), max(zc_rel, cli_errs["zslab"][1])
-    mom_err, mom_rel = max(mom_err, cli_errs["moments"][0]), max(mom_rel,
-                                                                 cli_errs["moments"][1])
+    mark("cli phase")
     with tempfile.TemporaryDirectory() as root:
         casc_launches, casc_errs, casc_step, casc_case = cascade_phase(root, gen, checked, shapes)
     free_memory()
-    conv_err, conv_rel = max(conv_err, casc_errs["conv3x3"][0]), max(conv_rel,
-                                                                      casc_errs["conv3x3"][1])
-    zc_err, zc_rel = max(zc_err, casc_errs["zslab"][0]), max(zc_rel, casc_errs["zslab"][1])
-    mom_err, mom_rel = max(mom_err, casc_errs["moments"][0]), max(mom_rel,
-                                                                  casc_errs["moments"][1])
+    mark("cascade phase")
     with tempfile.TemporaryDirectory() as root:
-        ddp_launches, ddp_errs, ddp_pre, ddp_sup = ddp_phase(root, gen, checked, shapes)
-    free_memory()
-    conv_err, conv_rel = max(conv_err, ddp_errs["conv3x3"][0]), max(conv_rel,
-                                                                     ddp_errs["conv3x3"][1])
-    zc_err, zc_rel = max(zc_err, ddp_errs["zslab"][0]), max(zc_rel, ddp_errs["zslab"][1])
-    mom_err, mom_rel = max(mom_err, ddp_errs["moments"][0]), max(mom_rel,
-                                                                 ddp_errs["moments"][1])
+        ddp_launches, ddp_errs, ddp_pre, ddp_sup, ddp_records = ddp_phase(root, gen, checked,
+                                                                          shapes)
+        free_memory()
+        mark("ddp phase")
+        multinode_launches = multinode_phase(root, ddp_records, shapes)
+    mark("multinode phase")
+    for errs in (cli_errs, casc_errs, ddp_errs):
+        conv_err, conv_rel = max(conv_err, errs["conv3x3"][0]), max(conv_rel,
+                                                                    errs["conv3x3"][1])
+        zc_err, zc_rel = max(zc_err, errs["zslab"][0]), max(zc_rel, errs["zslab"][1])
+        mom_err, mom_rel = max(mom_err, errs["moments"][0]), max(mom_rel, errs["moments"][1])
     for label, seen in (("conv3x3", shapes.conv), ("zslab", shapes.zslab),
                         ("moments", shapes.moments)):
         check(seen <= checked[label],
@@ -4040,12 +4178,14 @@ def main():
     print(f"[paths] every launch ran at a checked shape: {len(shapes.conv)} kernel #1, "
           f"{len(shapes.zslab)} kernel #2, {len(shapes.moments)} moments shapes")
     ladder_phase(predictor, ladder_data)  # tile batch 2 launches at B = 16: no path's
+    mark("ladder phase")
 
     runs = {"pretrain": pretrain, "inference": inference, "pretrain_trainer": trainer,
             "files": files, "supervised": supervised, "plain_trainer": plain_trainer,
             "da5_trainer": da5_trainer, "pretrain_h": h_pretrain,
             "pretrain_h_trainer": h_trainer, "finetune_h": h_finetune, "cli": cli_launches,
-            "cascade": casc_launches, "ddp": ddp_launches, "block_step": block_launches}
+            "cascade": casc_launches, "ddp": ddp_launches, "multinode": multinode_launches,
+            "block_step": block_launches}
     per = ("one pretraining step (B = 4), one inference volume (18 STUNet-B tiles at B = 8), "
            f"one case of the file path ({case_tiles} PlainConvUNet tiles at B = 8), one "
            "STUNet-B finetuning step and one ATKTrainer PlainConvUNet step (B = 2), one "
@@ -4060,12 +4200,14 @@ def main():
            "counts every launch of each path's run, the PretrainTrainer runs', the "
            "supervised runs' (training, resume, final validation, checkpoint round trip, bare "
            "steps), the ATKTrainer steps', the H phases' (bare, profiled and ride-along "
-           "steps; the H trainer's two runs; the H finetuning steps), the ATKTrainerDA5 steps', "
+           "steps; the H trainer's run; the H finetuning steps), the ATKTrainerDA5 steps', "
            "the command line's (every entry, and the installed model's check), the cascade's "
-           "(every entry) and the ddp phase's (every rank's steps and trainer runs, at world 2 "
-           "over gloo and at world 1 over NCCL) too; ddp_pretrain_rank_step is one rank's "
+           "(every entry), the ddp phase's (the NCCL rank that launch spawns at world 1) and the "
+           "multinode phase's (every launcher rank's steps, at world 2 over gloo and at world 1 "
+           "over NCCL, and its entries' runs) too; ddp_pretrain_rank_step is one rank's "
            f"pretraining step at world {DDP_WORLD} ({DDP_ACCUM} microbatches at B = "
-           f"{DDP_MICRO}), ddp_supervised_rank_step one rank's STUNet-B finetuning step (B = 1); "
+           f"{DDP_MICRO}), ddp_supervised_rank_step one rank's STUNet-B finetuning step (B = 1), "
+           "at the launch shapes of the multinode phase's gloo ranks; "
            "block_step is one pretraining step (B = 4) with ATK_BLOCK_SPARSE=1: stages 0-1 on "
            f"{BLOCKS} blocks (kernel #2 at padding 0, kernel #1's dx at padding 2, the block "
            "norms' moments), the rest as the step's")
@@ -4103,7 +4245,8 @@ def main():
          "finetune_h_step": h_sup["moments"], "cli_plain_step": cli_step["moments"],
          "cli_case": cli_case["moments"], "cascade_step": casc_step["moments"],
          "cascade_case": casc_case["moments"], "ddp_pretrain_rank_step": ddp_pre["moments"],
-         "ddp_supervised_rank_step": ddp_sup["moments"], "block_step": block_tot["moments"]},
+         "ddp_supervised_rank_step": ddp_sup["moments"],
+         "block_step": block_tot["moments"]},
         per + "; ms is the call (host and device, CUDA events), device_ms the kernel "
         "(torch.profiler)")
     case_dev = None if mom_tile[1] is None else case_tiles * mom_tile[1]

@@ -353,7 +353,7 @@ def test_module_matches_jax(name):
     rules = _RULES.get(name, name)
     params = numpy_params(jmod, 12, *args)
     jargs = [[jnp.asarray(v) for v in a] if isinstance(a, list) else jnp.asarray(a) for a in args]
-    out = jmod.apply({"params": params}, *jargs)
+    out = jax.jit(jmod.apply)({"params": params}, *jargs)
     outs = out if isinstance(out, (list, tuple)) else [out]
     rs = np.random.RandomState(13)
     ws = [rs.randn(*np.shape(o)).astype(np.float32) for o in outs]
@@ -363,7 +363,7 @@ def test_module_matches_jax(name):
         o = o if isinstance(o, (list, tuple)) else [o]
         return sum(jnp.sum(oi * w) for oi, w in zip(o, ws))
 
-    g_p, g_x = jax.grad(loss, argnums=(0, 1))(params, jargs[0])
+    g_p, g_x = jax.jit(jax.grad(loss, argnums=(0, 1)))(params, jargs[0])
     tmod.load_state_dict(convert.from_jax(rules, params))
     targs = [_to_torch_arg(a) for a in args]
     x0 = targs[0]

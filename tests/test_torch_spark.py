@@ -48,7 +48,7 @@ def forward_pair(models):
     rs = np.random.RandomState(11)
     x = rs.rand(BATCH, *PATCH, 1).astype(np.float32)
     keep = random_keep(rs, BATCH, jmodel.fmap, jmodel.len_keep)
-    inp_j, rec_j = jmodel.apply({"params": params}, jnp.asarray(x), mask_nd(keep))
+    inp_j, rec_j = jax.jit(jmodel.apply)({"params": params}, jnp.asarray(x), mask_nd(keep))
     with torch.no_grad():
         inp_t, rec_t = tmodel(to_ncdhw(x), mask_port(keep))
     return keep, (np.asarray(inp_j), np.asarray(rec_j)), (inp_t.numpy(), rec_t.numpy())

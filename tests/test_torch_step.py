@@ -33,27 +33,32 @@ STEP_PATCH = (64, 64, 64)
 
 
 def _jax_step(model, params, ema_params, x, key, len_loss):
-    """bench.py's micro_grads + train_step for MICRO = 1."""
+    """bench.py's micro_grads + train_step for MICRO = 1, jitted."""
     optimizer = optax.chain(
         optax.clip_by_global_norm(12.0),
         optax.adamw(1e-4, weight_decay=1e-5, mask=jax_no_decay_mask(params)),
     )
-    opt_state = optimizer.init(params)
     k1, k2 = jax.random.split(key)
-    mask1 = model.mask(k1, x.shape[0])
-    inp1, rec1 = model.apply({"params": jax.lax.stop_gradient(ema_params)}, x, mask1)
-    _, loss_map = spark_loss(inp1, rec1, mask1)
-    hard, _ = generate_guided_mask(k2, loss_map, model.fmap, model.len_keep, len_loss)
 
-    def loss_fn(p):
-        inp, rec = model.apply({"params": p}, x, hard)
-        return spark_loss(inp, rec, hard)[0]
+    @jax.jit
+    def step(params, ema_params, x):
+        opt_state = optimizer.init(params)
+        mask1 = model.mask(k1, x.shape[0])
+        inp1, rec1 = model.apply({"params": jax.lax.stop_gradient(ema_params)}, x, mask1)
+        _, loss_map = spark_loss(inp1, rec1, mask1)
+        hard, _ = generate_guided_mask(k2, loss_map, model.fmap, model.len_keep, len_loss)
 
-    loss, grads = jax.value_and_grad(loss_fn)(params)
-    clipped, _ = optax.clip_by_global_norm(12.0).update(grads, optax.EmptyState())
-    updates, _ = optimizer.update(grads, opt_state, params)
-    new_params = optax.apply_updates(params, updates)
-    new_ema = ema_update(ema_params, new_params, 0.999)
+        def loss_fn(p):
+            inp, rec = model.apply({"params": p}, x, hard)
+            return spark_loss(inp, rec, hard)[0]
+
+        loss, grads = jax.value_and_grad(loss_fn)(params)
+        clipped, _ = optax.clip_by_global_norm(12.0).update(grads, optax.EmptyState())
+        updates, _ = optimizer.update(grads, opt_state, params)
+        new_params = optax.apply_updates(params, updates)
+        return loss, clipped, new_params, ema_update(ema_params, new_params, 0.999), hard
+
+    loss, clipped, new_params, new_ema, hard = step(params, ema_params, x)
     noise = np.stack([np.asarray(jax.random.uniform(k, (x.shape[0], int(np.prod(model.fmap)))))
                       for k in (k1, k2)])
     return dict(loss=float(loss), grads=clipped, params=new_params, ema=new_ema,
@@ -136,10 +141,12 @@ def test_loss_matches(both_steps):
 # must vanish in both (<= 1e-6 of the step's largest gradient). Every other
 # leaf agrees to _GRAD_RTOL of its own largest entry: max|g - r| / max|r| of
 # the leaves, measured by `python tests/torch_gradient_gaps.py threads` with
-# torch pinned to 1, 2, 4 and 8 threads, peaks at 3.5043e-3, 3.5424e-3,
-# 3.5038e-3 and 3.5040e-3 (densify_projs.1.weight each time; the stem's
-# conv1.weight, the first leaf over the former 1e-3, at 1.289e-3-1.342e-3).
-# The limit is twice the largest of them.
+# torch pinned to 1, 2, 4 and 8 threads, peaks at 3.4982e-3, 3.4985e-3,
+# 3.4987e-3 and 3.4987e-3 against the jitted JAX step (densify_projs.1.weight
+# each time; the stem's conv1.weight, the first leaf over the former 1e-3, at
+# 1.302e-3-1.308e-3), and at 3.5043e-3, 3.5424e-3, 3.5038e-3 and 3.5040e-3
+# against the same step run eagerly (1.289e-3-1.342e-3). The limit is twice
+# the largest of them.
 _CANCELLED = re.compile(r"sparse_encoder\.sp_cnn\.conv_blocks_context\.\d+\.\d+\.conv[12]\.bias")
 _GRAD_RTOL = 7.1e-3
 

@@ -30,7 +30,8 @@ def jax_params(model, seed: int):
     affines and mask tokens carry signal too."""
     key = jax.random.PRNGKey(seed)
     x0 = jnp.zeros((1, *model.input_size, 1), jnp.float32)
-    params = model.init(key, x0, model.mask(key, 1))["params"]
+    # jitted: flax's eager init compiles op by op (minutes for a SparK)
+    params = jax.jit(model.init)(key, x0, model.mask(key, 1))["params"]
     rs = np.random.RandomState(seed)
     return jax.tree_util.tree_map(
         lambda v: np.asarray(v, np.float32)
