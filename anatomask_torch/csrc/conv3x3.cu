@@ -13,10 +13,13 @@
 // FLOP per input byte or more, far above the card's ~295 FLOP/byte ridge, so the
 // floor is the bf16 tensor-core rate (989 TFLOP/s), which only wgmma reaches.
 // Every bf16 conv with C and F multiples of 32 runs the hopper variant of
-// conv3x3_igemm.cuh (a cp.async ring feeding wgmma, 128 x BN tiles); fp32 and
-// the C = 1 stem run its simple variant. The measured gap is recorded in PERF.md.
+// conv3x3_igemm.cuh (a cp.async ring feeding wgmma, 128 x BN tiles); the bf16
+// stems (C <= 8, F a multiple of 16 up to 96), bound by bytes, run the stem
+// variant of conv3x3_stem.cuh; fp32 and every other shape the simple variant.
+// The measured gap is recorded in PERF.md.
 
 #include "conv3x3_igemm.cuh"
+#include "conv3x3_stem.cuh"
 
 // The simple variant; see conv3x3_igemm::launch for the arguments.
 extern "C" int conv3x3_forward(const void* x, const void* w, void* y, int B, int X, int Y,
@@ -31,4 +34,11 @@ extern "C" int conv3x3_forward_hopper(const void* x, const void* wt, void* y, in
                                       int Y, int Z, int C, int F, int p, int bk, int bn,
                                       void* stream) {
   return conv3x3_igemm::hopper::launch<false>(x, wt, y, B, X, Y, Z, C, F, p, bk, bn, stream);
+}
+
+// The stem variant (bf16, 1 <= C <= 8, w = the (3 * KT, F) weight of
+// pack_weight "stem"); see conv3x3_stem::launch for the arguments.
+extern "C" int conv3x3_forward_stem(const void* x, const void* w, void* y, int B, int X, int Y,
+                                    int Z, int C, int F, int p, void* stream) {
+  return conv3x3_stem::launch<false>(x, w, y, B, X, Y, Z, C, F, p, stream);
 }

@@ -17,8 +17,9 @@
 // Bound on the H100: the paths' convs (C, F >= 32) do at least 2*27*32 FLOP
 // per byte moved, far above the card's ~295 FLOP/byte ridge, so they are bound
 // by operations: 989 TFLOP/s bf16 on the tensor cores, reachable only through
-// wgmma. Two variants; ops/conv3x3.py `igemm_variant` picks one from dtype,
-// shape and alignment alone:
+// wgmma. Two variants here, and the bf16 stems (C <= 8, bound by bytes) in
+// conv3x3_stem.cuh; ops/conv3x3.py `conv_variant` picks one from dtype, shape
+// and alignment alone:
 //
 // hopper (namespace hopper): bf16 with C % 32 == 0, F % 32 == 0 and 16-byte
 //   aligned pointers, the weight repacked K-major to (F, 27*C). A 256-thread
@@ -36,21 +37,26 @@
 //   descriptors; a K step advances a (tap, channel) counter, reads one tap
 //   offset and adds a stage offset to the descriptors (no division).
 //   PER_TAP rounds in registers: once a tap's last products retire (waited
-//   for after the next step's copies are issued), the accumulators are
+//   for after the next step's copies are issued), the tap's fp32 sum is
 //   rounded to bf16 and added, in fp32 then rounded, to a running sum held as
-//   packed bf16x2; the next tap's first product starts with scale-d = 0. The
+//   packed bf16x2. The tensor cores' fp32 accumulation drifts over a long
+//   chain of products (the taps of a 9C = 1728 chain rounded to the other
+//   bf16 value 4.3x as often as a round-to-nearest fp32 sum, 63% of them
+//   toward zero), and each tap's sum is rounded, so PER_TAP chains PROMOTE K
+//   steps at a time from scale-d = 0 and adds each group to the tap's sum on
+//   the FP32 pipe (tests/torch_zslab_roundoff.py measures both). The
 //   epilogue stores bf16x2 straight from the registers, masked at ragged M.
 //
-// simple (the kernel below): fp32 (the exactness check), the C = 1 stem and
-//   every other shape. A 128-thread block owns a 64 x 64 tile and walks K in
-//   32-wide steps through one shared-memory stage: bf16 on nvcuda::wmma
-//   16x16x16 fragments, fp32 by plain FMA. PER_TAP (bf16) sends the fp32
-//   accumulators through shared memory at each tap's end (wmma's fragment
-//   layout is opaque), rounds them and adds them to a running bf16 sum kept in
-//   shared memory. Where all of K fits one step (C = 1), PER_TAP gathers the
-//   input tile once and runs it against each tap's weight rows in turn, the
-//   other rows zero. In fp32 rounding a tap's sum changes nothing, so both flags
-//   run the one loop.
+// simple (the kernel below): fp32 (the exactness check) and every shape that
+//   neither the hopper nor the stem variant takes. A 128-thread block owns a
+//   64 x 64 tile and walks K in 32-wide steps through one shared-memory
+//   stage: bf16 on nvcuda::wmma 16x16x16 fragments, fp32 by plain FMA.
+//   PER_TAP (bf16) sends the fp32 accumulators through shared memory at each
+//   tap's end (wmma's fragment layout is opaque), rounds them and adds them
+//   to a running bf16 sum kept in shared memory; a tap's products chain on
+//   the tensor cores from its first to its last (no PROMOTE groups: the
+//   variant runs no bf16 conv of the paths). In fp32 rounding a tap's sum
+//   changes nothing, so both flags run the one loop.
 //
 // In both, the output is written once, at the end.
 
@@ -196,11 +202,6 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__
     // K segments: the whole of K, or one first-axis tap each
     constexpr int SEGS = PER_TAP ? 3 : 1;
     const int KS = K / SEGS;
-    // all of K in one step (C = 1, the stem): the input tile is gathered once
-    // and each tap multiplies it by the weight rows of that tap alone (the
-    // others zero, which adds exact zeros for a finite input), instead of
-    // three gathers of a 9-wide step
-    const bool one_step = PER_TAP && K <= BK;
     // the running bf16 sum of the rounded taps; in shared memory, as 32 more
     // registers a thread would cost a resident block per SM
     __shared__ bf16 run[PER_TAP ? BM * BN : 1];
@@ -211,9 +212,8 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__
       for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-      for (int k0 = one_step ? 0 : kbeg; k0 < kend; k0 += BK) {
-        if (!one_step || s == 0)
-          load_a<T, LDA>(As, x, rows, k0, one_step ? K : kend, X, Y, Z, C, P, vec_a);
+      for (int k0 = kbeg; k0 < kend; k0 += BK) {
+        load_a<T, LDA>(As, x, rows, k0, kend, X, Y, Z, C, P, vec_a);
         load_b<T, LDB>(Bs, w, k0, n0, kbeg, kend, F, vec_b);
         __syncthreads();
 #pragma unroll
@@ -332,6 +332,12 @@ int launch(const void* x, const void* w, void* y, int B, int X, int Y, int Z, in
 
 namespace hopper {
 
+#ifndef CONV3X3_PROMOTE
+#define CONV3X3_PROMOTE 4
+#endif
+// K steps a group of products chained on the tensor cores (PER_TAP); a
+// compile-time constant, which tests/torch_zslab_roundoff.py `variants` sets
+constexpr int PROMOTE = CONV3X3_PROMOTE;
 constexpr int BM = 128;       // output voxels per block, 64 per warpgroup
 constexpr int THREADS = 256;  // two warpgroups; all of them copy and multiply
 constexpr int STAGES = 4;     // shared-memory ring depth
@@ -589,10 +595,10 @@ conv3x3_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ wt, bf16* __r
   for (int i = 0; i < T::NACC; ++i) acc[i] = 0.f;
   uint32_t run[PER_TAP ? T::NACC / 2 : 1];  // the running bf16x2 sum of the rounded taps
   // a tap's sum (all of its products retired): rounded, then added to the running sum
-  auto add_tap = [&](bool first) {
+  auto add_tap = [&](const float(&sum)[T::NACC], bool first) {
 #pragma unroll
     for (int i = 0; i < T::NACC; i += 2) {
-      const float t0 = round_bf16(acc[i]), t1 = round_bf16(acc[i + 1]);
+      const float t0 = round_bf16(sum[i]), t1 = round_bf16(sum[i + 1]);
       if (first) {
         run[i / 2] = pack_bf16x2(t0, t1);
       } else {
@@ -602,7 +608,6 @@ conv3x3_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ wt, bf16* __r
     }
   };
   const int seg = PER_TAP ? KT / 3 : KT;  // K steps a segment: a tap, or all of K
-  int seg_pos = 0;                        // step kt's place in its segment
   // descriptors of stage 0: this warpgroup's 64 rows of A, and B; a stage's
   // are these plus its byte offset >> 4 (in the 14-bit start address field)
   const uint64_t desc_a = make_desc<BK>(ring + (tid / 128) * 64 * T::ROWB);
@@ -613,40 +618,83 @@ conv3x3_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ wt, bf16* __r
     load(s);
     cp_async_commit();
   }
-#pragma unroll 1
-  for (int kt = 0; kt < KT; ++kt) {
-    // step kt has landed (for this thread), then for every thread; the
-    // barrier also follows every warpgroup's retirement of step kt - 2, whose
-    // stage the copies below refill
+  // step kt has landed (for this thread), then for every thread; the barrier
+  // also follows every warpgroup's retirement of step kt - 2, whose stage the
+  // copies below refill. Returns the step's descriptors' stage offset.
+  auto next_stage = [&](int kt) {
     cp_async_wait<STAGES - 3>();
     fence_proxy_async();
     __syncthreads();
     if (kt + STAGES - 2 < KT) load(kt + STAGES - 2);
     cp_async_commit();
-    if constexpr (PER_TAP) {
-      if (kt > 0 && seg_pos == 0) {  // the previous tap ended with step kt - 1
+    return (uint64_t)((kt % STAGES) * (T::STAGE_BYTES >> 4));
+  };
+
+  if constexpr (PER_TAP) {
+    // The tensor cores' fp32 accumulation loses more to round-off over a long
+    // chain than round-to-nearest adds do, and each tap's sum is rounded to
+    // bf16, so a tap's K steps run in groups of PROMOTE: a group's products
+    // chain in `acc` from scale-d = 0, and once it retires the FP32 pipe adds
+    // it to the tap's sum `tot`.
+    float tot[T::NACC];
+    int pos = 0, grp = 0, taps = 0;  // the next step's place in its tap and group
+    bool fresh = true;               // tot holds none of the tap's groups yet
+    auto fold = [&]() {              // the retired group into tot
+#pragma unroll
+      for (int i = 0; i < T::NACC; ++i) tot[i] = fresh ? acc[i] : tot[i] + acc[i];
+      fresh = false;
+    };
+#pragma unroll 1
+    for (int kt = 0; kt < KT; ++kt) {
+      const uint64_t off = next_stage(kt);
+      if (kt > 0 && grp == 0) {  // step kt - 1 closed a group
         wgmma_wait<0>();
         fence_operand(acc);
-        add_tap(kt == seg);
+        fold();
+        if (pos == 0) {  // and its tap
+          add_tap(tot, taps++ == 0);
+          fresh = true;
+        }
       }
-    }
-
-    const uint32_t stage_off = (kt % STAGES) * (T::STAGE_BYTES >> 4);
-    const uint64_t da = desc_a + stage_off, db = desc_b + stage_off;
-    const int keep = seg_pos != 0;  // scale-d: a segment's first product starts at 0
-    if (++seg_pos == seg) seg_pos = 0;
-    fence_operand(acc);
-    wgmma_fence();
+      const int keep = grp != 0;  // scale-d: a group's first product starts at 0
+      if (++pos == seg) {
+        pos = 0;
+        grp = 0;
+      } else if (++grp == PROMOTE) {
+        grp = 0;
+      }
+      fence_operand(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      Wgmma<BN>::mma(acc, da + 2 * kk, db + 2 * kk, kk > 0 || keep);
-    wgmma_commit();
-    wgmma_wait<1>();  // step kt - 1 retired: its stage may be refilled
+      for (int kk = 0; kk < BK / 16; ++kk)
+        Wgmma<BN>::mma(acc, desc_a + off + 2 * kk, desc_b + off + 2 * kk, kk > 0 || keep);
+      wgmma_commit();
+      wgmma_wait<1>();  // step kt - 1 retired: its stage may be refilled
+      fence_operand(acc);
+    }
+    wgmma_wait<0>();
+    fence_operand(acc);
+    fold();
+    add_tap(tot, false);  // the last of the three taps
+  } else {
+    int seg_pos = 0;  // step kt's place in K
+#pragma unroll 1
+    for (int kt = 0; kt < KT; ++kt) {
+      const uint64_t off = next_stage(kt);
+      const int keep = seg_pos != 0;  // scale-d: the first product starts at 0
+      if (++seg_pos == seg) seg_pos = 0;
+      fence_operand(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        Wgmma<BN>::mma(acc, desc_a + off + 2 * kk, desc_b + off + 2 * kk, kk > 0 || keep);
+      wgmma_commit();
+      wgmma_wait<1>();  // step kt - 1 retired: its stage may be refilled
+      fence_operand(acc);
+    }
+    wgmma_wait<0>();
     fence_operand(acc);
   }
-  wgmma_wait<0>();
-  fence_operand(acc);
-  if constexpr (PER_TAP) add_tap(false);  // the last of the three taps
 
   // accumulator (i, i + 1) of thread t: row 16 * warp + lane / 4 + 8 * (i / 2 % 2),
   // columns 8 * (i / 4) + 2 * (lane % 4) + {0, 1} of the warpgroup's 64 x BN tile

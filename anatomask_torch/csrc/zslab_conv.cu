@@ -25,11 +25,15 @@
 // where its 822 MB of x and y take 0.25 ms at 3.35 TB/s. Both probe shapes run
 // the hopper variant (a cp.async ring feeding wgmma), whose per-tap rounding
 // stays in registers: at a tap's end the accumulators are rounded and added to
-// a running bf16x2 sum, with no shared-memory round trip. fp32 and shapes the
-// hopper variant does not take run the simple variant, which stages each tap
-// through shared memory. PERF.md keeps the measured times.
+// a running bf16x2 sum, with no shared-memory round trip. The bf16 stems (C
+// <= 8, F a multiple of 16 up to 96) are bound by bytes and run the stem
+// variant (conv3x3_stem.cuh: the input brick in shared memory once, wgmma
+// with A from registers, each tap rounded in registers); fp32 and every other shape the simple
+// variant, which stages each tap through shared memory. PERF.md keeps the
+// measured times.
 
 #include "conv3x3_igemm.cuh"
+#include "conv3x3_stem.cuh"
 
 // The simple variant; see conv3x3_igemm::launch for the arguments.
 extern "C" int zslab_forward(const void* x, const void* w, void* y, int B, int X, int Y,
@@ -43,4 +47,11 @@ extern "C" int zslab_forward(const void* x, const void* w, void* y, int B, int X
 extern "C" int zslab_forward_hopper(const void* x, const void* wt, void* y, int B, int X, int Y,
                                     int Z, int C, int F, int p, int bk, int bn, void* stream) {
   return conv3x3_igemm::hopper::launch<true>(x, wt, y, B, X, Y, Z, C, F, p, bk, bn, stream);
+}
+
+// The stem variant (bf16, 1 <= C <= 8, w = the (3 * KT, F) weight of
+// pack_weight "stem"); see conv3x3_stem::launch for the arguments.
+extern "C" int zslab_forward_stem(const void* x, const void* w, void* y, int B, int X, int Y,
+                                  int Z, int C, int F, int p, void* stream) {
+  return conv3x3_stem::launch<true>(x, w, y, B, X, Y, Z, C, F, p, stream);
 }

@@ -17,10 +17,11 @@ NDHWC, weights DHWIO.
   fp32 accumulation, one rounding). A CPU tensor goes through it; a CUDA
   tensor always launches the kernel, and anything the kernel does not take
   raises.
-- `check_args`, `igemm_variant`, `igemm_tile`, `pack_weight` and
-  `launch_igemm`: the input checks, the variant and tile choice, the weight
-  layout and the ctypes launch shared with `ops/zslab_conv.py`, whose kernel
-  is the same implicit GEMM (`csrc/conv3x3_igemm.cuh`) with per-tap rounding.
+- `check_args`, `conv_variant` (with `igemm_variant`, its form for
+  tensors), `igemm_tile`, `pack_weight` and `launch_igemm`: the input
+  checks, the variant and tile choice, the weight layout and the ctypes
+  launch shared with `ops/zslab_conv.py`, whose kernels are the same
+  (`csrc/conv3x3_igemm.cuh`, `csrc/conv3x3_stem.cuh`) with per-tap rounding.
 
 `padding` p is 0, 1 or 2 on every side: output voxel o reads input voxels
 o + t - p, so an output extent is the input's + 2p - 2. p = 1 is the "same"
@@ -30,17 +31,27 @@ dx (the block-sparse encoder, `ops/block_sparse.py`).
 Bound on the H100: the paths' convs (C, F >= 32, volumes of 7x7x8 up to
 128^3) do at least 2*27*32 FLOP per byte moved, so the bf16 tensor-core rate
 (989 TFLOP/s, reachable only through wgmma) bounds them, not the 3.35 TB/s of
-memory. `csrc/conv3x3_igemm.cuh` has two variants, and `igemm_variant` picks
-one from dtype, shape and alignment alone (a shape dispatch between two
-hand-written kernels; a failed build or launch raises):
+memory; the stems (C = 1, 3, 4) do at most 96 FLOP a byte and are bound by
+the bytes they write. There are three variants, and `conv_variant` picks one
+from dtype, C, F and alignment alone (a shape dispatch between hand-written
+kernels; a failed build or launch raises):
 
-- "hopper": bf16 with C and F multiples of 32 and 16-byte-aligned data, i.e.
-  every conv of the paths but the C = 1 stem. The weight is repacked K-major,
-  (F, 27*C); 128 x BN output tiles (BN = 128, 64 or 32, the largest dividing
-  F), K steps of BK = 64 (C % 64 == 0) or 32, a 4-stage cp.async ring feeding
-  wgmma, the address math hoisted out of the K loop.
-- "simple": everything else (fp32, the stem, other channel counts): 64 x 64
-  tiles on wmma fragments (bf16) or FMA (fp32), one shared-memory stage.
+- "hopper" (`csrc/conv3x3_igemm.cuh`): bf16 with C and F multiples of 32 and
+  16-byte-aligned data, i.e. every conv of the paths but the stems. The
+  weight is repacked K-major, (F, 27*C); 128 x BN output tiles (BN = 128, 64
+  or 32, the largest dividing F), K steps of BK = 64 (C % 64 == 0) or 32, a
+  4-stage cp.async ring feeding wgmma, the address math hoisted out of the K
+  loop.
+- "stem" (`csrc/conv3x3_stem.cuh`): bf16 with 1 <= C <= STEM_MAX_C and F a
+  multiple of 16 up to STEM_MAX_F, i.e. every network's first conv (C = 1,
+  3, 4 -> 32; STUNet-H's 1 -> 96). A persistent block loads a brick of the
+  input into shared memory once and multiplies it on wgmma (A from
+  registers, the weight in shared memory), per first-axis tap K = (dy, dz,
+  c) zero-padded to a multiple of 16 (`pack_weight`); each output byte is
+  written once.
+- "simple" (`csrc/conv3x3_igemm.cuh`): everything else (fp32, other channel
+  counts): 64 x 64 tiles on wmma fragments (bf16) or FMA (fp32), one
+  shared-memory stage.
 
 Each wrapper counts its launches in total (`launches`), by variant
 (`launches_by_variant`) and by padding (`launches_by_padding`). Their gap to
@@ -108,18 +119,31 @@ def conv3d_3x3_plain(x: torch.Tensor, w: torch.Tensor, padding: int = 1) -> torc
     return out
 
 
-VARIANTS = ("hopper", "simple")
+VARIANTS = ("hopper", "stem", "simple")
 # the (BK, BN) tiles of the hopper variant: CONV3X3_HOPPER_TILES in csrc/conv3x3_igemm.cuh
 HOPPER_TILES = ((32, 32), (32, 64), (32, 128), (64, 32), (64, 64), (64, 128))
+# the stem variant's domain: CONV3X3_STEM_CHANNELS and MAX_F in csrc/conv3x3_stem.cuh
+STEM_MAX_C, STEM_MAX_F = 8, 96
+
+
+def conv_variant(dtype: torch.dtype, C: int, F: int, aligned: bool = True) -> str:
+    """The variant that runs a conv of C -> F channels in `dtype` (`aligned`:
+    x starts on a 16-byte boundary; the weight and the output are fresh
+    allocations): "hopper" for bf16 with C and F multiples of 32, aligned;
+    "stem" for bf16 with 1 <= C <= STEM_MAX_C and F a multiple of 16 up to
+    STEM_MAX_F (aligned or not: it copies x by words where x's alignment
+    allows, else two bytes at a time); else "simple"."""
+    if dtype == torch.bfloat16:
+        if C % 32 == 0 and F % 32 == 0 and aligned:
+            return "hopper"
+        if 1 <= C <= STEM_MAX_C and F % 16 == 0 and 16 <= F <= STEM_MAX_F:
+            return "stem"
+    return "simple"
 
 
 def igemm_variant(x: torch.Tensor, w: torch.Tensor) -> str:
-    """"hopper" for bf16 with C and F multiples of 32 and a 16-byte-aligned x
-    (the weight and the output are fresh allocations), else "simple"."""
-    C, F = x.shape[-1], w.shape[-1]
-    if x.dtype == torch.bfloat16 and C % 32 == 0 and F % 32 == 0 and x.data_ptr() % 16 == 0:
-        return "hopper"
-    return "simple"
+    """conv_variant for the conv of x (NDHWC) by w (DHWIO)."""
+    return conv_variant(x.dtype, x.shape[-1], w.shape[-1], x.data_ptr() % 16 == 0)
 
 
 def igemm_tile(C: int, F: int) -> tuple[int, int]:
@@ -129,10 +153,27 @@ def igemm_tile(C: int, F: int) -> tuple[int, int]:
             next(bn for bn in (128, 64, 32) if F % bn == 0))
 
 
+def stem_rows(C: int) -> tuple[int, int]:
+    """(R, KT) of the stem variant: the weight rows of one (dx, dy), 3*C
+    rounded up to even, and of one first-axis tap, 3*R rounded up to a
+    multiple of 16 (Geo<C> in csrc/conv3x3_stem.cuh)."""
+    R = 3 * C + C % 2
+    return R, -(-3 * R // 16) * 16
+
+
 def pack_weight(w: torch.Tensor, variant: str) -> torch.Tensor:
     """The (3, 3, 3, C, F) weight as the variant's kernel reads it: (F, 27*C)
-    with K contiguous for "hopper", (27*C, F) for "simple"; K = (tap, c)."""
+    with K = (tap, c) contiguous for "hopper", (27*C, F) for "simple", and
+    (F, 3 * KT) with K contiguous for "stem": per first-axis tap dx, KT
+    columns (dy, dz, c), column dx * KT + dy * R + dz * C + c, the rest zero
+    (stem_rows)."""
     C, F = w.shape[3], w.shape[4]
+    if variant == "stem":
+        R, KT = stem_rows(C)
+        out = w.new_zeros(F, 3, KT)
+        taps = w.reshape(3, 3, 3 * C, F).permute(3, 0, 1, 2)  # (F, dx, dy, (dz, c))
+        out[:, :, :3 * R].view(F, 3, 3, R)[..., :3 * C] = taps
+        return out.reshape(F, 3 * KT)
     w2 = w.reshape(27 * C, F)
     return (w2.t() if variant == "hopper" else w2).contiguous()
 
@@ -149,10 +190,10 @@ def _entry(library: str, symbol: str, n_ints: int):
 
 def launch_igemm(x: torch.Tensor, w: torch.Tensor, library: str, symbol: str,
                  padding: int = 1) -> tuple[torch.Tensor, str]:
-    """One launch of a kernel of csrc/conv3x3_igemm.cuh through the C
-    launcher `symbol` (simple variant) or `symbol`_hopper, on the current
-    stream of x's device. Returns the output and the variant; counting is the
-    caller's."""
+    """One launch of a kernel of csrc/conv3x3_igemm.cuh or csrc/conv3x3_stem.cuh
+    through the C launcher `symbol` (simple variant), `symbol`_hopper or
+    `symbol`_stem, as igemm_variant picks, on the current stream of x's
+    device. Returns the output and the variant; counting is the caller's."""
     B, X, Y, Z, C = x.shape
     F = w.shape[-1]
     variant = igemm_variant(x, w)
@@ -166,6 +207,9 @@ def launch_igemm(x: torch.Tensor, w: torch.Tensor, library: str, symbol: str,
             err = _entry(library, f"{symbol}_hopper", 9)(
                 x.data_ptr(), w2.data_ptr(), y.data_ptr(), B, X, Y, Z, C, F, padding,
                 *igemm_tile(C, F), stream)
+        elif variant == "stem":
+            err = _entry(library, f"{symbol}_stem", 7)(
+                x.data_ptr(), w2.data_ptr(), y.data_ptr(), B, X, Y, Z, C, F, padding, stream)
         else:
             vec = 16 // x.element_size()
             vec_a = C % vec == 0 and x.data_ptr() % 16 == 0

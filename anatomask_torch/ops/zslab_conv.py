@@ -31,11 +31,14 @@ rounding of the JAX package's bf16 main path at >= 32768 output voxels
   anything the kernel does not take raises.
 
 Unlike the TPU kernel (H % 8 == 0, a 12 MB VMEM budget) there is no shape
-gate: any (B, D, H, W, C) with C >= 1, in fp32 or bf16. `igemm_variant` of
+gate: any (B, D, H, W, C) with C >= 1, in fp32 or bf16. `conv_variant` of
 `ops/conv3x3.py` sends bf16 with C and F multiples of 32 to the kernel's
-hopper variant, which rounds each tap in registers, and everything else (the
-C = 1 stem, fp32) to its simple variant. Bound on the H100 and the design:
-the notes at the top of `csrc/zslab_conv.cu` and `csrc/conv3x3_igemm.cuh`.
+hopper variant and the bf16 stems (C = 1, 3, 4, ... up to 8, F a multiple of
+16 up to 96) to its stem variant, both of which round each tap in registers,
+and everything else (fp32, other channel counts) to its simple variant.
+`models/layers.py` ConvND reaches all three through `conv3d_zconcat`. Bound
+on the H100 and the design: the notes at the top of `csrc/zslab_conv.cu`,
+`csrc/conv3x3_igemm.cuh` and `csrc/conv3x3_stem.cuh`.
 """
 from __future__ import annotations
 

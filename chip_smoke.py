@@ -7,11 +7,12 @@ Phases, each of which raises on a failed check:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: compile csrc/conv3x3.cu, csrc/moments.cu and csrc/zslab_conv.cu
-   (the two convs share the kernels of csrc/conv3x3_igemm.cuh: its hopper
-   and simple variants) for sm_90a from the checkout's sources, one nvcc
-   each, all at once; print each kernel's registers and spills from ptxas's
-   report, and check with cuobjdump's SASS that every hopper instantiation
-   of both conv libraries holds HGMMA (wgmma) instructions;
+   (the two convs share the kernels of csrc/conv3x3_igemm.cuh, its hopper
+   and simple variants, and of csrc/conv3x3_stem.cuh, the stem variant)
+   for sm_90a from the checkout's sources, one nvcc each, all at once;
+   print each kernel's registers and spills from ptxas's report, and check
+   with cuobjdump's SASS that every hopper and stem instantiation of both
+   conv libraries holds HGMMA (wgmma) instructions;
 3. conv kernel (TPU kernel #1): at every call site of the stride-1 3x3x3
    conv on the main paths (the paths run it for the forwards below
    MIN_VOLUME output voxels and for every dx; the table checks all), the
@@ -29,7 +30,16 @@ Phases, each of which raises on a failed check:
    and dx through conv3d_zconcat (dx is kernel #1, rounded once) at the
    step's B = 4, forward at inference's B = 8, against the plain versions,
    rel. max error <= 1e-2, bit-equal on >= 95% of the elements, kernel #1's
-   forward at least 10 points lower; its time beside kernel #1's;
+   forward at least 10 points lower; its time beside kernel #1's. Before
+   it, the stem table: the stem variant (bf16, C <= 8: every network's first
+   conv) at every stem shape of the paths and at edge shapes off them
+   (ragged extents, padding 0 and 2, C = 2, 5, 8, F = 16 and 48), both
+   roundings against their plain versions (per tap: kernel #2's gates;
+   once: rel. max error <= 1e-2); at each path shape the per-tap stem's
+   time beside its byte bound and share, the once-rounded stem's, the plain
+   version's, F.conv3d's and the simple variant's at the same shape (timed
+   through its C entry point, the yardstick it replaced, its output held
+   to the per-tap plain version; the port never calls it there);
 4. moments kernel: at every instance-norm shape of both paths (the step's
    masked and plain norms at B = 4, inference's at B = 8), bf16 and fp32,
    with and without square_in_dtype (x*x rounded to bf16 first, as the
@@ -76,7 +86,8 @@ Phases, each of which raises on a failed check:
    112x112x128, batch 4, mask ratio 0.6, bf16, decoder width 512) for 5
    steps, checking finite losses, the hard masks, the launches by kernel and
    variant (kernel #1 34 hopper, kernel #2 14 hopper and the stem's 2
-   simple, 44 moments; `path_launches` counts them from the site tables) and
+   stem, 44 moments; `path_launches` counts them from the site tables with
+   the port's variant rule, ops/conv3x3.py `conv_variant`) and
    the EMA law, timing the last 3 steps, and a torch.profiler split of 3
    more;
 7b. the block-sparse route: the STUNet-B encoder in fp32 with
@@ -91,7 +102,7 @@ Phases, each of which raises on a failed check:
    240x240x155 volume, patch 128^3, step 0.5, 18 tiles, 8-flip mirror TTA,
    tile batch 1, bf16; 3 volumes, the first a warm-up, checking finite
    logits of shape (3, 240, 240, 155) and, a tile, 7 kernel #1 (hopper), 10
-   kernel #2 (9 hopper, the stem simple) and 22 moments launches;
+   kernel #2 (9 hopper, the stem on the stem variant) and 22 moments launches;
 9. pretraining loop (PretrainTrainer): a synthetic preprocessed dataset
    (8 cases of 1 x 160^3) written with the port's own code into a temporary
    folder, then PretrainTrainer.run_pretraining at full STUNet-B width (patch
@@ -117,8 +128,9 @@ Phases, each of which raises on a failed check:
    at 1 x 1 x 1.5 mm), predicted with 2 spawned preprocessing workers, bf16,
    8-flip TTA, tile batch 1, the first case a warm-up; checking each
    output's shape, spacing, affine and labels, the launches by kernel and
-   variant (a tile: 7 kernel #1, 10 kernel #2 of which the C = 4 stem simple,
-   22 moments), and predict_single_npy_array against the resampled case's
+   variant (a tile: 7 kernel #1, 10 kernel #2 of which the C = 4 stem on the
+   stem variant, 22 moments), and predict_single_npy_array against the
+   resampled case's
    file; printing seconds a case split into fetch-wait, sliding window and
    export, tiles a case, peak memory, and that case's host split in-process;
 11. supervised training (Trainer, STUNetTrainer_base_ft: STUNet-B, patch
@@ -171,14 +183,15 @@ Phases, each of which raises on a failed check:
    segmentations, in a temporary ATK_raw/ATK_preprocessed/ATK_results tree
    deleted at its end: a KiTS-like CT dataset (CLI_TRAIN, CLI_TEST: int16
    HU, labels background/kidney/tumour, two cases resampled) written with
-   the port's NIfTI writer and generate_dataset_json; plan_and_preprocess
-   (--verify_dataset_integrity, 4 spawned workers), whose plans must be the
+   the port's NIfTI writer and generate_dataset_json, and
+   plan_and_preprocess (--verify_dataset_integrity, 4 spawned workers),
+   both in the preparing process (below), whose plans must be the
    JAX planner's (3d_fullres PlainConvUNet 32-320, 6 stages, patch 128^3,
    batch 2; 2d 192^2, batch 64; no 3d_lowres); then the launch shapes those
    plans imply held against the plain versions with the gates above (the
    PlainConvUNet step at B = 2 and its tile forward at B = 16, timed; the
    pretraining microbatch B = 2); pretrain (atk_pretrain's defaults at
-   STUNet-B, 1 epoch x 3 iterations); train ATKTrainer_1epoch folds 0 and 1
+   STUNet-B, 1 epoch x 3 iterations); train ATKTrainer_1epoch fold 0
    --npz and STUNetTrainer_base_ft from the pretraining checkpoint (10
    iterations, 2 validation iterations); predict the test case with both
    (launches by kernel and variant checked per forward); ensemble;
@@ -191,13 +204,13 @@ Phases, each of which raises on a failed check:
    median ms, seconds a test case and fold;
 14. the cascade (3d_lowres -> 3d_cascade_fullres) through the same
    entries on a KiTS-like dataset large enough for the planner to add
-   3d_lowres (CASCADE_TRAIN, CASCADE_TEST; one test case at 1.6 mm):
-   plan_and_preprocess -c 3d_fullres 3d_lowres, whose plans must be the
-   JAX planner's; the cascade network's launch shapes (the C = 3 stem on
-   kernel #2's simple variant) held against the plain versions at B = 2
-   and 16, timed; train ATKTrainer_1epoch 3d_lowres fold all, then
+   3d_lowres (CASCADE_TRAIN, CASCADE_TEST: a test case at 1.6 mm):
+   plan_and_preprocess -c 3d_fullres 3d_lowres in the preparing process,
+   whose plans must be the JAX planner's; the cascade network's launch
+   shapes (the C = 3 stem on kernel #2's stem variant) held against the
+   plain versions at B = 2 and 16, timed; train ATKTrainer_1epoch 3d_lowres fold all, then
    3d_cascade_fullres fold 0 from its predicted_next_stage; predict the
-   test cases with 3d_lowres, then with the cascade from those predictions.
+   test case with 3d_lowres, then with the cascade from those predictions.
    Checked: the plans, every case's predicted_next_stage, the cascade
    network's 3 input channels, its summary.json, every output's raw shape
    and labels, each entry's launches by kernel and variant;
@@ -217,9 +230,10 @@ Phases, each of which raises on a failed check:
    folder, after it: PyTorch's launcher (python -m torch.distributed.run)
    starts one node of one process over NCCL (-device cuda: its card
    LOCAL_RANK), which runs 15's step cases bit-equal to world 1 without a
-   group; then two nodes on 127.0.0.1 of one process each (this script
-   with --multinode-rank), which join one group from its variables and
-   share the card over gloo (-device cuda:0); as global ranks 0 and 1 they
+   group, and at the same time two nodes on 127.0.0.1 of one process each
+   (this script with --multinode-rank), which join one group from its
+   variables and share the card over gloo (-device cuda:0); as global ranks
+   0 and 1 they
    run 15's step cases at world 2 (2 rows a rank, 1 in the supervised
    cases): the ranks' weights and teachers bit-identical after every step,
    world 2 within DDP_LOSS_RTOL, DDP_WEIGHT_TOL and DDP_COUNT_RTOL of world
@@ -238,23 +252,29 @@ Phases, each of which raises on a failed check:
    batch 1 and 2 peaks: the device-resident path must run out at 2, finish
    at 1, and match the uncapped tile batch 1 logits within 1e-3 relative.
 
-A kernel's time is the median of three runs of back-to-back calls, each
-run timed with CUDA events, after a warm-up call. Each main path (7-15b,
-7b included) runs with the launch counts set to 0 just before it and read
-just after (13: each entry; 15: the spawned rank's runs; 15b: each rank's
-runs and entries), and every launch it makes (15, 15b: in every rank) must be
-at a shape that phases 3, 4 and 5b (and 11's to 15's gates) held against
-the plain version (kernel #2's: its path
-shapes in phase 3); phase 16 runs after that check,
-as its tile batch 2 launches at B = 16 on the 4-channel PlainConvUNet.
-Between phases, free_memory collects reference
-cycles and empties the allocator's cache, so that each phase's memory
-peaks count its own tensors; after phase 11 it prints what stayed allocated
-before and after the collection. A [time] line after each phase gives the
-script's seconds so far. The last three
-lines of standard output are the nvidia-smi line, one JSON object {"kernels": [...]}, and
-{"ok": true, "device": {...}}.
-"""
+A kernel's time is the median of three runs of back-to-back calls, each run
+timed with CUDA events, after a warm-up call; a plain conv's (a yardstick,
+10-700 ms a call) one call after the warm-up, and a launch shape that an
+earlier phase of the run timed keeps that phase's times. Each main path
+(7-15b, 7b included) runs with the launch counts set to 0 just before it and
+read just after (13: each entry; 15: the spawned rank's runs; 15b: each
+rank's runs and entries), and every launch it makes (15, 15b: in every rank)
+must be at a shape that phases 3, 4 and 5b (and 11's to 15's gates) held
+against the plain version (kernel #2's: its path shapes in phase 3); phase
+16 runs after that check, as its tile batch 2 launches at B = 16 on the
+4-channel PlainConvUNet. Between phases, free_memory collects reference
+cycles and empties the allocator's cache, so that each phase's memory peaks
+count its own tensors; after phase 11 it prints what stayed allocated before
+and after the collection. A [time] line after each phase gives the script's
+seconds so far. The host work that 13 and 14 begin with (writing each raw
+dataset, plan_and_preprocess) runs in a process of its own at the lowest
+priority (nice 19), started after the kernel phases (3-5b), beside 6-12;
+13 and 14 wait for its part and print its output and seconds. 14's gates
+run after 13, then 15; 15b's nodes start after 15 and run beside 14's
+entries, and are checked after them. The last three lines of standard
+output are the nvidia-smi
+line, one JSON object {"kernels": [...]}, and {"ok": true, "device": {...}}."""
+import atexit
 import copy
 import gc
 import hashlib
@@ -299,9 +319,10 @@ from anatomask_torch.ops import _build
 from anatomask_torch.ops import conv3x3 as conv_mod
 from anatomask_torch.ops import moments as moments_mod
 from anatomask_torch.ops import zslab_conv as zslab_mod
-from anatomask_torch.ops.conv3x3 import (HOPPER_TILES, conv3d_3x3, conv3d_3x3_forward,
-                                         conv3d_3x3_plain, flip_weight, igemm_variant,
-                                         zero_launch_counts)
+from anatomask_torch.ops.conv3x3 import (HOPPER_TILES, STEM_MAX_C, VARIANTS, conv3d_3x3,
+                                         conv3d_3x3_forward, conv3d_3x3_plain, conv_variant,
+                                         flip_weight, igemm_variant, out_extents,
+                                         pack_weight, zero_launch_counts)
 from anatomask_torch.ops.moments import row_moments, row_moments_forward, row_moments_plain
 from anatomask_torch.ops.zslab_conv import (conv3d_zconcat, conv3d_zslab, conv3d_zslab_forward,
                                             conv3d_zslab_plain)
@@ -462,14 +483,13 @@ CLI_ITERS, CLI_VAL_ITERS, CLI_PRETRAIN_ITERS = 10, 2, 3
 CLI_TILE_BATCH = 2 * TTA_BATCH  # the Predictor's tile batch 2 x 8 flips
 # the cascade phase: a KiTS-like raw dataset whose cases are large enough for
 # the planner to add 3d_lowres and 3d_cascade_fullres (5 training cases of
-# 224x256x256 at 1.0x0.8x0.8 mm, the anatomy of kidney_case; 2 test cases,
-# the second at 1.6 mm along z, so that its data and the previous stage's
-# segmentation are resampled)
+# 224x256x256 at 1.0x0.8x0.8 mm, the anatomy of kidney_case; a test case
+# at 1.6 mm along z, so that its data and the previous stage's segmentation
+# are resampled: 224x256x256 at the fullres spacing)
 CASCADE_ID = 955
 CASCADE_DATASET = f"Dataset{CASCADE_ID}_ChipSmokeCascade"
 CASCADE_TRAIN = [(f"case_{i:03d}", (224, 256, 256), (1.0, 0.8, 0.8)) for i in range(5)]
-CASCADE_TEST = [("test_000", (224, 256, 256), (1.0, 0.8, 0.8)),
-                ("test_001", (140, 256, 256), (1.6, 0.8, 0.8))]
+CASCADE_TEST = [("test_000", (140, 256, 256), (1.6, 0.8, 0.8))]
 # what the JAX planner plans for it (tests/test_torch_cascade.py holds the
 # port's planner to these and to the JAX planner): 3d_fullres is CLI_3D at
 # 1.0x0.8x0.8 mm; 3d_lowres the same network at a coarser spacing, its
@@ -479,6 +499,15 @@ CASCADE_LOWRES = dict(CLI_3D, batch_dice=False, next_stage="3d_cascade_fullres")
 CASCADE_LOWRES_SPACING = (1.2298738654248702, 0.9838990923398963, 0.9838990923398963)
 CASCADE_STAGE = {"inherits_from": "3d_fullres", "previous_stage": "3d_lowres"}
 CASCADE_IN = 1 + 2
+# what the cli and cascade phases run first and which needs no card, made by
+# a process of its own beside the phases before them (prepare_main): a
+# phase's dataset (write_cli_dataset's arguments), then plan_and_preprocess
+# with the argv a user types
+PREPARED = (("cli", (CLI_DATASET, CLI_TRAIN, CLI_TEST, 4),
+             ["-d", str(CLI_ID), "-c", "3d_fullres", "--verify_dataset_integrity", "-np", "4"]),
+            ("cascade", (CASCADE_DATASET, CASCADE_TRAIN, CASCADE_TEST, 5),
+             ["-d", str(CASCADE_ID), "-c", "3d_fullres", "3d_lowres", "-np", "4"]))
+PREPARE_TIMEOUT = 900  # seconds a phase waits for its part of the preparing process
 # the DA5 steps of the supervised phase, and its augmentation's calls timed alone
 DA5_STEPS = 3
 STEPS, WARMUP = 5, 2
@@ -542,6 +571,9 @@ def kernel_label(mangled):
     m = re.search(r"conv3x3_kernelI(f|13__nv_bfloat16)Lb([01])E", mangled)
     if m:
         return f"simple {'fp32' if m[1] == 'f' else 'bf16'}{' per-tap' if m[2] == '1' else ''}"
+    m = re.search(r"stem_kernelILi(\d+)ELb([01])E", mangled)
+    if m:
+        return f"stem C={m[1]}{' per-tap' if m[2] == '1' else ''}"
     return mangled
 
 
@@ -561,20 +593,21 @@ def build_report(name):
 
 
 def check_hgmma(name):
-    """Every hopper instantiation of csrc/<name>.cu holds HGMMA instructions in
-    its SASS (cuobjdump, beside nvcc): a build that lost wgmma fails."""
+    """Every hopper and stem instantiation of csrc/<name>.cu holds HGMMA
+    instructions in its SASS (cuobjdump, beside nvcc): a build that lost
+    wgmma fails."""
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "--dump-sass", str(_build.library_path(name))],
                           capture_output=True, text=True, check=True, timeout=300).stdout
     counts = {}
     for chunk in sass.split("Function : ")[1:]:
         label = kernel_label(chunk.split(None, 1)[0])
-        if label.startswith("hopper"):
+        if label.startswith(("hopper", "stem")):
             counts[label] = sum("HGMMA" in line for line in chunk.splitlines())
-    check(len(counts) == len(HOPPER_TILES) and all(counts.values()),
-          f"{name}: HGMMA instructions by hopper kernel {counts}")
-    print(f"[build] {name}: HGMMA instructions in each of its {len(counts)} hopper kernels: "
-          f"{', '.join(f'{k} {v}' for k, v in sorted(counts.items()))}")
+    check(len(counts) == len(HOPPER_TILES) + STEM_MAX_C and all(counts.values()),
+          f"{name}: HGMMA instructions by hopper and stem kernel {counts}")
+    print(f"[build] {name}: HGMMA instructions in each of its {len(counts)} hopper and stem "
+          f"kernels: {', '.join(f'{k} {v}' for k, v in sorted(counts.items()))}")
 
 
 def zero_counts():
@@ -584,7 +617,7 @@ def zero_counts():
     row_moments.launches = 0
 
 
-COUNT_KEYS = ("conv3x3.hopper", "conv3x3.simple", "zslab.hopper", "zslab.simple", "moments")
+COUNT_KEYS = tuple(f"{k}.{v}" for k in ("conv3x3", "zslab") for v in VARIANTS) + ("moments",)
 
 
 def counts():
@@ -617,13 +650,14 @@ def path_launches(sites, norms, forwards, backward, stem=True):
     """The launches of `forwards` forwards over `sites` and `norms` and, with
     `backward`, one backward (dx at every site but the stem, sites[0] where
     `stem`, whose input carries no gradient; the norms' backward is
-    elementwise)."""
+    elementwise), each conv on the variant the port's rule picks for its bf16
+    C -> F (the dx: F -> C)."""
     want = dict.fromkeys(COUNT_KEYS, 0)
     for i, (name, C, F, vol) in enumerate(sites):
-        variant = "hopper" if C % 32 == 0 and F % 32 == 0 else "simple"
-        want[f"{'zslab' if per_tap(vol) else 'conv3x3'}.{variant}"] += forwards
+        want[f"{'zslab' if per_tap(vol) else 'conv3x3'}."
+             f"{conv_variant(torch.bfloat16, C, F)}"] += forwards
         if backward and (i > 0 or not stem):
-            want[f"conv3x3.{variant}"] += 1
+            want[f"conv3x3.{conv_variant(torch.bfloat16, F, C)}"] += 1
     want["moments"] = forwards * len(norms)
     return want
 
@@ -633,7 +667,7 @@ def path_launches(sites, norms, forwards, backward, stem=True):
 STEP_LAUNCHES = path_launches(SITES, PRETRAIN_NORMS, 2, True)
 VAL_LAUNCHES = path_launches(SITES, PRETRAIN_NORMS, 1, False)
 # a dense step's launches by padding: every conv at 1
-STEP_PADDINGS = {k: (STEP_LAUNCHES[f"{k[:-3]}.hopper"] + STEP_LAUNCHES[f"{k[:-3]}.simple"]
+STEP_PADDINGS = {k: (sum(STEP_LAUNCHES[f"{k[:-3]}.{v}"] for v in VARIANTS)
                      if k.endswith("p1") else 0) for k in BLOCK_STEP_PADDINGS}
 TILE_LAUNCHES = path_launches(INFER_SITES, INFER_NORMS, 1, False)
 PLAIN_TILE_LAUNCHES = path_launches(PLAIN_INFER_SITES, PLAIN_INFER_NORMS, 1, False)
@@ -737,10 +771,20 @@ def time_ms(f, reps, rounds=3):
     return statistics.median(start.elapsed_time(end) / reps for start, end in events)
 
 
-def bound_ms(C, F, vol, batch=BATCH, itemsize=2):
+def plain_ms(f):
+    """ms of one call of a plain conv version after a warm-up call (a
+    yardstick: one run, not time_ms's three)."""
+    return time_ms(f, 1, rounds=1)
+
+
+def bound_ms(C, F, vol, batch=BATCH, itemsize=2, padding=1):
+    """(FLOP ms, byte ms) of one conv of the (batch, *vol, C) input: x and
+    the weight read once, y written once, the 27-tap products at the bf16
+    rate."""
     voxels = batch * math.prod(vol)
-    flops = 2 * voxels * 27 * C * F
-    nbytes = (voxels * C + 27 * C * F + voxels * F) * itemsize
+    out = batch * math.prod(n + 2 * padding - 2 for n in vol)
+    flops = 2 * out * 27 * C * F
+    nbytes = (voxels * C + 27 * C * F + out * F) * itemsize
     return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
@@ -791,7 +835,7 @@ def time_site(C, F, vol, gen, batch, timed=True):
     xc = x.permute(0, 4, 1, 2, 3)  # NCDHW view, channels_last_3d memory
     wc = w.permute(4, 3, 0, 1, 2).contiguous()
     ms = time_ms(lambda: conv3d_3x3_forward(x, w), 3)
-    plain = time_ms(lambda: conv3d_3x3_plain(x, w), 1)
+    plain = plain_ms(lambda: conv3d_3x3_plain(x, w))
     lib = time_ms(lambda: fn.conv3d(xc, wc, None, 1, 1), 3)
     return (ms, plain, lib), (abs_err, err), igemm_variant(x, w)
 
@@ -943,8 +987,8 @@ def zslab_phase(gen):
         ms_dx = time_ms(fwd_dx(conv3d_zslab, x, w, g), 5)
         k1 = time_ms(lambda: conv3d_3x3_forward(x, w), 5)
         k1_dx = time_ms(fwd_dx(conv3d_3x3, x, w, g), 5)
-        plain = (time_ms(lambda: conv3d_zslab_plain(x, w), 1)
-                 + time_ms(lambda: conv3d_zslab_plain(g, wf), 1))
+        plain = (plain_ms(lambda: conv3d_zslab_plain(x, w))
+                 + plain_ms(lambda: conv3d_zslab_plain(g, wf)))
         xc, gc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
         wc, wfc = w.permute(4, 3, 0, 1, 2).contiguous(), wf.permute(4, 3, 0, 1, 2).contiguous()
         lib = (time_ms(lambda: fn.conv3d(xc, wc, None, 1, 1), 5)
@@ -1174,14 +1218,132 @@ def zconcat_site(C, F, vol, batch, gen, dx, timed=True):
           f"kernel #1 fwd {once}")
     times = None
     if timed:
+        times = STEM_TIMES.get((batch, C, F, vol))  # the stem table timed it
+    if timed and times is None:
         xc, wc = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous()
         times = (time_ms(lambda: conv3d_zslab_forward(x, w), 3),
-                 time_ms(lambda: conv3d_zslab_plain(x, w), 1),
+                 plain_ms(lambda: conv3d_zslab_plain(x, w)),
                  time_ms(lambda: fn.conv3d(xc, wc, None, 1, 1), 3))
         del xc, wc
     del x, w
     torch.cuda.empty_cache()
     return abs_err, max(errs), shares, once, variant, times
+
+
+# the stem variant (csrc/conv3x3_stem.cuh: bf16, C <= 8, every network's
+# first conv): (path, B, (X, Y, Z), C, F, padding, timed) of each stem launch
+# shape of the paths, the path naming a kernel record's by_path entry, and
+# (B, (X, Y, Z), C, F, padding) of edge shapes off them: ragged extents,
+# padding 0 and 2, C = 2, 5, 7, 8, F = 16, 48 and 64 (odd C with odd Z: the
+# threads load the bricks; else cp.async copies them)
+STEM_PATH_SHAPES = (
+    ("pretrain_step", BATCH, SITES[0][3], 1, 32, 1, True),
+    ("block_step", BLOCKS, (BLOCK_SITES[0][3],) * 3, 1, 32, 0, True),
+    ("inference_volume", TTA_BATCH, INFER_SITES[0][3], 1, 32, 1, True),
+    ("files_case", TTA_BATCH, PLAIN_INFER_SITES[0][3], PLAIN_IN, 32, 1, True),
+    ("supervised_step", SUP_BATCH, INFER_SITES[0][3], 1, 32, 1, True),
+    ("plain_trainer_step", SUP_BATCH, PLAIN_INFER_SITES[0][3], PLAIN_IN, 32, 1, True),
+    ("cli_case", CLI_TILE_BATCH, PLAIN_INFER_SITES[0][3], 1, 32, 1, True),
+    ("cascade_step", SUP_BATCH, PLAIN_INFER_SITES[0][3], CASCADE_IN, 32, 1, True),
+    ("cascade_case", CLI_TILE_BATCH, PLAIN_INFER_SITES[0][3], CASCADE_IN, 32, 1, True),
+    ("pretrain_h_step", H_MICRO, H_REMAT_SITES[0][3], 1, H_DIMS[0], 1, True),
+    ("finetune_h_step", SUP_BATCH, H_SUP_SITES[0][3], 1, H_SUP_DIMS[0], 1, True),
+    ("pretrain_h_step1", BATCH, H_REMAT_SITES[0][3], 1, H_DIMS[0], 1, False),
+    ("ddp_pretrain_rank_step", 1, SITES[0][3], 1, 32, 1, False),
+    ("ddp_supervised_rank_step", 1, INFER_SITES[0][3], 1, 32, 1, False))
+STEM_EDGE_SHAPES = (
+    (2, (7, 9, 21), 5, 48, 2), (1, (9, 10, 32), 5, 48, 2), (2, (6, 7, 24), 3, 16, 0),
+    (1, (5, 13, 40), 8, 96, 1), (3, (11, 5, 16), 2, 64, 1), (2, (9, 7, 34), 1, 32, 0),
+    (1, (6, 9, 20), 3, 32, 2), (1, (7, 6, 36), 7, 16, 1), (2, (5, 6, 19), 2, 16, 1))
+# (B, C, F, (X, Y, Z)) -> the per-tap stem's (ms, plain ms, F.conv3d ms) at padding 1
+STEM_TIMES = {}
+
+
+def zslab_simple(x, w, padding):
+    """Kernel #2's simple variant at a shape the dispatch sends to the stem:
+    the kernel the stem replaced, through its C entry point as launch_igemm
+    calls it (a yardstick only; no launch count)."""
+    B, X, Y, Z, C = x.shape
+    F = w.shape[-1]
+    w2 = pack_weight(w, "simple")
+    y = torch.empty((B, *out_extents(x, padding), F), dtype=x.dtype, device=x.device)
+    err = conv_mod._entry("zslab_conv", "zslab_forward", 10)(
+        x.data_ptr(), w2.data_ptr(), y.data_ptr(), B, X, Y, Z, C, F, padding, 1,
+        int(C % 8 == 0 and x.data_ptr() % 16 == 0), int(F % 8 == 0),
+        torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"zslab_forward (simple) at {tuple(x.shape)} -> {F}: CUDA error {err}")
+    return y
+
+
+def stem_table(gen):
+    """The stem variant at STEM_PATH_SHAPES and STEM_EDGE_SHAPES: kernel #2's
+    per-tap forward against conv3d_zslab_plain (rel. max error <= 1e-2,
+    bit-equal on >= 95%, kernel #1's one rounding at least 10 points fewer)
+    and kernel #1's once-rounded forward against conv3d_3x3_plain (rel. max
+    error <= 1e-2), each shape on the stem variant. At each timed path shape:
+    the per-tap stem's ms beside its byte bound and share, the once-rounded
+    stem's ms, the plain version's, F.conv3d's and the simple variant's (its
+    C entry point, the kernel the stem replaced; held to the per-tap plain
+    version, rel. max error <= 1e-2), and the stem must beat both of the last
+    two. Fills STEM_TIMES; returns {kernel: (max abs, max rel)},
+    the rows by path and the launch shapes checked."""
+    errs = {"conv3x3": (0.0, 0.0), "zslab": (0.0, 0.0)}
+    checked = {"conv3x3": set(), "zslab": set()}
+    rows = {}
+    for path, batch, vol, C, F, padding, timed in (
+            list(STEM_PATH_SHAPES)
+            + [(None, *e, False) for e in STEM_EDGE_SHAPES]):
+        x, w = conv_inputs(C, F, vol, batch, torch.bfloat16, gen)
+        check(igemm_variant(x, w) == "stem", f"stem {C}->{F} @{vol}: variant {igemm_variant(x, w)}")
+        y2, p2 = conv3d_zslab_forward(x, w, padding), conv3d_zslab_plain(x, w, padding)
+        y1, p1 = conv3d_3x3_forward(x, w, padding), conv3d_3x3_plain(x, w, padding)
+        torch.cuda.synchronize()
+        r2, r1 = rel_err(y2, p2), rel_err(y1, p1)
+        share, once = (y2 == p2).float().mean().item(), (y1 == p2).float().mean().item()
+        a2 = (y2.float() - p2.float()).abs().max().item()
+        a1 = (y1.float() - p1.float()).abs().max().item()
+        # the yardstick computes the same function (its rel. max error <= 1e-2)
+        r_simple = rel_err(zslab_simple(x, w, padding), p2) if timed else 0.0
+        del y2, p2, y1, p1
+        label = f"{path or 'edge'} B={batch} {C}->{F} @{vol} p={padding}"
+        check(all(math.isfinite(r) and r <= 1e-2 for r in (r2, r1, r_simple)),
+              f"stem {label}: rel errors per tap {r2}, once {r1}, simple variant {r_simple}"
+              f" > 1e-2")
+        check(share >= 0.95 and once <= share - 0.1,
+              f"stem {label}: bit-equal to plain per tap {share}, once {once}")
+        errs["zslab"] = (max(errs["zslab"][0], a2), max(errs["zslab"][1], r2))
+        errs["conv3x3"] = (max(errs["conv3x3"][0], a1), max(errs["conv3x3"][1], r1))
+        key = (batch, *vol, C, F) + (() if padding == 1 else (padding,))
+        checked["zslab"].add(key)
+        checked["conv3x3"].add(key)
+        line = (f"[stem] {label}: rel err per tap {r2:.3e} (bit-equal {share:.6f}), once "
+                f"{r1:.3e} (bit-equal to per tap {once:.6f})")
+        if timed:
+            xc, wc = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous()
+            ms = time_ms(lambda: conv3d_zslab_forward(x, w, padding), 3)
+            ms_once = time_ms(lambda: conv3d_3x3_forward(x, w, padding), 3)
+            simple = time_ms(lambda: zslab_simple(x, w, padding), 1)
+            plain = plain_ms(lambda: conv3d_zslab_plain(x, w, padding))
+            lib = time_ms(lambda: fn.conv3d(xc, wc, None, 1, padding), 3)
+            del xc, wc
+            flop_ms, byte_ms = bound_ms(C, F, vol, batch, padding=padding)
+            bound = max(flop_ms, byte_ms)
+            rows[path] = dict(batch=batch, C=C, F=F, vol=list(vol), padding=padding, ms=ms,
+                              once_ms=ms_once, bound_ms=bound,
+                              bound_by="operations" if flop_ms >= byte_ms else "bytes",
+                              share=bound / ms, plain_ms=plain, library_ms=lib, simple_ms=simple)
+            if padding == 1:
+                STEM_TIMES[(batch, C, F, vol)] = (ms, plain, lib)
+            line += (f"; {ms:.4f} ms per tap, {ms_once:.4f} ms once; bound {bound:.4f} ms "
+                     f"({rows[path]['bound_by']}), {bound / ms:.1%} of it; plain {plain:.3f} ms, "
+                     f"F.conv3d {lib:.4f} ms, simple variant {simple:.4f} ms (rel err "
+                     f"{r_simple:.3e})")
+            check(ms < lib and ms < simple, f"stem {label}: {ms} ms, not below F.conv3d's "
+                                           f"{lib} ms and the simple variant's {simple} ms")
+        print(line)
+        del x, w
+        torch.cuda.empty_cache()
+    return errs, rows, checked
 
 
 def zconcat_phase(gen, k1_step, k1_infer):
@@ -1463,7 +1625,7 @@ def slice_phase(block=False):
         check(not torch.gather(hard, 1, top).any(), f"step {step}: a forced patch is kept")
         # two forwards (teacher, student) of 17 convs and 22 norms and the
         # student's dx: 34 on kernel #1, all hopper; 16 on kernel #2, of which
-        # the stem's two (C = 1) simple; 44 moments
+        # the stem's two (C = 1) on the stem variant; 44 moments
         n = since(before)
         check(n == STEP_LAUNCHES, f"step {step}: launches {n}, expected {STEP_LAUNCHES}")
         n_pad = {k: v - pads[k] for k, v in padding_counts().items()}
@@ -1524,7 +1686,7 @@ def block_site(C, F, e, gen):
     del y_k, y_p
     xc, wc = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous()
     times = {"fwd": (time_ms(lambda: conv3d_zslab_forward(x, w, 0), 3),
-                     time_ms(lambda: conv3d_zslab_plain(x, w, 0), 1),
+                     plain_ms(lambda: conv3d_zslab_plain(x, w, 0)),
                      time_ms(lambda: fn.conv3d(xc, wc, None, 1, 0), 3))}
     if C > 1:
         g = torch.randn((BLOCKS, *(e - 2,) * 3, F), generator=gen, device="cuda").to(torch.bfloat16)
@@ -1538,7 +1700,7 @@ def block_site(C, F, e, gen):
         del xg, dx_k, dx_p
         gc_, wfc = g.permute(0, 4, 1, 2, 3), wf.permute(4, 3, 0, 1, 2).contiguous()
         times["dx"] = (time_ms(lambda: conv3d_3x3_forward(g, wf, 2), 3),
-                       time_ms(lambda: conv3d_3x3_plain(g, wf, 2), 1),
+                       plain_ms(lambda: conv3d_3x3_plain(g, wf, 2)),
                        time_ms(lambda: fn.conv3d(gc_, wfc, None, 1, 2), 3))
     torch.cuda.synchronize()
     check(all(math.isfinite(e_) and e_ <= 1e-2 for e_ in errs),
@@ -1804,7 +1966,8 @@ def inference_phase():
         n = since(before)
         check(logits.shape == (NUM_CLASSES, *VOLUME), f"volume {v}: logits {logits.shape}")
         check(bool(np.isfinite(logits).all()), f"volume {v}: non-finite logits")
-        # a tile: 7 convs on kernel #1, 10 on kernel #2 (the stem simple), 22 norms
+        # a tile: 7 convs on kernel #1, 10 on kernel #2 (the stem on the stem
+        # variant), 22 norms
         want = {k: TILES * n_tile for k, n_tile in TILE_LAUNCHES.items()}
         check(n == want, f"volume {v}: launches {n}, expected {want}")
         first = logits if first is None else first
@@ -2049,8 +2212,8 @@ def files_phase(root):
     predict_from_files with 2 spawned preprocessing workers, bf16, 8-flip
     TTA, tile batch 1 (the first case a warm-up). Checks every output's shape,
     geometry and labels, the launches by kernel and variant against the site
-    tables (a tile: 7 kernel #1, 10 kernel #2 of which the C = 4 stem simple,
-    22 moments), and predict_single_npy_array on the resampled case against
+    tables (a tile: 7 kernel #1, 10 kernel #2 of which the C = 4 stem on the
+    stem variant, 22 moments), and predict_single_npy_array on the resampled case against
     its file; times the host split in-process of a 1 mm case and of the
     resampled one. Returns the
     launches, the predictor, the resampled case's preprocessed volume and
@@ -2198,6 +2361,9 @@ def ladder_phase(predictor, data):
           f"{calls}; logits vs uncapped tile batch 1: rel err {err:.3e}")
 
 
+GATE_TIMES = {}  # (kernel, B, C, F, (X, Y, Z)) -> gate_path's times of that launch shape
+
+
 def gate_path(label, sites, norms, batch, gen, errs, checked, timed, stem="enc0.0.conv1",
               dx=True):
     """Every launch shape of one path at `batch` against the plain versions,
@@ -2205,7 +2371,8 @@ def gate_path(label, sites, norms, batch, gen, errs, checked, timed, stem="enc0.
     MIN_VOLUME output voxels) and, with `dx`, its dx at every site but
     `stem`; kernel #2's per-tap forward, with dx through conv3d_zconcat; the
     moments of every norm, square_in_dtype with and without. With `timed`, the times of
-    each shape as the phases above take them; else a shape checked before is
+    each shape as the phases above take them (a shape an earlier gate_path
+    timed keeps those times: GATE_TIMES); else a shape checked before is
     skipped. Updates errs (per kernel [max abs, max rel]) and checked (the
     shapes in LaunchShapes' form); returns the times by kernel and shape."""
     t = {"conv3x3": {}, "zslab": {}, "moments": {}}
@@ -2222,7 +2389,11 @@ def gate_path(label, sites, norms, batch, gen, errs, checked, timed, stem="enc0.
             shape = (batch, *key[2], key[0], key[1])
             if key in t["conv3x3"] or (not timed and shape in checked["conv3x3"]):
                 continue
-            times, (a, r), variant = time_site(*key, gen, batch, timed=timed)
+            known = GATE_TIMES.get(("conv3x3", batch, *key)) if timed else None
+            times, (a, r), variant = time_site(*key, gen, batch, timed=timed and known is None)
+            times = times or known
+            if timed:
+                GATE_TIMES[("conv3x3", batch, *key)] = times
             t["conv3x3"][key] = times
             note("conv3x3", a, r)
             checked["conv3x3"].add(shape)
@@ -2233,8 +2404,12 @@ def gate_path(label, sites, norms, batch, gen, errs, checked, timed, stem="enc0.
         shape = (batch, *vol, C, F)
         if per_tap(vol) and (C, F, vol) not in t["zslab"] and (
                 timed or shape not in checked["zslab"]):
+            known = GATE_TIMES.get(("zslab", batch, C, F, vol)) if timed else None
             a, r, shares, once, variant, times = zconcat_site(C, F, vol, batch, gen, dx=back,
-                                                              timed=timed)
+                                                              timed=timed and known is None)
+            times = times or known
+            if timed:
+                GATE_TIMES[("zslab", batch, C, F, vol)] = times
             t["zslab"][(C, F, vol)] = times
             note("zslab", a, r)
             checked["zslab"].add(shape)
@@ -2993,6 +3168,85 @@ def write_cli_dataset(raw, name=CLI_DATASET, train=CLI_TRAIN, test=CLI_TEST, see
     generate_dataset_json(raw, {0: "CT"}, CLI_LABELS, len(train), ".nii.gz", dataset_name=name)
 
 
+def phase_dirs(root):
+    """The ATK_raw/ATK_preprocessed/ATK_results tree of a phase in `root`."""
+    return {w: os.path.join(root, w) for w in ("raw", "preprocessed", "results")}
+
+
+def prepare_main(root):
+    """A process that main starts after the kernel phases (`--prepare
+    <root>`), at the lowest priority, so that the host work of PREPARED runs
+    beside the phases before the cli's: for each phase in turn, its dataset written
+    into <root>/<phase>/raw, then plan_and_preprocess on it. Each step's
+    seconds and the kernel launches into <root>/<phase>.json, its output
+    into <root>/<phase>.log."""
+    os.nice(19)
+    for phase, (name, train, test, seed), argv in PREPARED:
+        dirs = phase_dirs(os.path.join(root, phase))
+        os.environ.update({f"ATK_{w}": d for w, d in dirs.items()})
+        with open(os.path.join(root, phase + ".log"), "w") as log:
+            os.dup2(log.fileno(), 1)
+            os.dup2(log.fileno(), 2)
+            t0 = time.perf_counter()
+            write_cli_dataset(os.path.join(dirs["raw"], name), name, train, test, seed)
+            rec = dict(write=time.perf_counter() - t0)
+            zero_counts()
+            t0 = time.perf_counter()
+            cli.plan_and_preprocess_entry(argv)
+            rec.update(seconds=time.perf_counter() - t0, launches=counts())
+            sys.stdout.flush()
+            sys.stderr.flush()
+        save_json(rec, os.path.join(root, phase + ".json.part"))
+        os.replace(os.path.join(root, phase + ".json.part"), os.path.join(root, phase + ".json"))
+
+
+def start_prepare(root):
+    """prepare_main in a process of its own; stopped at exit if it still runs."""
+    with open(os.path.join(root, "prepare.log"), "w") as log:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--prepare", root],
+                                stdout=log, stderr=subprocess.STDOUT)
+    atexit.register(stop_process, proc)
+    return proc
+
+
+def stop_process(proc):
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def wait_prepared(proc, root, phase):
+    """The record of `phase`'s part of the preparing process, once it has
+    written it; prints that part's output. Fails if the process ended
+    without it or if it takes over PREPARE_TIMEOUT seconds more."""
+    done = os.path.join(root, phase + ".json")
+    t0 = time.perf_counter()
+    while not os.path.isfile(done):
+        if proc.poll() is not None and not os.path.isfile(done):
+            tails = {f: Path(root, f).read_text()[-2000:] for f in sorted(os.listdir(root))
+                     if f.endswith(".log")}
+            check(False, f"the preparing process exited {proc.returncode} before {phase}'s "
+                         f"part; its output ends {tails}")
+        check(time.perf_counter() - t0 < PREPARE_TIMEOUT,
+              f"the preparing process ran over {PREPARE_TIMEOUT} s more for {phase}")
+        time.sleep(1.0)
+    with open(os.path.join(root, phase + ".log")) as f:
+        sys.stdout.write(f.read())
+    print(f"[{phase}] (waited {time.perf_counter() - t0:.1f} s for the preparing process)")
+    return load_json(done)
+
+
+def prepared(phase, proc, root, name, train, test):
+    """`phase`'s part of the preparing process (wait_prepared), printed as
+    its entries' lines; returns plan_and_preprocess's seconds and launches."""
+    rec = wait_prepared(proc, root, phase)
+    print(f"[{phase}] {len(train)} training and {len(test)} test cases of {name} written in "
+          f"{rec['write']:.1f} s")
+    print(f"[{phase}] plan_and_preprocess: {rec['seconds']:.3f} s in the preparing process, "
+          f"launches {rec['launches']}")
+    return dict(seconds=rec["seconds"], launches=rec["launches"])
+
+
 def run_entry(tag, runs, steps, name, entry, argv, timer=None):
     """entry(argv) with the launch counts at 0 and the peak memory reset: its
     seconds, peak memory and launches into runs[name], the ms of each step
@@ -3084,18 +3338,19 @@ def cli_gate_phase(gen, checked):
     return errs, step, case
 
 
-def cli_phase(root, gen, checked, shapes):
+def cli_phase(prep, gen, checked, shapes):
     """The port's command line from a raw dataset to ensembled, postprocessed
     segmentations, each entry called with its argv as a user types it, under
-    ATK_raw/ATK_preprocessed/ATK_results in `root`:
-    plan_and_preprocess (--verify_dataset_integrity, 4 spawned workers),
-    then cli_gate_phase on the shapes its plans imply; pretrain (atk_pretrain's
-    defaults: STUNet-B AnatoMask, 112x112x128, batch 4 in 2 microbatches,
-    bf16) for 1 epoch x CLI_PRETRAIN_ITERS; train ATKTrainer_1epoch folds 0
-    and 1 --npz and STUNetTrainer_base_ft fold 0 from the pretraining
-    checkpoint (its preset cut to one epoch), CLI_ITERS iterations and
-    CLI_VAL_ITERS validation iterations an epoch; predict the test cases
-    with both models, ensemble, evaluate, find_best_configuration,
+    ATK_raw/ATK_preprocessed/ATK_results in <root>/cli of `prep` (the
+    preparing process and its root): the dataset and plan_and_preprocess
+    (--verify_dataset_integrity, 4 spawned workers) from the preparing
+    process, then cli_gate_phase on the shapes its plans imply; pretrain
+    (atk_pretrain's defaults: STUNet-B AnatoMask, 112x112x128, batch 4 in 2
+    microbatches, bf16) for 1 epoch x CLI_PRETRAIN_ITERS; train
+    ATKTrainer_1epoch fold 0 --npz and STUNetTrainer_base_ft fold 0 from the
+    pretraining checkpoint (its preset cut to one epoch), CLI_ITERS
+    iterations and CLI_VAL_ITERS validation iterations an epoch; predict the
+    test cases with both models, ensemble, evaluate, find_best_configuration,
     apply_postprocessing, accumulate_crossval_results; export_model,
     install_model into a second results tree, whose fold must predict the
     original's logits; move_plans_between_datasets. Checks each output, and
@@ -3103,7 +3358,8 @@ def cli_phase(root, gen, checked, shapes):
     (LaunchShapes) records no launch of the gates. Returns the
     launches of the phase, per kernel (max abs err, max rel err) of its
     gates and their totals of one step and one test case."""
-    dirs = {w: os.path.join(root, w) for w in ("raw", "preprocessed", "results")}
+    root = os.path.join(prep[1], "cli")
+    dirs = phase_dirs(root)
     raw = os.path.join(dirs["raw"], CLI_DATASET)
     env = {**{f"ATK_{w}": d for w, d in dirs.items()},
            "ATK_ITERS_PER_EPOCH": str(CLI_ITERS), "ATK_VAL_ITERS": str(CLI_VAL_ITERS)}
@@ -3115,16 +3371,10 @@ def cli_phase(root, gen, checked, shapes):
     runs, steps = {}, {}
     start = time.perf_counter()
     try:
-        t0 = time.perf_counter()
-        write_cli_dataset(raw)
-        print(f"[cli] {len(CLI_TRAIN)} training and {len(CLI_TEST)} test cases of {CLI_DATASET} "
-              f"written in {time.perf_counter() - t0:.1f} s")
-
         def run(name, entry, argv, timer=None):
             return run_entry("cli", runs, steps, name, entry, argv, timer)
 
-        run("plan_and_preprocess", cli.plan_and_preprocess_entry,
-            ["-d", str(CLI_ID), "-c", "3d_fullres", "--verify_dataset_integrity", "-np", "4"])
+        runs["plan_and_preprocess"] = prepared("cli", *prep, CLI_DATASET, CLI_TRAIN, CLI_TEST)
         pp = os.path.join(dirs["preprocessed"], CLI_DATASET)
         plans = load_json(os.path.join(pp, "ATKPlans.json"))
         check_plans(plans)
@@ -3151,29 +3401,26 @@ def cli_phase(root, gen, checked, shapes):
                                   "checkpoint_final.pt")
         check(os.path.isfile(pretrained), "pretrain: no checkpoint_final.pt")
         tr = "ATKTrainer_1epoch"
-        for fold in ("0", "1"):
-            run(f"train {tr} fold {fold}", cli.train_entry,
-                [str(CLI_ID), "3d_fullres", fold, "-tr", tr, "--npz"],
-                StepTimer(Trainer, "train_step"))
+        run(f"train {tr} fold 0", cli.train_entry,
+            [str(CLI_ID), "3d_fullres", "0", "-tr", tr, "--npz"], StepTimer(Trainer, "train_step"))
         run(f"train {ft} fold 0", cli.train_entry,
             [str(CLI_ID), "3d_fullres", "0", "-tr", ft, "-pretrained_weights", pretrained],
             StepTimer(Trainer, "train_step"))
         models = {m: os.path.join(dirs["results"], CLI_DATASET, f"{m}__ATKPlans__3d_fullres")
                   for m in (tr, ft)}
-        for m, folds in ((tr, (0, 1)), (ft, (0,))):
-            for fold in folds:
-                fdir = os.path.join(models[m], f"fold_{fold}")
-                check(os.path.isfile(os.path.join(fdir, "checkpoint_final.npz")),
-                      f"{m} fold {fold}: no checkpoint_final.npz")
-                summary = load_json(os.path.join(fdir, "validation", "summary.json"))
-                check(math.isfinite(summary["foreground_mean"]["Dice"]),
-                      f"{m} fold {fold}: validation Dice {summary['foreground_mean']}")
+        for m in (tr, ft):
+            fdir = os.path.join(models[m], "fold_0")
+            check(os.path.isfile(os.path.join(fdir, "checkpoint_final.npz")),
+                  f"{m} fold 0: no checkpoint_final.npz")
+            summary = load_json(os.path.join(fdir, "validation", "summary.json"))
+            check(math.isfinite(summary["foreground_mean"]["Dice"]),
+                  f"{m} fold 0: validation Dice {summary['foreground_mean']}")
         check(any(f.endswith(".npz") for f in os.listdir(os.path.join(models[tr], "fold_0",
                                                                       "validation"))),
               "train --npz saved no probabilities")
 
         preds = {tr: os.path.join(root, "pred_atk"), ft: os.path.join(root, "pred_stunet")}
-        for m, folds in ((tr, ["0", "1"]), (ft, ["0"])):
+        for m, folds in ((tr, ["0"]), (ft, ["0"])):
             r = run(f"predict {m}", cli.predict_entry,
                     ["-i", os.path.join(raw, "imagesTs"), "-o", preds[m], "-d", str(CLI_ID),
                      "-c", "3d_fullres", "-tr", m, "-f", *folds, "--save_probabilities"])
@@ -3209,7 +3456,7 @@ def cli_phase(root, gen, checked, shapes):
                           for k, d in dice.items()))
 
         run("find_best_configuration", cli.find_best_configuration_entry,
-            [str(CLI_ID), "-c", "3d_fullres", "-tr", tr, "-f", "0", "1"])
+            [str(CLI_ID), "-c", "3d_fullres", "-tr", tr, "-f", "0"])
         info = load_json(os.path.join(dirs["results"], CLI_DATASET,
                                       "inference_information.json"))
         best = info["best_model_or_ensemble"]
@@ -3224,7 +3471,7 @@ def cli_phase(root, gen, checked, shapes):
         check(sorted(f for f in os.listdir(ens_pp) if f.endswith(".nii.gz"))
               == [f"{name}.nii.gz" for name, *_ in CLI_TEST], "apply_postprocessing: outputs")
         run("accumulate_crossval_results", cli.accumulate_crossval_entry,
-            [str(CLI_ID), "-tr", tr, "-f", "0", "1"])
+            [str(CLI_ID), "-tr", tr, "-f", "0"])
         check(os.path.isfile(os.path.join(models[tr] + "_crossval_results", "summary.json")),
               "accumulate_crossval_results: no summary.json")
         print(f"[cli] best: {best['configuration']} (ensemble {best['ensemble']}), Dice "
@@ -3266,7 +3513,7 @@ def cli_phase(root, gen, checked, shapes):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    for name in ("pretrain", f"train {tr} fold 0", f"train {tr} fold 1", f"train {ft} fold 0",
+    for name in ("pretrain", f"train {tr} fold 0", f"train {ft} fold 0",
                  f"predict {tr}", f"predict {ft}"):
         n = runs[name]["launches"]
         check(all(kernel_launches(n, k) > 0 for k in ("conv3x3", "zslab", "moments")),
@@ -3293,11 +3540,19 @@ def check_cascade_plans(plans):
     check({k: casc.get(k) for k in CASCADE_STAGE} == CASCADE_STAGE, f"cascade {casc}")
 
 
+def cascade_case_forwards():
+    """The forwards of one cascade test case and fold: CASCADE_TEST[0] at the
+    fullres spacing, two tiles a forward."""
+    _, shape, spacing = CASCADE_TEST[0]
+    return math.ceil(tiles_of((CASCADE_IN, *compute_new_shape(
+        shape, spacing, CASCADE_FULLRES_SPACING))) / 2)
+
+
 def cascade_gate_phase(gen, checked):
     """The launch shapes that the cascade adds, against the plain versions
     with gate_path's gates, before an entry runs them: the cascade
     PlainConvUNet (CASCADE_IN input channels: the stem at C = 3 on kernel
-    #2's simple variant) at its training batch 2 and at CLI_TILE_BATCH,
+    #2's stem variant) at its training batch 2 and at CLI_TILE_BATCH,
     timed. The lowres stage's shapes are the cli phase's (one input
     channel). Returns per kernel (max abs err, max rel err), the totals of
     one cascade step and of one cascade test case and fold (CASCADE_TEST[0]
@@ -3311,7 +3566,7 @@ def cascade_gate_phase(gen, checked):
     print_totals("cascade", f"one cascade PlainConvUNet step at B={CLI_3D['batch_size']}", step)
     t = gate_path("cascade", sites, PLAIN_INFER_NORMS, CLI_TILE_BATCH, gen, errs, checked, True,
                   dx=False)
-    forwards = math.ceil(tiles_of((CASCADE_IN, *CASCADE_TEST[0][1])) / 2)
+    forwards = cascade_case_forwards()
     case = step_totals(t, sites, PLAIN_INFER_NORMS, CLI_TILE_BATCH, lambda n: forwards,
                        lambda n: 0)
     print_totals("cascade", f"one cascade test case and fold ({forwards} forwards at "
@@ -3319,27 +3574,28 @@ def cascade_gate_phase(gen, checked):
     return errs, step, case
 
 
-def cascade_phase(root, gen, checked, shapes):
+def cascade_phase(prep, gates, shapes):
     """The 3d_lowres -> 3d_cascade_fullres cascade through the port's command
     line, each entry with the argv a user types, under
-    ATK_raw/ATK_preprocessed/ATK_results in `root`: CASCADE_DATASET written
-    as write_cli_dataset writes one; plan_and_preprocess -c 3d_fullres
-    3d_lowres, whose plans must be the JAX planner's; cascade_gate_phase;
-    train ATKTrainer_1epoch 3d_lowres fold all (its final validation
+    ATK_raw/ATK_preprocessed/ATK_results in <root>/cascade of `prep` (the
+    preparing process and its root), after cascade_gate_phase (`gates`, its
+    results): CASCADE_DATASET written as write_cli_dataset writes one and
+    plan_and_preprocess -c 3d_fullres 3d_lowres, from the preparing process,
+    whose plans must be the JAX planner's; train ATKTrainer_1epoch 3d_lowres fold all (its final validation
     predicts every case, so every training case gets its
     predicted_next_stage), then 3d_cascade_fullres fold 0 (the host
     pipeline: the case cache turns itself off for a cascade), CLI_ITERS
     iterations and CLI_VAL_ITERS validation iterations each; predict the test
-    cases with 3d_lowres fold all, then with 3d_cascade_fullres fold 0 from
+    case with 3d_lowres fold all, then with 3d_cascade_fullres fold 0 from
     those predictions (-prev_stage_predictions). Checks every case's
     predicted_next_stage on the fullres grid, the cascade network's 3 input
     channels, the cascade's summary.json, every test output's raw shape and
     labels, each entry's launches by kernel and variant, that every train
-    and predict launches all three kernels. `shapes` (LaunchShapes) records
-    no launch of the gates. Returns the launches of the phase, per kernel
-    (max abs err, max rel err) of its gates and their totals of one cascade
-    step and one cascade test case."""
-    dirs = {w: os.path.join(root, w) for w in ("raw", "preprocessed", "results")}
+    and predict launches all three kernels. Returns the launches of the
+    phase, then `gates`: per kernel (max abs err, max rel err) and the
+    totals of one cascade step and one cascade test case."""
+    root = os.path.join(prep[1], "cascade")
+    dirs = phase_dirs(root)
     raw = os.path.join(dirs["raw"], CASCADE_DATASET)
     env = {**{f"ATK_{w}": d for w, d in dirs.items()},
            "ATK_ITERS_PER_EPOCH": str(CLI_ITERS), "ATK_VAL_ITERS": str(CLI_VAL_ITERS)}
@@ -3353,12 +3609,8 @@ def cascade_phase(root, gen, checked, shapes):
         return run_entry("cascade", runs, steps, name, entry, argv, timer)
 
     try:
-        t0 = time.perf_counter()
-        write_cli_dataset(raw, CASCADE_DATASET, CASCADE_TRAIN, CASCADE_TEST, seed=5)
-        print(f"[cascade] {len(CASCADE_TRAIN)} training and {len(CASCADE_TEST)} test cases of "
-              f"{CASCADE_DATASET} written in {time.perf_counter() - t0:.1f} s")
-        run("plan_and_preprocess", cli.plan_and_preprocess_entry,
-            ["-d", ident, "-c", "3d_fullres", "3d_lowres", "-np", "4"])
+        runs["plan_and_preprocess"] = prepared("cascade", *prep, CASCADE_DATASET, CASCADE_TRAIN,
+                                               CASCADE_TEST)
         pp = os.path.join(dirs["preprocessed"], CASCADE_DATASET)
         plans = load_json(os.path.join(pp, "ATKPlans.json"))
         check_cascade_plans(plans)
@@ -3371,10 +3623,6 @@ def cascade_phase(root, gen, checked, shapes):
         print(f"[cascade] plans as the JAX planner's: 3d_fullres {CLI_3D}, 3d_lowres at "
               f"{CASCADE_LOWRES_SPACING} mm (next stage 3d_cascade_fullres), the cascade "
               f"{CASCADE_STAGE}; preprocessed shapes {sorted(set(pp_shapes.items()))}")
-
-        with shapes.paused():
-            gate_errs, casc_step, casc_case = cascade_gate_phase(gen, checked)
-        free_memory()
 
         def forwards(config, n):  # the forwards of a final validation or a predict
             return sum(math.ceil(tiles_of(pp_shapes[(config, name)]) / 2)
@@ -3453,7 +3701,7 @@ def cascade_phase(root, gen, checked, shapes):
     total = sum(r["seconds"] for r in runs.values())
     print(f"[cascade] the entries took {total:.1f} s, the phase {time.perf_counter() - start:.1f} s")
     launches = {k: sum(r["launches"][k] for r in runs.values()) for k in COUNT_KEYS}
-    return launches, gate_errs, casc_step, casc_case
+    return (launches, *gates)
 
 
 # --- the ddp phase: data parallelism, world 2 against world 1 -------------------
@@ -3842,33 +4090,48 @@ def multinode_rank_main(mode, folder):
         multinode_entries(folder)
 
 
-def run_nodes(nodes, per_node, args, env):
-    """`nodes` launcher nodes on 127.0.0.1 (torch.distributed.run, a free
-    port found once), each `per_node` processes of this script with `args`;
-    waits for them all and fails if one fails or outlasts MN_TIMEOUT (every
-    node is killed then). Returns the seconds from their start to the end of
-    the last."""
-    port = str(mesh._free_port())
+def start_nodes(groups, env):
+    """For each (nodes, per_node, args) of `groups`, all started at once:
+    `nodes` launcher nodes on 127.0.0.1 (torch.distributed.run, a free port
+    a group), each `per_node` processes of this script with `args`; killed
+    at exit if they still run. Returns the groups' processes and the start."""
+    ports = []
+    while len(ports) < len(groups):
+        port = mesh._free_port()
+        ports += [port] if port not in ports else []
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(
+    procs = [[subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--nnodes", str(nodes),
          "--nproc_per_node", str(per_node), "--node_rank", str(k), "--master_addr", "127.0.0.1",
-         "--master_port", port, os.path.abspath(__file__), "--multinode-rank", *args], env=env)
-        for k in range(nodes)]
+         "--master_port", str(port), os.path.abspath(__file__), "--multinode-rank", *args],
+        env=env) for k in range(nodes)] for (nodes, per_node, args), port in zip(groups, ports)]
+    for p in sum(procs, []):
+        atexit.register(stop_process, p)
+    return procs, t0
+
+
+def wait_nodes(started):
+    """Waits for every node that start_nodes started and fails if one fails
+    or outlasts MN_TIMEOUT from the start (every node is killed then).
+    Returns each group's seconds from the start to the end of its last node."""
+    procs, t0 = started
+    seconds = [None] * len(procs)
     try:
-        for p in procs:
-            try:
-                p.wait(timeout=max(1.0, MN_TIMEOUT - (time.perf_counter() - t0)))
-            except subprocess.TimeoutExpired:
-                check(False, f"a launcher node ran over {MN_TIMEOUT} s")
+        while None in seconds:
+            check(time.perf_counter() - t0 < MN_TIMEOUT,
+                  f"a launcher node ran over {MN_TIMEOUT} s")
+            for g, group in enumerate(procs):
+                if seconds[g] is None and all(p.poll() is not None for p in group):
+                    seconds[g] = time.perf_counter() - t0
+            time.sleep(0.5)
     finally:
-        for p in procs:
+        for p in sum(procs, []):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    check(all(p.returncode == 0 for p in procs),
-          f"launcher nodes exited {[p.returncode for p in procs]}")
-    return time.perf_counter() - t0
+    check(all(p.returncode == 0 for p in sum(procs, [])),
+          f"launcher nodes exited {[[p.returncode for p in group] for group in procs]}")
+    return seconds
 
 
 def check_world2(one, ranks):
@@ -3928,31 +4191,39 @@ def check_world2(one, ranks):
               f"{want['peak'] / 2**30:.2f})")
 
 
-def multinode_phase(root, records, shapes):
+def start_multinode(root, folder):
+    """The multinode phase's nodes (see multinode_phase) started on the ddp
+    phase's datasets in `root` and records in `folder`: one NCCL node and
+    MN_NODES gloo nodes at once."""
+    env = dict(os.environ, ATK_preprocessed=os.path.join(root, "preprocessed"),
+               ATK_results=os.path.join(root, "results"), ATK_raw=os.path.join(root, "raw"),
+               ATK_N_PROC_DA="2", ATK_ITERS_PER_EPOCH="2", ATK_VAL_ITERS="1")
+    for k in mesh.LAUNCHER_VARIABLES:
+        env.pop(k, None)
+    return start_nodes([(1, 1, ["nccl", folder]), (MN_NODES, 1, ["gloo", folder])], env)
+
+
+def multinode_phase(root, records, shapes, started):
     """Training across nodes through PyTorch's launcher (parallel/mesh.py
     run_joined, cli.py), on the ddp phase's records and datasets in `root`:
     one node of one process over NCCL (`--multinode-rank nccl`, -device
     cuda: its card LOCAL_RANK) runs the ddp phase's step cases bit-equal to
-    world 1 without a group; then two nodes of one process each sharing the
+    world 1 without a group, and two nodes of one process each sharing the
     card over gloo (`--multinode-rank gloo`, -device cuda:0; NCCL refuses
     two ranks on one card) run them at world 2 as global ranks 0 and 1
     (check_world2), then pretrain and train (STUNetTrainer_base_ft) through
     the entries with a resume each and the final validation: checkpoints
     from global rank 0 alone, validation cases [rank::2], rank 0's
     summary.json of every case, kernels #1, #2 and #3 launched by every rank
-    in every entry. The nodes run one start after the other, nothing else
-    beside them. Returns the launches of every process's runs."""
+    in every entry. The NCCL node and the gloo nodes start at once
+    (start_multinode, `started`), beside the cascade phase's entries.
+    Returns the launches of every process's runs."""
     folder, one = records
-    env = dict(os.environ, ATK_preprocessed=os.path.join(root, "preprocessed"),
-               ATK_results=os.path.join(root, "results"), ATK_raw=os.path.join(root, "raw"),
-               ATK_N_PROC_DA="2", ATK_ITERS_PER_EPOCH="2", ATK_VAL_ITERS="1")
-    for k in mesh.LAUNCHER_VARIABLES:
-        env.pop(k, None)
-    t_nccl = run_nodes(1, 1, ["nccl", folder], env)
-    t_gloo = run_nodes(MN_NODES, 1, ["gloo", folder], env)
+    t_nccl, t_gloo = wait_nodes(started)
     load = lambda name: json.load(open(os.path.join(folder, name)))  # noqa: E731
-    print(f"[multinode] one node of one NCCL rank: {t_nccl:.1f} s of process; {MN_NODES} "
-          f"launcher nodes of one gloo rank on the card: {t_gloo:.1f} s of processes")
+    print(f"[multinode] started at once: one node of one NCCL rank, {t_nccl:.1f} s of process; "
+          f"{MN_NODES} launcher nodes of one gloo rank on the card, {t_gloo:.1f} s of "
+          f"processes")
     nodes = [load(f"gloo-rank{r}.json") for r in range(MN_NODES)]
     nccl = load("nccl-rank0.json")
     entries = [load(f"entries-rank{r}.json") for r in range(MN_NODES)]
@@ -4048,6 +4319,9 @@ def main():
     if sys.argv[1:2] == ["--multinode-rank"]:  # a process that the multinode phase launched
         multinode_rank_main(*sys.argv[2:])
         return 0
+    if sys.argv[1:2] == ["--prepare"]:  # the process that main starts after the build
+        prepare_main(sys.argv[2])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
         return 1
@@ -4077,8 +4351,13 @@ def main():
     (conv_err, conv_rel, conv_step, conv_volume, conv_tile, conv_checked, k1_step,
      k1_infer) = conv_phase(gen)
     free_memory()
+    stem_errs, stem_rows, stem_checked = stem_table(gen)
+    conv_err, conv_rel = max(conv_err, stem_errs["conv3x3"][0]), max(conv_rel,
+                                                                     stem_errs["conv3x3"][1])
+    free_memory()
     zc_err, zc_rel, zc_step, zc_volume, zc_tile, zc_checked, zc_timed = zconcat_phase(
         gen, k1_step, k1_infer)
+    zc_err, zc_rel = max(zc_err, stem_errs["zslab"][0]), max(zc_rel, stem_errs["zslab"][1])
     free_memory()
     (mom_err, mom_rel, mom_step, mom_volume, mom_tile, mom_checked,
      mom_timed) = moments_phase(gen)
@@ -4107,6 +4386,8 @@ def main():
     block_tot = block_step_totals(k1_step, zc_timed, mom_timed, block_times)
     free_memory()
     mark("kernel phases")
+    prep_dir = tempfile.TemporaryDirectory()
+    prep = (start_prepare(prep_dir.name), prep_dir.name)
 
     reference_phase()
     remat_phase()
@@ -4149,22 +4430,28 @@ def main():
     free_memory()
     mark("H trainer and transfer phases")
     checked = {k: v | sup_checked[k] | h_checked[k] | block_checked[k]
+               | stem_checked.get(k, set())
                for k, v in (("conv3x3", conv_checked), ("zslab", zc_checked),
                             ("moments", mom_checked))}
-    with tempfile.TemporaryDirectory() as root:
-        cli_launches, cli_errs, cli_step, cli_case = cli_phase(root, gen, checked, shapes)
+    cli_launches, cli_errs, cli_step, cli_case = cli_phase(prep, gen, checked, shapes)
+    shutil.rmtree(os.path.join(prep_dir.name, "cli"))
     free_memory()
     mark("cli phase")
-    with tempfile.TemporaryDirectory() as root:
-        casc_launches, casc_errs, casc_step, casc_case = cascade_phase(root, gen, checked, shapes)
+    with shapes.paused():  # the gates draw from `gen` in the phases' order
+        casc_gates = cascade_gate_phase(gen, checked)
     free_memory()
-    mark("cascade phase")
     with tempfile.TemporaryDirectory() as root:
         ddp_launches, ddp_errs, ddp_pre, ddp_sup, ddp_records = ddp_phase(root, gen, checked,
                                                                           shapes)
         free_memory()
-        mark("ddp phase")
-        multinode_launches = multinode_phase(root, ddp_records, shapes)
+        mark("cascade gates and ddp phase")
+        nodes = start_multinode(root, ddp_records[0])
+        casc_launches, casc_errs, casc_step, casc_case = cascade_phase(prep, casc_gates, shapes)
+        check(prep[0].wait() == 0, f"the preparing process exited {prep[0].returncode}")
+        prep_dir.cleanup()
+        free_memory()
+        mark("cascade phase (the multinode nodes beside its entries)")
+        multinode_launches = multinode_phase(root, ddp_records, shapes, nodes)
     mark("multinode phase")
     for errs in (cli_errs, casc_errs, ddp_errs):
         conv_err, conv_rel = max(conv_err, errs["conv3x3"][0]), max(conv_rel,
@@ -4195,7 +4482,7 @@ def main():
            f"({math.ceil(tiles_of((1, *CLI_TEST[0][1])) / 2)} forwards at B = {CLI_TILE_BATCH}), "
            f"one step of the cascade's PlainConvUNet ({CASCADE_IN} input channels, B = 2) and "
            f"one cascade test case and fold "
-           f"({math.ceil(tiles_of((CASCADE_IN, *CASCADE_TEST[0][1])) / 2)} forwards at "
+           f"({cascade_case_forwards()} forwards at "
            f"B = {CLI_TILE_BATCH}); by_path splits them; launches_by_path "
            "counts every launch of each path's run, the PretrainTrainer runs', the "
            "supervised runs' (training, resume, final validation, checkpoint round trip, bare "
@@ -4219,7 +4506,7 @@ def main():
         return {path: kernel_launches(c, kernel) for path, c in runs.items()}
 
     def by_variant(kernel):
-        return {v: sum(c[f"{kernel}.{v}"] for c in runs.values()) for v in ("hopper", "simple")}
+        return {v: sum(c[f"{kernel}.{v}"] for c in runs.values()) for v in VARIANTS}
 
     zslab_record = kernel_record(
         "conv3d_zslab", "anatomask_torch/csrc/zslab_conv.cu",
@@ -4232,6 +4519,14 @@ def main():
          "ddp_pretrain_rank_step": ddp_pre["zslab"], "ddp_supervised_rank_step": ddp_sup["zslab"],
          "block_step": block_tot["zslab"]},
         per + "; the main paths' per-tap forwards through conv3d_zconcat", by_variant("zslab"))
+    # the stem variant: its launches in each path's run, and the stem table's
+    # rows (both roundings timed at each path's stem shape)
+    stem_per = ("ms: kernel #2's per-tap stem at the path's stem shape (once_ms: kernel #1's "
+                "once-rounded one), bound_ms its bound (bytes: x read and y written once), "
+                "share = bound_ms / ms, simple_ms the simple variant it replaced, through its C "
+                "entry point")
+    zslab_record["stem"] = {"launches_by_path": {p: c["zslab.stem"] for p, c in runs.items()},
+                            "per": stem_per, "by_shape": stem_rows}
     zslab_record["probe"] = {"launches_by_variant": zs_variants, **{
         k: zs_probe[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "per": "one forward + dx (through conv3d_zslab, per-tap dx) at each shape of "
@@ -4274,6 +4569,8 @@ def main():
         moments_record,
         zslab_record,
     ]
+    kernels[0]["stem"] = {"launches_by_path": {p: c["conv3x3.stem"] for p, c in runs.items()},
+                          "once_ms_by_shape": {p: r["once_ms"] for p, r in stem_rows.items()}}
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
