@@ -23,7 +23,10 @@ What differs from the JAX entries:
   node's ranks then share). It never spawns; `-num_gpus`, if given, must be
   the launcher's WORLD_SIZE. A partial set of the launcher's variables or a
   failed join raises (JAX carries on in one process);
-- `predict -compute_dtype` maps to torch.bfloat16 / torch.float32.
+- `predict -compute_dtype` maps to torch.bfloat16 / torch.float32;
+  `-compute_dtype float32` (`train`'s trainers, `pretrain`, `predict`)
+  also turns TF32 off for cuDNN and cuBLAS (`device.compute_dtype`), which
+  PyTorch would otherwise use for a float32 convolution.
 """
 from __future__ import annotations
 

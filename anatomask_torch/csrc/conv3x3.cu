@@ -11,12 +11,15 @@
 //
 // Bound on the H100: at the main-path shapes (C, F >= 32) the conv does 2*27*C
 // FLOP per input byte or more, far above the card's ~295 FLOP/byte ridge, so the
-// floor is the bf16 tensor-core rate (989 TFLOP/s), which only wgmma reaches.
-// Every bf16 conv with C and F multiples of 32 runs the hopper variant of
-// conv3x3_igemm.cuh (a cp.async ring feeding wgmma, 128 x BN tiles); the bf16
-// stems (C <= 8, F a multiple of 16 up to 96), bound by bytes, run the stem
-// variant of conv3x3_stem.cuh; fp32 and every other shape the simple variant.
-// The measured gap is recorded in PERF.md.
+// floor is the bf16 tensor-core rate (989 TFLOP/s), which only wgmma reaches,
+// and in fp32 three TF32 products a term at 495 TFLOP/s. Every bf16 conv with
+// C and F multiples of 32 runs the hopper variant of conv3x3_igemm.cuh (a
+// cp.async ring feeding wgmma, 128 x BN tiles), every fp32 one its tf32x3
+// variant (the same ring, each product as three TF32 ones, summed in fp32
+// every 32 channels of K); the bf16 stems (C <= 8, F a multiple of 16 up to
+// 96), bound by bytes, run the stem variant of conv3x3_stem.cuh; the fp32
+// stems and every other shape the simple variant. The measured gap is recorded
+// in PERF.md.
 
 #include "conv3x3_igemm.cuh"
 #include "conv3x3_stem.cuh"
@@ -34,6 +37,13 @@ extern "C" int conv3x3_forward_hopper(const void* x, const void* wt, void* y, in
                                       int Y, int Z, int C, int F, int p, int bk, int bn,
                                       void* stream) {
   return conv3x3_igemm::hopper::launch<false>(x, wt, y, B, X, Y, Z, C, F, p, bk, bn, stream);
+}
+
+// The tf32x3 variant (fp32, wt = the (2, F, 27*C) hi and lo planes); see
+// conv3x3_igemm::tf32x3::launch for the arguments.
+extern "C" int conv3x3_forward_tf32x3(const void* x, const void* wt, void* y, int B, int X,
+                                      int Y, int Z, int C, int F, int p, int bn, void* stream) {
+  return conv3x3_igemm::tf32x3::launch<false>(x, wt, y, B, X, Y, Z, C, F, p, bn, stream);
 }
 
 // The stem variant (bf16, 1 <= C <= 8, w = the (3 * KT, F) weight of

@@ -17,9 +17,11 @@
 // Bound on the H100: the paths' convs (C, F >= 32) do at least 2*27*32 FLOP
 // per byte moved, far above the card's ~295 FLOP/byte ridge, so they are bound
 // by operations: 989 TFLOP/s bf16 on the tensor cores, reachable only through
-// wgmma. Two variants here, and the bf16 stems (C <= 8, bound by bytes) in
-// conv3x3_stem.cuh; ops/conv3x3.py `conv_variant` picks one from dtype, shape
-// and alignment alone:
+// wgmma. In fp32 the FP32 pipe gives 67 TFLOP/s; the tensor cores' 495 TFLOP/s
+// of TF32 keep 11 significant bits, so a product accurate to fp32 takes three
+// of them (below): 165 TFLOP/s. Three variants here, and the bf16 stems (C <=
+// 8, bound by bytes) in conv3x3_stem.cuh; ops/conv3x3.py `conv_variant` picks
+// one from dtype, shape and alignment alone:
 //
 // hopper (namespace hopper): bf16 with C % 32 == 0, F % 32 == 0 and 16-byte
 //   aligned pointers, the weight repacked K-major to (F, 27*C). A 256-thread
@@ -47,18 +49,44 @@
 //   the FP32 pipe (tests/torch_zslab_roundoff.py measures both). The
 //   epilogue stores bf16x2 straight from the registers, masked at ragged M.
 //
-// simple (the kernel below): fp32 (the exactness check) and every shape that
-//   neither the hopper nor the stem variant takes. A 128-thread block owns a
-//   64 x 64 tile and walks K in 32-wide steps through one shared-memory
-//   stage: bf16 on nvcuda::wmma 16x16x16 fragments, fp32 by plain FMA.
-//   PER_TAP (bf16) sends the fp32 accumulators through shared memory at each
-//   tap's end (wmma's fragment layout is opaque), rounds them and adds them
-//   to a running bf16 sum kept in shared memory; a tap's products chain on
-//   the tensor cores from its first to its last (no PROMOTE groups: the
-//   variant runs no bf16 conv of the paths). In fp32 rounding a tap's sum
-//   changes nothing, so both flags run the one loop.
+// tf32x3 (namespace tf32x3): fp32 with C % 32 == 0, F % 32 == 0 and 16-byte
+//   aligned pointers: every fp32 conv of the paths but the stems. It is the
+//   hopper variant's block and ring on TF32 wgmma with each product split in
+//   three: a = a_hi + a_lo with a_hi = tf32(a), a_lo = tf32(a - a_hi) (a_hi +
+//   a_lo is a to within 2^-22 of a), and a*b ~ a_lo*b_hi + a_hi*b_lo +
+//   a_hi*b_hi; a_lo*b_lo (below 2^-22 of a*b) is left out. The weight comes
+//   split, as two K-major (F, 27*C) planes (pack_weight "tf32x3"); the
+//   im2col tile is copied as fp32 (K steps of BK = 32 channels, 128-byte
+//   rows, the 128-byte swizzle) and each thread splits its A fragments in
+//   registers (wgmma.m64nBNk8.tf32 with A from registers, B from shared
+//   memory), which keeps shared memory to one read of A a step (with A split
+//   in shared memory, as hi and lo planes behind a second barrier a step, the
+//   products read it three times and the split wrote it twice: 8-15% slower,
+//   PERF.md). BN is 64 where it divides F,
+//   else 32. Against the drift of the tensor cores' accumulation over long
+//   chains (fault 11 in the hopper variant; here a chain would be up to 27 *
+//   512 products a term), a K step's 12 products chain from scale-d = 0 and,
+//   once retired, are added to the sum on the FP32 pipe: every 32 channels of
+//   K are summed in fp32. The fold waits for the step's products: reading
+//   accumulators of a wgmma that may be in flight (a second accumulator set
+//   folded while the next step's products run) makes ptxas serialize every
+//   wgmma (C7514). PER_TAP sums each first-axis tap so, then adds the three in
+//   fp32 (rounding a tap to fp32 changes nothing), as the JAX package sums
+//   three fp32 convs (conv3d_zconcat). TMA is not used: it raised an illegal
+//   instruction on this card (PERF.md section 6).
 //
-// In both, the output is written once, at the end.
+// simple (the kernel below): the fp32 stems (C = 1, 3, 4) and every shape
+//   that neither the hopper, the tf32x3 nor the stem variant takes. A
+//   128-thread block owns a 64 x 64 tile and walks K in 32-wide steps through
+//   one shared-memory stage: bf16 on nvcuda::wmma 16x16x16 fragments, fp32 by
+//   plain FMA. PER_TAP (bf16) sends the fp32 accumulators through shared
+//   memory at each tap's end (wmma's fragment layout is opaque), rounds them
+//   and adds them to a running bf16 sum kept in shared memory; a tap's
+//   products chain on the tensor cores from its first to its last (no
+//   PROMOTE groups: the variant runs no bf16 conv of the paths). In fp32
+//   rounding a tap's sum changes nothing, so both flags run the one loop.
+//
+// In all, the output is written once, at the end.
 
 #pragma once
 
@@ -749,5 +777,318 @@ int launch(const void* x, const void* wt, void* y, int B, int X, int Y, int Z, i
 }
 
 }  // namespace hopper
+
+namespace tf32x3 {
+
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+using hopper::fence_operand;
+using hopper::fence_proxy_async;
+using hopper::smem_u32;
+using hopper::swizzle;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_wait;
+
+constexpr int BM = 128;       // output voxels per block, 64 per warpgroup
+constexpr int BK = 32;        // K (fp32 channels of one tap) per step: 128-byte tile rows
+constexpr int THREADS = 256;  // two warpgroups; all of them copy and multiply
+constexpr int STAGES = 4;     // shared-memory ring depth
+
+// the BN built; ops/conv3x3.py `tf32_tile` picks among these
+#define CONV3X3_TF32X3_TILES(TILE) TILE(32) TILE(64)
+
+template <int BN>
+struct Tile {
+  static constexpr int ROWB = BK * 4;                     // bytes of a tile row (a voxel or an f)
+  static constexpr int CPR = ROWB / 16;                   // 16-byte chunks a row
+  static constexpr int A_BYTES = BM * ROWB;               // A as copied (fp32)
+  static constexpr int B_BYTES = BN * ROWB;               // one plane of B (hi or lo)
+  static constexpr int STAGE_BYTES = A_BYTES + 2 * B_BYTES;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;  // + slack to align the ring
+  static constexpr int A_ITERS = BM * CPR / THREADS;      // A chunks a thread copies a step
+  static constexpr int B_ITERS = 2 * BN * CPR / THREADS;  // B chunks (both planes)
+  static constexpr int NACC = BN / 2;                     // fp32 accumulators a thread
+};
+
+// round to the nearest TF32 value (10 stored mantissa bits), ties away from
+// zero; the low 13 bits of the result are zero
+__device__ __forceinline__ float to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return __uint_as_float(r);
+}
+
+#define CONV3X3_R8(i)                                                                 \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),        \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// D (64 x BN, fp32 in registers) = A (64 x 8) * B (8 x BN) + (scale_d ? D : 0):
+// A tf32 in registers (a warp's 16 rows as mma.m16n8k8's A fragment: a[0] row
+// g, column t; a[1] row g + 8, column t; a[2], a[3] the same at column t + 4;
+// g = lane / 4, t = lane % 4), B tf32 K-major in shared memory (128-byte
+// swizzled rows)
+template <int BN>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  __device__ __forceinline__ static void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : CONV3X3_R8(0), CONV3X3_R8(8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : CONV3X3_R8(0), CONV3X3_R8(8), CONV3X3_R8(16), CONV3X3_R8(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+#undef CONV3X3_R8
+
+// keeps A fragments alive (unmoved, unreused) until the wgmma reading them retires
+__device__ __forceinline__ void fence_frags(uint32_t (&r)[BK / 8][4]) {
+#pragma unroll
+  for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// x: (B, X, Y, Z, C) fp32; wt: (2, F, 27*C) fp32, the weight's TF32 hi and lo
+// planes, K contiguous; y: (M output voxels, F) fp32 at padding P. Grid
+// (ceil(M / 128), F / BN).
+template <int BN, bool PER_TAP>
+__global__ void __launch_bounds__(THREADS, 1)
+conv3x3_tf32x3(const float* __restrict__ x, const float* __restrict__ wt, float* __restrict__ y,
+               int M, int X, int Y, int Z, int C, int F, int P) {
+  using T = Tile<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ long long tap_off[27];  // element offset of each tap's input voxel
+
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int K = 27 * C;
+  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint8_t* const ring_ptr = smem_raw + (ring - smem_u32(smem_raw));
+
+  const int Xo = X + 2 * P - 2, Yo = Y + 2 * P - 2, Zo = Z + 2 * P - 2;
+  if (tid < 27) {
+    const int dx = tid / 9 - P, dy = tid / 3 % 3 - P, dz = tid % 3 - P;
+    tap_off[tid] = (long long)((dx * Y + dy) * Z + dz) * C;
+  }
+  // A: this thread copies chunk `ja` of rows tid / CPR + i * (THREADS / CPR)
+  const int ja = tid % T::CPR;
+  const float* a_src[T::A_ITERS];
+  uint32_t a_taps[T::A_ITERS];  // bit t: tap t of the row lies inside the volume
+  uint32_t a_dst[T::A_ITERS];
+#pragma unroll
+  for (int i = 0; i < T::A_ITERS; ++i) {
+    const int r = tid / T::CPR + i * (THREADS / T::CPR);
+    const int m = m0 + r;
+    a_dst[i] = swizzle<64>(r, ja);  // 128-byte rows, as the bf16 tiles' at BK = 64
+    a_taps[i] = 0;
+    a_src[i] = x;
+    if (m < M) {
+      int t = m;
+      const int vz = t % Zo; t /= Zo;
+      const int vy = t % Yo; t /= Yo;
+      const int vx = t % Xo; t /= Xo;
+      auto inside = [P](int o, int n) {
+        uint32_t bits = 0;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) bits |= (uint32_t)((unsigned)(o + d - P) < (unsigned)n) << d;
+        return bits;
+      };
+      const uint32_t mx = inside(vx, X), my = inside(vy, Y), mz = inside(vz, Z);
+#pragma unroll
+      for (int tap = 0; tap < 27; ++tap)
+        a_taps[i] |= ((mx >> (tap / 9)) & (my >> (tap / 3 % 3)) & (mz >> (tap % 3)) & 1u) << tap;
+      a_src[i] = x + ((((long long)t * X + vx) * Y + vy) * Z + vz) * C + ja * 4;
+    }
+  }
+  // B: chunk idx = tid + i * THREADS of the 2 x BN x CPR chunks (hi plane, then lo)
+  const float* b_src[T::B_ITERS];
+  uint32_t b_dst[T::B_ITERS];
+#pragma unroll
+  for (int i = 0; i < T::B_ITERS; ++i) {
+    const int idx = tid + i * THREADS;
+    const int plane = idx / (BN * T::CPR), n = idx / T::CPR % BN, j = idx % T::CPR;
+    b_src[i] = wt + ((long long)plane * F + n0 + n) * K + j * 4;
+    b_dst[i] = T::A_BYTES + plane * T::B_BYTES + swizzle<64>(n, j);
+  }
+  __syncthreads();  // tap_off
+
+  const int KT = K / BK;
+  int ld_tap = 0, ld_c0 = 0;  // (tap, c0) of the next step to load; BK divides C
+  auto load = [&](int step) {
+    const uint32_t stage = ring + (step % STAGES) * T::STAGE_BYTES;
+    const long long koff = tap_off[ld_tap] + ld_c0;
+    const uint32_t bit = 1u << ld_tap;
+#pragma unroll
+    for (int i = 0; i < T::A_ITERS; ++i) {
+      const bool in = a_taps[i] & bit;
+      cp_async16<true>(stage + a_dst[i], in ? a_src[i] + koff : x, in ? 16 : 0);
+    }
+#pragma unroll
+    for (int i = 0; i < T::B_ITERS; ++i)
+      cp_async16<false>(stage + b_dst[i], b_src[i] + step * BK, 16);
+    ld_c0 += BK;
+    if (ld_c0 == C) {
+      ld_c0 = 0;
+      ++ld_tap;
+    }
+  };
+  // this thread's A fragments of a step, split: rows g and g + 8 of its warp's
+  // 16, columns t and t + 4 of each k8 slice. Chunk j of row r sits at chunk j
+  // ^ (r % 8) of the 128-byte swizzle, and r % 8 = g for both rows, so the
+  // warp's 32 loads of a slice hit 32 distinct banks.
+  const int lane = tid % 32, g = lane / 4;
+  const int frag_off = ((tid / 128) * 64 + (tid % 128 / 32) * 16 + g) * T::ROWB + lane % 4 * 4;
+  uint32_t hi[BK / 8][4], lo[BK / 8][4];
+  auto split = [&](int step) {
+    const uint8_t* const a = ring_ptr + (step % STAGES) * T::STAGE_BYTES + frag_off;
+#pragma unroll
+    for (int k = 0; k < BK / 8; ++k) {
+      const int c0 = ((2 * k) ^ g) << 4, c1 = ((2 * k + 1) ^ g) << 4;
+      const float v[4] = {*reinterpret_cast<const float*>(a + c0),
+                          *reinterpret_cast<const float*>(a + 8 * T::ROWB + c0),
+                          *reinterpret_cast<const float*>(a + c1),
+                          *reinterpret_cast<const float*>(a + 8 * T::ROWB + c1)};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float h = to_tf32(v[e]);
+        hi[k][e] = __float_as_uint(h);
+        lo[k][e] = __float_as_uint(to_tf32(v[e] - h));
+      }
+    }
+  };
+
+  // a step's 12 products chain in `acc` from scale-d = 0; once they retire,
+  // the FP32 pipe adds them to `tot`, the sum of K so far (PER_TAP: of the tap)
+  float acc[T::NACC], tot[T::NACC];
+  float run[PER_TAP ? T::NACC : 1];  // PER_TAP: the fp32 sum of the finished taps
+  const int seg = PER_TAP ? KT / 3 : KT;  // K steps a tap, or all of K
+  const uint64_t desc_b = hopper::make_desc<64>(ring + T::A_BYTES);
+  constexpr uint64_t B_LO = T::B_BYTES >> 4;  // the lo plane, a plane further
+
+#pragma unroll 1
+  for (int s = 0; s < STAGES - 2; ++s) {
+    load(s);
+    cp_async_commit();
+  }
+  int pos = 0, taps = 0;  // the step's place in its tap, the taps finished
+  // step kt: its copies landed for every thread (the barrier also follows
+  // every warpgroup's retirement of step kt - 1, and so of kt - 2, whose stage
+  // the copies below refill), its A fragments split, then 4 k8 slices x 3
+  // products: lo*hi, hi*lo, hi*hi (lo*lo, below 2^-22 of the product, is left
+  // out), the small ones first. The products are waited for and folded at the
+  // step's end: reading the accumulators of a wgmma that may be in flight
+  // would make ptxas serialize every wgmma of the kernel.
+#pragma unroll 1
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<STAGES - 3>();
+    fence_proxy_async();
+    __syncthreads();
+    if (kt + STAGES - 2 < KT) load(kt + STAGES - 2);
+    cp_async_commit();
+    split(kt);
+    const uint64_t b0 = desc_b + (uint64_t)((kt % STAGES) * (T::STAGE_BYTES >> 4));
+    fence_operand(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < BK / 8; ++k) {
+      Wgmma<BN>::mma(acc, lo[k], b0 + 2 * k, k > 0);
+      Wgmma<BN>::mma(acc, hi[k], b0 + 2 * k + B_LO, 1);
+      Wgmma<BN>::mma(acc, hi[k], b0 + 2 * k, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(acc);
+    fence_frags(hi);
+    fence_frags(lo);
+#pragma unroll
+    for (int i = 0; i < T::NACC; ++i) tot[i] = pos == 0 ? acc[i] : tot[i] + acc[i];
+    if (++pos == seg) {
+      pos = 0;
+      if constexpr (PER_TAP) {  // the tap's sum (fp32: its rounding changes nothing) into run
+#pragma unroll
+        for (int i = 0; i < T::NACC; ++i) run[i] = taps == 0 ? tot[i] : run[i] + tot[i];
+        ++taps;
+      }
+    }
+  }
+
+  // accumulator (i, i + 1) of thread t: row 16 * warp + lane / 4 + 8 * (i / 2 % 2),
+  // columns 8 * (i / 4) + 2 * (lane % 4) + {0, 1} of the warpgroup's 64 x BN tile
+  const int warp = tid % 128 / 32;
+  const int row0 = m0 + (tid / 128) * 64 + warp * 16 + lane / 4;
+  const int col0 = n0 + (lane % 4) * 2;
+#pragma unroll
+  for (int i = 0; i < T::NACC; i += 2) {
+    const int m = row0 + 8 * (i / 2 % 2);
+    if (m < M) {
+      float2 v;
+      if constexpr (PER_TAP) v = make_float2(run[i], run[i + 1]);
+      else v = make_float2(tot[i], tot[i + 1]);
+      *reinterpret_cast<float2*>(y + (long long)m * F + col0 + 8 * (i / 4)) = v;
+    }
+  }
+}
+
+template <int BN, bool PER_TAP>
+int launch_tile(const void* x, const void* wt, void* y, int M, int X, int Y, int Z, int C, int F,
+                int P, cudaStream_t stream) {
+  auto kernel = conv3x3_tf32x3<BN, PER_TAP>;
+  const int smem = Tile<BN>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)(F / BN));
+  kernel<<<grid, THREADS, smem, stream>>>(static_cast<const float*>(x),
+                                          static_cast<const float*>(wt), static_cast<float*>(y),
+                                          M, X, Y, Z, C, F, P);
+  return (int)cudaGetLastError();
+}
+
+// x: (B, X, Y, Z, C) fp32, C % 32 == 0; wt: (2, F, 27*C) fp32, the TF32 hi
+// and lo planes of the weight (K contiguous; ops/conv3x3.py pack_weight); y:
+// (B, X + 2P - 2, Y + 2P - 2, Z + 2P - 2, F) fp32; all 16-byte aligned. bn must
+// be one of CONV3X3_TF32X3_TILES dividing F. Launches on `stream`; returns the
+// CUDA error.
+template <bool PER_TAP>
+int launch(const void* x, const void* wt, void* y, int B, int X, int Y, int Z, int C, int F,
+           int P, int bn, void* stream) {
+  const long long M = out_voxels(B, X, Y, Z, P);
+  if (M <= 0 || M > 0x7fffffffLL - BM || C <= 0 || F <= 0 || 27LL * C > 0x7fffffffLL ||
+      C % BK != 0 || F % bn != 0 ||
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wt) |
+        reinterpret_cast<uintptr_t>(y)) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CONV3X3_TF32X3_CASE(BN_) \
+  if (bn == BN_) return launch_tile<BN_, PER_TAP>(x, wt, y, (int)M, X, Y, Z, C, F, P, s);
+  CONV3X3_TF32X3_TILES(CONV3X3_TF32X3_CASE)
+#undef CONV3X3_TF32X3_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace tf32x3
 
 }  // namespace conv3x3_igemm

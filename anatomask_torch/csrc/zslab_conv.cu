@@ -28,9 +28,11 @@
 // a running bf16x2 sum, with no shared-memory round trip. The bf16 stems (C
 // <= 8, F a multiple of 16 up to 96) are bound by bytes and run the stem
 // variant (conv3x3_stem.cuh: the input brick in shared memory once, wgmma
-// with A from registers, each tap rounded in registers); fp32 and every other shape the simple
-// variant, which stages each tap through shared memory. PERF.md keeps the
-// measured times.
+// with A from registers, each tap rounded in registers). fp32 with C and F
+// multiples of 32 runs the tf32x3 variant (each product as three TF32 ones on
+// wgmma, each tap summed in fp32 every 32 channels, the three taps added in
+// fp32); the fp32 stems and every other shape the simple variant, which stages
+// each tap through shared memory. PERF.md keeps the measured times.
 
 #include "conv3x3_igemm.cuh"
 #include "conv3x3_stem.cuh"
@@ -47,6 +49,13 @@ extern "C" int zslab_forward(const void* x, const void* w, void* y, int B, int X
 extern "C" int zslab_forward_hopper(const void* x, const void* wt, void* y, int B, int X, int Y,
                                     int Z, int C, int F, int p, int bk, int bn, void* stream) {
   return conv3x3_igemm::hopper::launch<true>(x, wt, y, B, X, Y, Z, C, F, p, bk, bn, stream);
+}
+
+// The tf32x3 variant (fp32, wt = the (2, F, 27*C) hi and lo planes); see
+// conv3x3_igemm::tf32x3::launch for the arguments.
+extern "C" int zslab_forward_tf32x3(const void* x, const void* wt, void* y, int B, int X, int Y,
+                                    int Z, int C, int F, int p, int bn, void* stream) {
+  return conv3x3_igemm::tf32x3::launch<true>(x, wt, y, B, X, Y, Z, C, F, p, bn, stream);
 }
 
 // The stem variant (bf16, 1 <= C <= 8, w = the (3 * KT, F) weight of

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from anatomask_torch.convert import state_dict_from_jax
-from anatomask_torch.device import resolve_device
+from anatomask_torch.device import compute_dtype, resolve_device
 from anatomask_torch.inference.export import (
     convert_predicted_logits_to_segmentation_with_correct_shape,
     export_prediction_from_logits)
@@ -90,7 +90,7 @@ class Predictor:
         self.use_mirroring = use_mirroring
         self.tile_batch_size = tile_batch_size
         self.verbose = verbose
-        self.dtype = dtype
+        self.dtype = compute_dtype(dtype)  # float32: TF32 off in the library ops
         self.device = resolve_device(device)
 
         self.plans_manager: Optional[PlansManager] = None

@@ -31,10 +31,11 @@ dx (the block-sparse encoder, `ops/block_sparse.py`).
 Bound on the H100: the paths' convs (C, F >= 32, volumes of 7x7x8 up to
 128^3) do at least 2*27*32 FLOP per byte moved, so the bf16 tensor-core rate
 (989 TFLOP/s, reachable only through wgmma) bounds them, not the 3.35 TB/s of
-memory; the stems (C = 1, 3, 4) do at most 96 FLOP a byte and are bound by
-the bytes they write. There are three variants, and `conv_variant` picks one
-from dtype, C, F and alignment alone (a shape dispatch between hand-written
-kernels; a failed build or launch raises):
+memory, and in fp32 three TF32 products a term at 495 TFLOP/s (the FP32
+pipe's 67 TFLOP/s is slower); the stems (C = 1, 3, 4) do at most 96 FLOP a
+byte and are bound by the bytes they write. There are four variants, and
+`conv_variant` picks one from dtype, C, F and alignment alone (a shape
+dispatch between hand-written kernels; a failed build or launch raises):
 
 - "hopper" (`csrc/conv3x3_igemm.cuh`): bf16 with C and F multiples of 32 and
   16-byte-aligned data, i.e. every conv of the paths but the stems. The
@@ -49,9 +50,18 @@ kernels; a failed build or launch raises):
   registers, the weight in shared memory), per first-axis tap K = (dy, dz,
   c) zero-padded to a multiple of 16 (`pack_weight`); each output byte is
   written once.
-- "simple" (`csrc/conv3x3_igemm.cuh`): everything else (fp32, other channel
-  counts): 64 x 64 tiles on wmma fragments (bf16) or FMA (fp32), one
-  shared-memory stage.
+- "tf32x3" (`csrc/conv3x3_igemm.cuh`): fp32 with C and F multiples of 32
+  and 16-byte-aligned data, i.e. every fp32 conv of the paths but the stems.
+  The hopper variant's ring on TF32 wgmma, each product as three (a_lo*b_hi
+  + a_hi*b_lo + a_hi*b_hi, hi = the operand rounded to TF32, lo = the rest
+  rounded to TF32): the weight comes as two (F, 27*C) planes, hi and lo
+  (`pack_weight`), each thread splits its fragments of the fp32 im2col tile
+  in registers (wgmma with A from registers). 128 x BN output tiles (BN = 64
+  where it divides F, else 32; `tf32_tile`); every 32 channels of K are
+  added to the sum in fp32.
+- "simple" (`csrc/conv3x3_igemm.cuh`): everything else (the fp32 stems,
+  other channel counts): 64 x 64 tiles on wmma fragments (bf16) or FMA
+  (fp32), one shared-memory stage.
 
 Each wrapper counts its launches in total (`launches`), by variant
 (`launches_by_variant`) and by padding (`launches_by_padding`). Their gap to
@@ -119,9 +129,11 @@ def conv3d_3x3_plain(x: torch.Tensor, w: torch.Tensor, padding: int = 1) -> torc
     return out
 
 
-VARIANTS = ("hopper", "stem", "simple")
+VARIANTS = ("hopper", "stem", "tf32x3", "simple")
 # the (BK, BN) tiles of the hopper variant: CONV3X3_HOPPER_TILES in csrc/conv3x3_igemm.cuh
 HOPPER_TILES = ((32, 32), (32, 64), (32, 128), (64, 32), (64, 64), (64, 128))
+# the BN of the tf32x3 variant: CONV3X3_TF32X3_TILES in csrc/conv3x3_igemm.cuh
+TF32_TILES = (32, 64)
 # the stem variant's domain: CONV3X3_STEM_CHANNELS and MAX_F in csrc/conv3x3_stem.cuh
 STEM_MAX_C, STEM_MAX_F = 8, 96
 
@@ -132,12 +144,16 @@ def conv_variant(dtype: torch.dtype, C: int, F: int, aligned: bool = True) -> st
     allocations): "hopper" for bf16 with C and F multiples of 32, aligned;
     "stem" for bf16 with 1 <= C <= STEM_MAX_C and F a multiple of 16 up to
     STEM_MAX_F (aligned or not: it copies x by words where x's alignment
-    allows, else two bytes at a time); else "simple"."""
+    allows, else two bytes at a time); "tf32x3" for fp32 with C and F
+    multiples of 32, aligned; else "simple"."""
+    wide = C % 32 == 0 and F % 32 == 0 and aligned
     if dtype == torch.bfloat16:
-        if C % 32 == 0 and F % 32 == 0 and aligned:
+        if wide:
             return "hopper"
         if 1 <= C <= STEM_MAX_C and F % 16 == 0 and 16 <= F <= STEM_MAX_F:
             return "stem"
+    elif wide:
+        return "tf32x3"
     return "simple"
 
 
@@ -153,6 +169,23 @@ def igemm_tile(C: int, F: int) -> tuple[int, int]:
             next(bn for bn in (128, 64, 32) if F % bn == 0))
 
 
+def tf32_tile(F: int) -> int:
+    """BN of the tf32x3 variant: 64 where it divides F, else 32."""
+    return 64 if F % 64 == 0 else 32
+
+
+def tf32_split(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 v -> (hi, lo): hi = v rounded to the nearest TF32 value (ties
+    away from zero, as cvt.rna.tf32.f32: the low 13 bits cleared), lo = v - hi
+    rounded the same way."""
+    def rna(t):
+        return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    v = v.contiguous()
+    hi = rna(v)
+    return hi, rna(v - hi)
+
+
 def stem_rows(C: int) -> tuple[int, int]:
     """(R, KT) of the stem variant: the weight rows of one (dx, dy), 3*C
     rounded up to even, and of one first-axis tap, 3*R rounded up to a
@@ -163,10 +196,11 @@ def stem_rows(C: int) -> tuple[int, int]:
 
 def pack_weight(w: torch.Tensor, variant: str) -> torch.Tensor:
     """The (3, 3, 3, C, F) weight as the variant's kernel reads it: (F, 27*C)
-    with K = (tap, c) contiguous for "hopper", (27*C, F) for "simple", and
-    (F, 3 * KT) with K contiguous for "stem": per first-axis tap dx, KT
-    columns (dy, dz, c), column dx * KT + dy * R + dz * C + c, the rest zero
-    (stem_rows)."""
+    with K = (tap, c) contiguous for "hopper"; the same split into its TF32
+    hi and lo planes (tf32_split), (2, F, 27*C), for "tf32x3"; (27*C, F) for
+    "simple"; and (F, 3 * KT) with K contiguous for "stem": per first-axis tap
+    dx, KT columns (dy, dz, c), column dx * KT + dy * R + dz * C + c, the
+    rest zero (stem_rows)."""
     C, F = w.shape[3], w.shape[4]
     if variant == "stem":
         R, KT = stem_rows(C)
@@ -175,6 +209,8 @@ def pack_weight(w: torch.Tensor, variant: str) -> torch.Tensor:
         out[:, :, :3 * R].view(F, 3, 3, R)[..., :3 * C] = taps
         return out.reshape(F, 3 * KT)
     w2 = w.reshape(27 * C, F)
+    if variant == "tf32x3":
+        return torch.stack(tf32_split(w2.t()))
     return (w2.t() if variant == "hopper" else w2).contiguous()
 
 
@@ -191,9 +227,10 @@ def _entry(library: str, symbol: str, n_ints: int):
 def launch_igemm(x: torch.Tensor, w: torch.Tensor, library: str, symbol: str,
                  padding: int = 1) -> tuple[torch.Tensor, str]:
     """One launch of a kernel of csrc/conv3x3_igemm.cuh or csrc/conv3x3_stem.cuh
-    through the C launcher `symbol` (simple variant), `symbol`_hopper or
-    `symbol`_stem, as igemm_variant picks, on the current stream of x's
-    device. Returns the output and the variant; counting is the caller's."""
+    through the C launcher `symbol` (simple variant), `symbol`_hopper,
+    `symbol`_tf32x3 or `symbol`_stem, as igemm_variant picks, on the current
+    stream of x's device. Returns the output and the variant; counting is the
+    caller's."""
     B, X, Y, Z, C = x.shape
     F = w.shape[-1]
     variant = igemm_variant(x, w)
@@ -207,6 +244,10 @@ def launch_igemm(x: torch.Tensor, w: torch.Tensor, library: str, symbol: str,
             err = _entry(library, f"{symbol}_hopper", 9)(
                 x.data_ptr(), w2.data_ptr(), y.data_ptr(), B, X, Y, Z, C, F, padding,
                 *igemm_tile(C, F), stream)
+        elif variant == "tf32x3":
+            err = _entry(library, f"{symbol}_tf32x3", 8)(
+                x.data_ptr(), w2.data_ptr(), y.data_ptr(), B, X, Y, Z, C, F, padding,
+                tf32_tile(F), stream)
         elif variant == "stem":
             err = _entry(library, f"{symbol}_stem", 7)(
                 x.data_ptr(), w2.data_ptr(), y.data_ptr(), B, X, Y, Z, C, F, padding, stream)

@@ -51,7 +51,7 @@ from anatomask_torch.data.dataset import CaseDataset, unpack_dataset
 from anatomask_torch.data.device_cache import DeviceCaseCache
 from anatomask_torch.data.pipeline import PrefetchPipeline
 from anatomask_torch.data.sampler import PatchSampler
-from anatomask_torch.device import resolve_device
+from anatomask_torch.device import compute_dtype, resolve_device
 from anatomask_torch.parallel import mesh
 from anatomask_torch.paths import require
 from anatomask_torch.plans.plans_handler import PlansManager, load_json, save_json
@@ -125,7 +125,7 @@ def build_spark_model(cfg: PretrainConfig, in_channels: int = 1, device="cuda",
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    dtype = compute_dtype(cfg.compute_dtype)  # float32: TF32 off in the library ops
     if cfg.encoder_type == "mednext":
         n = cfg.encoder_dims[0] if cfg.encoder_dims else 32
         enc = SparseMedNeXtEncoder(in_channels, n, dtype=dtype, generator=generator,

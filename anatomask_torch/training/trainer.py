@@ -67,7 +67,7 @@ from anatomask_torch.data.augment_da5 import DA5Config
 from anatomask_torch.data.dataset import CaseDataset, unpack_dataset
 from anatomask_torch.data.pipeline import PrefetchPipeline
 from anatomask_torch.data.sampler import PatchSampler
-from anatomask_torch.device import resolve_device
+from anatomask_torch.device import compute_dtype, resolve_device
 from anatomask_torch.models.build import build_network_from_plans
 from anatomask_torch.models.layers import BatchNorm
 from anatomask_torch.parallel import mesh
@@ -299,7 +299,7 @@ class Trainer:
                              num_val_iterations_per_epoch=int(os.environ["ATK_VAL_ITERS"]))
         self.cfg = config
         self.arch_name = config.arch_name or self.configuration_manager.UNet_class_name
-        self.dtype = torch.bfloat16 if config.compute_dtype == "bfloat16" else torch.float32
+        self.dtype = compute_dtype(config.compute_dtype)  # float32: TF32 off in the library ops
         self.label_manager = self.plans_manager.get_label_manager(dataset_json)
         self.preprocessed_dataset_folder_base = preprocessed_dataset_folder_base or os.path.join(
             require("preprocessed"), self.plans_manager.dataset_name)

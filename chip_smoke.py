@@ -7,19 +7,21 @@ Phases, each of which raises on a failed check:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: compile csrc/conv3x3.cu, csrc/moments.cu and csrc/zslab_conv.cu
-   (the two convs share the kernels of csrc/conv3x3_igemm.cuh, its hopper
-   and simple variants, and of csrc/conv3x3_stem.cuh, the stem variant)
-   for sm_90a from the checkout's sources, one nvcc each, all at once;
-   print each kernel's registers and spills from ptxas's report, and check
-   with cuobjdump's SASS that every hopper and stem instantiation of both
-   conv libraries holds HGMMA (wgmma) instructions;
+   (the two convs share the kernels of csrc/conv3x3_igemm.cuh, its hopper,
+   tf32x3 and simple variants, and of csrc/conv3x3_stem.cuh, the stem
+   variant) for sm_90a from the checkout's sources, one nvcc each, all at
+   once; print each kernel's registers and spills from ptxas's report, and
+   check with cuobjdump's SASS that every hopper, tf32x3 and stem
+   instantiation of both conv libraries holds HGMMA (wgmma) instructions,
+   TF32 ones in the tf32x3 kernels;
 3. conv kernel (TPU kernel #1): at every call site of the stride-1 3x3x3
    conv on the main paths (the paths run it for the forwards below
    MIN_VOLUME output voxels and for every dx; the table checks all), the
    kernel against its plain PyTorch version on the card. For the
    pretraining step: forward and dx (bf16 at B = 1 through the autograd
    Function and at the step's B = 4, relative max error <= 1e-2; fp32
-   without TF32 on a few shapes, <= 1e-5), and at B = 4 its time beside the
+   without TF32 on a few shapes, <= 1e-5), and at B = 4 (but the stem's dx,
+   which no path launches) its time beside the
    bound, the plain version's time and F.conv3d's (a yardstick only; the port
    never calls it for this conv). For inference: forward at the tile
    forward's B = 8 (the 8 mirror flips), <= 1e-2, and the same times. Then
@@ -36,8 +38,8 @@ Phases, each of which raises on a failed check:
    (ragged extents, padding 0 and 2, C = 2, 5, 8, F = 16 and 48), both
    roundings against their plain versions (per tap: kernel #2's gates;
    once: rel. max error <= 1e-2); at each path shape the per-tap stem's
-   time beside its byte bound and share, the once-rounded stem's, the plain
-   version's, F.conv3d's and the simple variant's at the same shape (timed
+   time beside its byte bound and share, the once-rounded stem's, both plain
+   versions', F.conv3d's and the simple variant's at the same shape (timed
    through its C entry point, the yardstick it replaced, its output held
    to the per-tap plain version; the port never calls it there);
 4. moments kernel: at every instance-norm shape of both paths (the step's
@@ -72,7 +74,18 @@ Phases, each of which raises on a failed check:
    moments (no mask, x squared in fp32; <= 1e-5, two calls bit-equal); each
    launch's time beside its bound, the plain version's and F.conv3d's or
    torch.var_mean's;
-6. references: a tiny SparK (also with densify norm "bn", with "ln", in
+5c. the float32 path's launch shapes (`-compute_dtype float32`: the B
+   step's forwards at B = 4 and its dx, a volume tile's forwards at B = 8),
+   from a generator of their own: each kernel's forward on the variant the
+   rule picks (tf32x3; the stems simple) against its plain version, rel.
+   max error <= 1e-5; its time beside the simple variant's at the same shape
+   (the kernel it replaced, through its C entry point), the plain version's,
+   F.conv3d's in fp32 with TF32 off and the bound (three TF32 products a
+   term at 495 TFLOP/s, or the bytes; the FP32 pipe's time beside it); the
+   totals of one B step and one volume;
+6. references, with PyTorch's default TF32 flags set back first (the
+   float32 SparK's setup, build_spark_model, must turn TF32 off): a tiny
+   SparK (also with densify norm "bn", with "ln", in
    the batch-pooled mode with decoder norm "bn", and with the MedNeXt
    encoder), the three ablation decoders and SparseConvNeXtBlock, and a tiny
    STUNet, PlainConvUNet (instance and batch norm) and ResidualEncoderUNet
@@ -97,12 +110,23 @@ Phases, each of which raises on a failed check:
    checking the launches by kernel and variant (as 7's) and by padding
    (kernel #2 6 at 0, kernel #1 2 at 2), printing step ms, patches/s and
    peak memory beside 7's dense step, and a profiler split;
+7c. the float32 pretraining step: 7's 5 steps in fp32 (compute_dtype
+   "float32", the model built after PyTorch's default TF32 flags are set
+   back, which its setup must turn off) with 7's checks, launches by kernel
+   and variant every conv on tf32x3 but the stem's two (simple); its first
+   step also run on copies of its weights and draws with cuDNN in TF32 and,
+   for the spread, with TF32 off again: each copy's loss and gradients
+   against the step's; step ms, patches/s, peak memory, a profiler split;
 8. inference: bench_inference.py's configuration at full width through the
    Predictor: STUNet-B (6 stages, 1 input channel, 3 classes), a
    240x240x155 volume, patch 128^3, step 0.5, 18 tiles, 8-flip mirror TTA,
    tile batch 1, bf16; 3 volumes, the first a warm-up, checking finite
    logits of shape (3, 240, 240, 155) and, a tile, 7 kernel #1 (hopper), 10
    kernel #2 (9 hopper, the stem on the stem variant) and 22 moments launches;
+   then 1 volume in fp32 through Predictor(dtype=torch.float32), built
+   after PyTorch's default TF32 flags are set back (its setup must turn
+   them off): the same checks, the convs on tf32x3 but the stem (simple);
+   s a volume, peak memory;
 9. pretraining loop (PretrainTrainer): a synthetic preprocessed dataset
    (8 cases of 1 x 160^3) written with the port's own code into a temporary
    folder, then PretrainTrainer.run_pretraining at full STUNet-B width (patch
@@ -118,6 +142,9 @@ Phases, each of which raises on a failed check:
    that at least one slot was refilled and that every slot then holds its
    case bit for bit, and printing seconds an epoch, fetch-wait, validation and
    checkpoint seconds, patches/s and the step time beside the bare step's;
+   then a float32 run (compute_dtype "float32", 1 epoch x 2 iterations with
+   the case cache), its trainer built after PyTorch's default TF32 flags
+   are set back, with the same checks (fp32 launches);
 10. prediction from raw files (Predictor.predict_from_files): a trained-model
    folder written with the port's own code in the JAX package's layout
    (plans.json of nnU-Net's 3d_fullres PlainConvUNet as the JAX planner
@@ -272,8 +299,9 @@ priority (nice 19), started after the kernel phases (3-5b), beside 6-12;
 13 and 14 wait for its part and print its output and seconds. 14's gates
 run after 13, then 15; 15b's nodes start after 15 and run beside 14's
 entries, and are checked after them. The last three lines of standard
-output are the nvidia-smi
-line, one JSON object {"kernels": [...]}, and {"ok": true, "device": {...}}."""
+output are the nvidia-smi line, one JSON object {"kernels": [...]} (kernels
+#1, #3 and #2, then the float32 path's tf32x3 variant of #1 and #2), and
+{"ok": true, "device": {...}}."""
 import atexit
 import copy
 import gc
@@ -319,9 +347,9 @@ from anatomask_torch.ops import _build
 from anatomask_torch.ops import conv3x3 as conv_mod
 from anatomask_torch.ops import moments as moments_mod
 from anatomask_torch.ops import zslab_conv as zslab_mod
-from anatomask_torch.ops.conv3x3 import (HOPPER_TILES, STEM_MAX_C, VARIANTS, conv3d_3x3,
-                                         conv3d_3x3_forward, conv3d_3x3_plain, conv_variant,
-                                         flip_weight, igemm_variant, out_extents,
+from anatomask_torch.ops.conv3x3 import (HOPPER_TILES, STEM_MAX_C, TF32_TILES, VARIANTS,
+                                         conv3d_3x3, conv3d_3x3_forward, conv3d_3x3_plain,
+                                         conv_variant, flip_weight, igemm_variant, out_extents,
                                          pack_weight, zero_launch_counts)
 from anatomask_torch.ops.moments import row_moments, row_moments_forward, row_moments_plain
 from anatomask_torch.ops.zslab_conv import (conv3d_zconcat, conv3d_zslab, conv3d_zslab_forward,
@@ -346,6 +374,7 @@ from anatomask_torch.training.trainer import Trainer, get_trainer_config
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12   # H100 SXM fp32 rate outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core rate
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 BATCH = 4                 # the pretraining step's batch
 TTA_BATCH = 8             # inference: the 8 mirror flips of one tile
@@ -452,6 +481,7 @@ ZSLAB_FP32_SHAPES = (((2, 12, 13, 17, 32), 32), ((2, 16, 16, 16, 1), 32),
 # the PretrainTrainer phase: its synthetic dataset and run length
 TRAINER_DATASET, TRAINER_CASES, TRAINER_CASE_SHAPE = "Dataset950_ChipSmoke", 8, (160, 160, 160)
 TRAINER_EPOCHS, TRAINER_ITERS = 2, 5
+FP32_TRAINER_ITERS = 2  # the float32 run: 1 epoch of these and a validation step
 # the refill run: 3 slots of 349x339x356 bf16 (80 MiB each) for 5 training cases
 REFILL_CACHE_MB, REFILL_ITERS = 256, 6
 # the supervised phase: STUNetTrainer_base_ft on 6 synthetic cases of 1 x
@@ -568,6 +598,9 @@ def kernel_label(mangled):
     m = re.search(r"conv3x3_wgmmaILi(\d+)ELi(\d+)ELb([01])E", mangled)
     if m:
         return f"hopper BK={m[1]} BN={m[2]}{' per-tap' if m[3] == '1' else ''}"
+    m = re.search(r"conv3x3_tf32x3ILi(\d+)ELb([01])E", mangled)
+    if m:
+        return f"tf32x3 BN={m[1]}{' per-tap' if m[2] == '1' else ''}"
     m = re.search(r"conv3x3_kernelI(f|13__nv_bfloat16)Lb([01])E", mangled)
     if m:
         return f"simple {'fp32' if m[1] == 'f' else 'bf16'}{' per-tap' if m[2] == '1' else ''}"
@@ -588,26 +621,29 @@ def build_report(name):
             spills = f"{m[1]} bytes spill stores, {m[2]} loads"
         elif m := re.search(r"Used (\d+) registers", line):
             print(f"[build] {name} {entry}: {m[1]} registers, {spills}")
-        elif "warning" in line:
+        elif "warning" in line or "Performance Loss" in line:  # e.g. wgmma serialized
             print(f"[build] {name}: {line.strip()}")
 
 
 def check_hgmma(name):
-    """Every hopper and stem instantiation of csrc/<name>.cu holds HGMMA
-    instructions in its SASS (cuobjdump, beside nvcc): a build that lost
-    wgmma fails."""
+    """Every hopper, tf32x3 and stem instantiation of csrc/<name>.cu holds
+    HGMMA instructions in its SASS (cuobjdump, beside nvcc), TF32 ones in the
+    tf32x3 kernels: a build that lost wgmma fails."""
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "--dump-sass", str(_build.library_path(name))],
                           capture_output=True, text=True, check=True, timeout=300).stdout
     counts = {}
     for chunk in sass.split("Function : ")[1:]:
         label = kernel_label(chunk.split(None, 1)[0])
-        if label.startswith(("hopper", "stem")):
-            counts[label] = sum("HGMMA" in line for line in chunk.splitlines())
-    check(len(counts) == len(HOPPER_TILES) + STEM_MAX_C and all(counts.values()),
-          f"{name}: HGMMA instructions by hopper and stem kernel {counts}")
-    print(f"[build] {name}: HGMMA instructions in each of its {len(counts)} hopper and stem "
-          f"kernels: {', '.join(f'{k} {v}' for k, v in sorted(counts.items()))}")
+        if label.startswith(("hopper", "stem", "tf32x3")):
+            kind = "TF32" if label.startswith("tf32x3") else ""
+            counts[label] = sum("HGMMA" in line and kind in line for line in chunk.splitlines())
+    check(len(counts) == len(HOPPER_TILES) + len(TF32_TILES) + STEM_MAX_C
+          and all(counts.values()),
+          f"{name}: HGMMA instructions by hopper, tf32x3 and stem kernel {counts}")
+    print(f"[build] {name}: HGMMA instructions in each of its {len(counts)} hopper, tf32x3 "
+          f"(TF32 HGMMA) and stem kernels: "
+          f"{', '.join(f'{k} {v}' for k, v in sorted(counts.items()))}")
 
 
 def zero_counts():
@@ -646,18 +682,18 @@ def per_tap(vol):
     return math.prod(vol) >= MIN_VOLUME
 
 
-def path_launches(sites, norms, forwards, backward, stem=True):
+def path_launches(sites, norms, forwards, backward, stem=True, dtype=torch.bfloat16):
     """The launches of `forwards` forwards over `sites` and `norms` and, with
     `backward`, one backward (dx at every site but the stem, sites[0] where
     `stem`, whose input carries no gradient; the norms' backward is
-    elementwise), each conv on the variant the port's rule picks for its bf16
-    C -> F (the dx: F -> C)."""
+    elementwise), each conv on the variant the port's rule picks for its
+    C -> F in `dtype` (the dx: F -> C)."""
     want = dict.fromkeys(COUNT_KEYS, 0)
     for i, (name, C, F, vol) in enumerate(sites):
         want[f"{'zslab' if per_tap(vol) else 'conv3x3'}."
-             f"{conv_variant(torch.bfloat16, C, F)}"] += forwards
+             f"{conv_variant(dtype, C, F)}"] += forwards
         if backward and (i > 0 or not stem):
-            want[f"conv3x3.{conv_variant(torch.bfloat16, F, C)}"] += 1
+            want[f"conv3x3.{conv_variant(dtype, F, C)}"] += 1
     want["moments"] = forwards * len(norms)
     return want
 
@@ -670,6 +706,11 @@ VAL_LAUNCHES = path_launches(SITES, PRETRAIN_NORMS, 1, False)
 STEP_PADDINGS = {k: (sum(STEP_LAUNCHES[f"{k[:-3]}.{v}"] for v in VARIANTS)
                      if k.endswith("p1") else 0) for k in BLOCK_STEP_PADDINGS}
 TILE_LAUNCHES = path_launches(INFER_SITES, INFER_NORMS, 1, False)
+# the same in float32 (-compute_dtype float32): tf32x3 for every conv but
+# the stem's (simple)
+FP32_STEP_LAUNCHES = path_launches(SITES, PRETRAIN_NORMS, 2, True, dtype=torch.float32)
+FP32_VAL_LAUNCHES = path_launches(SITES, PRETRAIN_NORMS, 1, False, dtype=torch.float32)
+FP32_TILE_LAUNCHES = path_launches(INFER_SITES, INFER_NORMS, 1, False, dtype=torch.float32)
 PLAIN_TILE_LAUNCHES = path_launches(PLAIN_INFER_SITES, PLAIN_INFER_NORMS, 1, False)
 # the supervised paths: a STUNet-B finetuning step (one forward, dx everywhere
 # but the stem) and validation step at B = 2 over the tile's site tables (the
@@ -777,15 +818,25 @@ def plain_ms(f):
     return time_ms(f, 1, rounds=1)
 
 
+def conv_flops(C, F, vol, batch=BATCH, padding=1):
+    return 2 * batch * math.prod(n + 2 * padding - 2 for n in vol) * 27 * C * F
+
+
 def bound_ms(C, F, vol, batch=BATCH, itemsize=2, padding=1):
     """(FLOP ms, byte ms) of one conv of the (batch, *vol, C) input: x and
-    the weight read once, y written once, the 27-tap products at the bf16
-    rate."""
+    the weight read once, y written once; the 27-tap products at the bf16
+    rate, or in fp32 (itemsize 4) as three TF32 products each, the least
+    time for products accurate to fp32 on the tensor cores."""
     voxels = batch * math.prod(vol)
     out = batch * math.prod(n + 2 * padding - 2 for n in vol)
-    flops = 2 * out * 27 * C * F
+    rate = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_TF32_FLOPS / 3
     nbytes = (voxels * C + 27 * C * F + out * F) * itemsize
-    return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return conv_flops(C, F, vol, batch, padding) / rate * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def fp32_pipe_ms(C, F, vol, batch=BATCH):
+    """The conv's products at the FP32 pipe's rate (outside the tensor cores)."""
+    return conv_flops(C, F, vol, batch) / PEAK_FP32_FLOPS * 1e3
 
 
 def rel_err(a, b):
@@ -885,8 +936,11 @@ def conv_phase(gen):
         print(f"[conv] bf16 {C:>3}->{F:<3} @{vol} ({math.prod(vol)} voxels): fwd+dx rel err "
               f"{r:.3e} (hopper edge case)")
     timed = {}
+    stem_dx = (SITES[0][2], SITES[0][1], SITES[0][3])  # no path launches it: gated, not timed
     for key in shapes:
-        timed[key], (a, r), variant = time_site(*key, gen, BATCH)
+        times, (a, r), variant = time_site(*key, gen, BATCH, timed=key != stem_dx)
+        if times:
+            timed[key] = times
         max_abs, max_rel = max(max_abs, a), max(max_rel, r)
         print(f"[conv] bf16 {key[0]:>3}->{key[1]:<3} @{key[2]} B={BATCH}: fwd rel err {r:.3e} "
               f"({variant})")
@@ -906,7 +960,8 @@ def conv_phase(gen):
         # but at the stem, whose input carries no gradient
         for key, n in (((C, F, vol), 0 if per_tap(vol) else 2),
                        ((F, C, vol), 0 if name == "enc0.conv1" else 1)):
-            add_totals(step, n, *timed[key], *bound_ms(*key))
+            if n:
+                add_totals(step, n, *timed[key], *bound_ms(*key))
     volume, plain_tile = dict.fromkeys(TOTAL_KEYS, 0.0), dict.fromkeys(TOTAL_KEYS, 0.0)
     for sites, totals, n in ((INFER_SITES, volume, TILES), (PLAIN_INFER_SITES, plain_tile, 1)):
         for _, C, F, vol in sites:  # one forward a tile
@@ -914,7 +969,7 @@ def conv_phase(gen):
                 add_totals(totals, n, *infer[(C, F, vol)], *bound_ms(C, F, vol, TTA_BATCH))
     print_timed("step", BATCH, timed)
     print_timed("inference", TTA_BATCH, infer)
-    checked = ({(BATCH, *vol, C, F) for C, F, vol in timed}
+    checked = ({(BATCH, *vol, C, F) for C, F, vol in shapes}
                | {(TTA_BATCH, *vol, C, F) for C, F, vol in infer})
     return max_abs, max_rel, step, volume, plain_tile, checked, timed, infer
 
@@ -1259,19 +1314,22 @@ STEM_EDGE_SHAPES = (
 STEM_TIMES = {}
 
 
-def zslab_simple(x, w, padding):
-    """Kernel #2's simple variant at a shape the dispatch sends to the stem:
-    the kernel the stem replaced, through its C entry point as launch_igemm
-    calls it (a yardstick only; no launch count)."""
+def simple_forward(x, w, padding, per_tap=True):
+    """Kernel #2's (`per_tap`) or kernel #1's simple variant at a shape the
+    dispatch sends to another variant (the stem, tf32x3): the kernel that
+    variant replaced, through its C entry point as launch_igemm calls it (a
+    yardstick only; no launch count)."""
     B, X, Y, Z, C = x.shape
     F = w.shape[-1]
     w2 = pack_weight(w, "simple")
     y = torch.empty((B, *out_extents(x, padding), F), dtype=x.dtype, device=x.device)
-    err = conv_mod._entry("zslab_conv", "zslab_forward", 10)(
-        x.data_ptr(), w2.data_ptr(), y.data_ptr(), B, X, Y, Z, C, F, padding, 1,
-        int(C % 8 == 0 and x.data_ptr() % 16 == 0), int(F % 8 == 0),
-        torch.cuda.current_stream().cuda_stream)
-    check(err == 0, f"zslab_forward (simple) at {tuple(x.shape)} -> {F}: CUDA error {err}")
+    symbol = "zslab_forward" if per_tap else "conv3x3_forward"
+    vec = 16 // x.element_size()
+    err = conv_mod._entry("zslab_conv" if per_tap else "conv3x3", symbol, 10)(
+        x.data_ptr(), w2.data_ptr(), y.data_ptr(), B, X, Y, Z, C, F, padding,
+        int(x.dtype == torch.bfloat16), int(C % vec == 0 and x.data_ptr() % 16 == 0),
+        int(F % vec == 0), torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"{symbol} (simple) at {tuple(x.shape)} -> {F}: CUDA error {err}")
     return y
 
 
@@ -1282,7 +1340,7 @@ def stem_table(gen):
     and kernel #1's once-rounded forward against conv3d_3x3_plain (rel. max
     error <= 1e-2), each shape on the stem variant. At each timed path shape:
     the per-tap stem's ms beside its byte bound and share, the once-rounded
-    stem's ms, the plain version's, F.conv3d's and the simple variant's (its
+    stem's ms, both plain versions', F.conv3d's and the simple variant's (its
     C entry point, the kernel the stem replaced; held to the per-tap plain
     version, rel. max error <= 1e-2), and the stem must beat both of the last
     two. Fills STEM_TIMES; returns {kernel: (max abs, max rel)},
@@ -1303,7 +1361,7 @@ def stem_table(gen):
         a2 = (y2.float() - p2.float()).abs().max().item()
         a1 = (y1.float() - p1.float()).abs().max().item()
         # the yardstick computes the same function (its rel. max error <= 1e-2)
-        r_simple = rel_err(zslab_simple(x, w, padding), p2) if timed else 0.0
+        r_simple = rel_err(simple_forward(x, w, padding), p2) if timed else 0.0
         del y2, p2, y1, p1
         label = f"{path or 'edge'} B={batch} {C}->{F} @{vol} p={padding}"
         check(all(math.isfinite(r) and r <= 1e-2 for r in (r2, r1, r_simple)),
@@ -1322,8 +1380,9 @@ def stem_table(gen):
             xc, wc = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous()
             ms = time_ms(lambda: conv3d_zslab_forward(x, w, padding), 3)
             ms_once = time_ms(lambda: conv3d_3x3_forward(x, w, padding), 3)
-            simple = time_ms(lambda: zslab_simple(x, w, padding), 1)
+            simple = time_ms(lambda: simple_forward(x, w, padding), 1)
             plain = plain_ms(lambda: conv3d_zslab_plain(x, w, padding))
+            plain_once = plain_ms(lambda: conv3d_3x3_plain(x, w, padding))
             lib = time_ms(lambda: fn.conv3d(xc, wc, None, 1, padding), 3)
             del xc, wc
             flop_ms, byte_ms = bound_ms(C, F, vol, batch, padding=padding)
@@ -1331,11 +1390,13 @@ def stem_table(gen):
             rows[path] = dict(batch=batch, C=C, F=F, vol=list(vol), padding=padding, ms=ms,
                               once_ms=ms_once, bound_ms=bound,
                               bound_by="operations" if flop_ms >= byte_ms else "bytes",
-                              share=bound / ms, plain_ms=plain, library_ms=lib, simple_ms=simple)
+                              share=bound / ms, plain_ms=plain, once_plain_ms=plain_once,
+                              library_ms=lib, simple_ms=simple)
             if padding == 1:
                 STEM_TIMES[(batch, C, F, vol)] = (ms, plain, lib)
             line += (f"; {ms:.4f} ms per tap, {ms_once:.4f} ms once; bound {bound:.4f} ms "
-                     f"({rows[path]['bound_by']}), {bound / ms:.1%} of it; plain {plain:.3f} ms, "
+                     f"({rows[path]['bound_by']}), {bound / ms:.1%} of it; plain {plain:.3f} ms "
+                     f"(once {plain_once:.3f} ms), "
                      f"F.conv3d {lib:.4f} ms, simple variant {simple:.4f} ms (rel err "
                      f"{r_simple:.3e})")
             check(ms < lib and ms < simple, f"stem {label}: {ms} ms, not below F.conv3d's "
@@ -1391,7 +1452,8 @@ def zconcat_phase(gen, k1_step, k1_infer):
 class LaunchShapes:
     """Records the shape of every kernel launch while it is on: each conv's
     (B, X, Y, Z, C, F) at padding 1, (B, X, Y, Z, C, F, padding) at 0 or 2
-    (the block-sparse route; X, Y, Z the input's), and the moments' (B, X,
+    (the block-sparse route; X, Y, Z the input's), "fp32" after either in
+    float32 (the tf32x3 and simple variants' shapes), and the moments' (B, X,
     Y, Z, C, masked, square_in_dtype). It wraps each module's launch function and leaves the
     launch counts to the wrappers; `paused` is a stretch whose launches (a
     gate's, inside a path's phase) it does not record."""
@@ -1403,7 +1465,8 @@ class LaunchShapes:
         moments_launch = moments_mod._launch
 
         def key(x, w, padding):
-            return (*x.shape, w.shape[-1]) + (() if padding == 1 else (padding,))
+            return ((*x.shape, w.shape[-1]) + (() if padding == 1 else (padding,))
+                    + (("fp32",) if x.dtype == torch.float32 else ()))
 
         def conv(x, w, padding):
             if self.on:
@@ -1429,6 +1492,107 @@ class LaunchShapes:
             yield
         finally:
             self.on = True
+
+
+def fp32_launches(path):
+    """(kernel, C, F, (X, Y, Z), launches a step or volume) of each fp32
+    launch shape of `path` ("pretrain_step": two forwards at B = 4 and the
+    student's dx but at the stem; "inference_volume": 18 tiles of one
+    forward at B = 8)."""
+    sites, n, dx = ((SITES, 2, True) if path == "pretrain_step" else (INFER_SITES, TILES, False))
+    out = {}
+    for i, (_, C, F, vol) in enumerate(sites):
+        key = ("zslab" if per_tap(vol) else "conv3x3", C, F, vol)
+        out[key] = out.get(key, 0) + n
+        if dx and i > 0:  # the stem's input carries no gradient
+            out[("conv3x3", F, C, vol)] = out.get(("conv3x3", F, C, vol), 0) + 1
+    return out
+
+
+FP32_PATHS = {"pretrain_step": BATCH, "inference_volume": TTA_BATCH}  # path -> batch
+
+
+def fp32_gate_phase(gen):
+    """The float32 path's launch shapes (fp32_launches of the B step and of a
+    volume) on the card: each kernel's forward against its plain version
+    (rel. max error <= 1e-5) on the variant the rule picks (tf32x3; the
+    stems simple), then its time beside the simple variant's at the same
+    shape (its C entry point: the kernel tf32x3 replaced), the plain
+    version's (the gate's call), F.conv3d's in fp32 with TF32 off (a
+    yardstick; each time_ms of single calls) and the bound
+    (bound_ms's 3xTF32 form; the FP32 pipe's time beside it). Returns
+    {kernel: (max abs, max rel)}, the times {(path, kernel, C, F, vol): (ms,
+    plain ms, F.conv3d ms, simple ms)} and the launch shapes checked
+    (LaunchShapes' form)."""
+    check_tf32_off("the fp32 gates' F.conv3d yardstick")
+    errs = {"conv3x3": (0.0, 0.0), "zslab": (0.0, 0.0)}
+    checked = {"conv3x3": set(), "zslab": set()}
+    times = {}
+    for path, batch in FP32_PATHS.items():
+        for kernel, C, F, vol in fp32_launches(path):
+            x, w = conv_inputs(C, F, vol, batch, torch.float32, gen)
+            per = kernel == "zslab"
+            fwd, plain = ((conv3d_zslab_forward, conv3d_zslab_plain) if per
+                          else (conv3d_3x3_forward, conv3d_3x3_plain))
+            variant = igemm_variant(x, w)
+            label = f"{path} kernel #{2 if per else 1} B={batch} {C:>4}->{F:<4} @{vol}"
+            check(variant == conv_variant(torch.float32, C, F)
+                  and variant == ("simple" if C < 32 else "tf32x3"),
+                  f"[fp32] {label}: variant {variant}")
+            y_k = fwd(x, w)
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            events[0].record()
+            y_p = plain(x, w)  # the plain version's time: this call's
+            events[1].record()
+            torch.cuda.synchronize()
+            plain_t = events[0].elapsed_time(events[1])
+            r = rel_err(y_k, y_p)
+            a = (y_k - y_p).abs().max().item()
+            del y_k, y_p
+            check(math.isfinite(r) and r <= 1e-5, f"[fp32] {label}: rel error {r} > 1e-5")
+            errs[kernel] = (max(errs[kernel][0], a), max(errs[kernel][1], r))
+            checked[kernel].add((batch, *vol, C, F, "fp32"))
+            xc, wc = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous()
+            ms = time_ms(lambda: fwd(x, w), 1)
+            simple = (ms if variant == "simple"
+                      else time_ms(lambda: simple_forward(x, w, 1, per), 1))
+            lib = time_ms(lambda: fn.conv3d(xc, wc, None, 1, 1), 1)
+            del x, w, xc, wc
+            torch.cuda.empty_cache()
+            times[(path, kernel, C, F, vol)] = (ms, plain_t, lib, simple)
+            flop_ms, byte_ms = bound_ms(C, F, vol, batch, itemsize=4)
+            bound = max(flop_ms, byte_ms)
+            print(f"[fp32] {label} ({variant}): rel err {r:.3e}; {ms:.3f} ms "
+                  f"({conv_flops(C, F, vol, batch) / ms / 1e9:.1f} TFLOP/s), bound "
+                  f"{bound:.3f} ms ({'operations' if flop_ms >= byte_ms else 'bytes'}, 3xTF32), "
+                  f"{bound / ms:.1%} of it, FP32 pipe {fp32_pipe_ms(C, F, vol, batch):.3f} ms; "
+                  f"simple {simple:.3f} ms, plain {plain_t:.3f} ms, F.conv3d (TF32 off) "
+                  f"{lib:.3f} ms")
+    return errs, times, checked
+
+
+FP32_KEYS = TOTAL_KEYS + ("simple_ms", "pipe_ms")
+
+
+def fp32_totals(times):
+    """{(path, kernel): FP32_KEYS totals of one B step or one volume} over the
+    launches the tf32x3 variant runs (the stems, simple in fp32 before and
+    after, under (path, "stem")), from fp32_gate_phase's times."""
+    tot = {}
+    for path, batch in FP32_PATHS.items():
+        for (kernel, C, F, vol), n in fp32_launches(path).items():
+            ms, plain, lib, simple = times[(path, kernel, C, F, vol)]
+            t = tot.setdefault((path, kernel if C >= 32 else "stem"),
+                               dict.fromkeys(FP32_KEYS, 0.0))
+            add_totals(t, n, ms, plain, lib, *bound_ms(C, F, vol, batch, itemsize=4))
+            t["simple_ms"] += n * simple
+            t["pipe_ms"] += n * fp32_pipe_ms(C, F, vol, batch)
+    for (path, kernel), t in tot.items():
+        print(f"[fp32] {path} {kernel} total: {t['ms']:.3f} ms, simple {t['simple_ms']:.3f} ms "
+              f"({t['simple_ms'] / t['ms']:.2f}x), F.conv3d (TF32 off) {t['library_ms']:.3f} ms, "
+              f"bound {t['bound_ms']:.3f} ms (3xTF32; FP32 pipe {t['pipe_ms']:.3f}), plain "
+              f"{t['plain_ms']:.3f} ms")
+    return tot
 
 
 def reference_phase():
@@ -1577,20 +1741,80 @@ def remat_phase():
     return worst
 
 
-def slice_phase(block=False):
+def tf32_defaults():
+    """PyTorch's default TF32 flags: cuDNN's float32 convolutions in TF32,
+    cuBLAS's float32 matmuls not."""
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+
+
+def check_tf32_off(what):
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          f"{what} left TF32 on (cuDNN {torch.backends.cudnn.allow_tf32}, cuBLAS "
+          f"{torch.backends.cuda.matmul.allow_tf32})")
+
+
+def tf32_gap(student, teacher, x, len_loss, gen):
+    """What the port's TF32 repair changes in the fp32 step: the step's first
+    step run on copies of its weights and draws (a fresh optimizer, as the
+    step's), once with PyTorch's default flags set back (cuDNN in TF32) and
+    once as the port runs it (TF32 off). Returns a function that, given the
+    real first step's loss and student, prints each copy's relative
+    distance from it: the loss's, and the clipped gradients' (the
+    largest difference over all leaves against the largest gradient). The
+    TF32 copy's is the fault's size, the other's the run-to-run spread
+    (cuDNN's atomics in dw). Fails on a non-finite distance."""
+    copies = {}
+    state = gen.get_state()
+    for label, tf32 in (("cuDNN in TF32 (PyTorch's default)", True), ("TF32 off, again", False)):
+        s, t = copy.deepcopy(student), copy.deepcopy(teacher)
+        g = torch.Generator(device="cuda")
+        g.set_state(state)
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            loss, _, _ = anatomask_train_step(s, t, make_optimizer(s), x, len_loss, g)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        copies[label] = (loss.item(), [p.grad.detach().clone() for p in s.parameters()])
+        del s, t
+    free_memory()
+
+    def gap(loss, model):
+        ref = [p.grad.detach() for p in model.parameters()]
+        scale = max(g.abs().max().item() for g in ref)
+        out = {label: (abs(v - loss.item()) / abs(loss.item()),
+                       max((a - b).abs().max().item() for a, b in zip(grads, ref)) / scale)
+               for label, (v, grads) in copies.items()}
+        print("[fp32 step] the first step against copies of it: " + "; ".join(
+            f"{label}: loss {d_loss:.3e} relative, gradients {d_grad:.3e} of the largest"
+            for label, (d_loss, d_grad) in out.items()))
+        check(all(math.isfinite(v) for d in out.values() for v in d), f"TF32 gaps {out}")
+
+    return gap
+
+
+def slice_phase(block=False, dtype="bfloat16"):
     """5 AnatoMask steps at full STUNet-B width, the dense route or with
     `block` the block-sparse one (ATK_BLOCK_SPARSE=1 set by the caller), from
-    the same seeded weights and draws. Returns the launches of the 5 steps,
-    the step ms (median of steps 3-5), the peak memory and the losses."""
-    tag = "[block]" if block else "[slice]"
+    the same seeded weights and draws, in `dtype` (float32: the model built
+    after PyTorch's default TF32 flags are set back, which the port's setup
+    must turn off; then tf32_gap on the first step). Returns the launches of
+    the 5 steps, the step ms (median of steps 3-5), the peak memory and the
+    losses."""
+    fp32 = dtype == "float32"
+    tag = "[block]" if block else "[fp32 step]" if fp32 else "[slice]"
     want_pads = BLOCK_STEP_PADDINGS if block else STEP_PADDINGS
-    cfg = PretrainConfig()
+    want_launches = FP32_STEP_LAUNCHES if fp32 else STEP_LAUNCHES
+    cfg = PretrainConfig(compute_dtype=dtype)
+    if fp32:
+        tf32_defaults()
     student = build_spark_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    if fp32:
+        check_tf32_off(f"{tag} build_spark_model")
     teacher = make_teacher(student)
     optimizer = make_optimizer(student)
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.rand((BATCH, 1, *cfg.patch_size), generator=gen, device="cuda")
-    x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+    x = x.to(student.dtype).contiguous(memory_format=torch.channels_last_3d)
     L = math.prod(student.fmap)
     len_loss = int((L - student.len_keep) * 0.25)
     check(student.fmap == FMAP and student.len_keep == LEN_KEEP and len_loss == 58,
@@ -1600,8 +1824,9 @@ def slice_phase(block=False):
     n_block = encoder._block_stage_count(x, torch.ones((1, 1, *FMAP), dtype=torch.bool))
     check(n_block == (2 if block else 0), f"{tag} block-sparse stages {n_block}")
     print(f"{tag} STUNet-B SparK, {n_params} parameters, patch {cfg.patch_size}, "
-          f"batch {BATCH}, bf16; fmap {student.fmap}, keep {student.len_keep}, "
+          f"batch {BATCH}, {dtype}; fmap {student.fmap}, keep {student.len_keep}, "
           f"forced {len_loss}, block-sparse stages {n_block}")
+    gap = tf32_gap(student, teacher, x, len_loss, gen) if fp32 else None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times, losses = [], []
@@ -1616,6 +1841,8 @@ def slice_phase(block=False):
                                                     len_loss, gen)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+        if gap is not None and step == 0:
+            gap(loss, student)
         losses.append(loss.item())
         check(math.isfinite(losses[-1]), f"step {step}: loss {losses[-1]}")
         hard = hard.reshape(BATCH, L)
@@ -1624,10 +1851,11 @@ def slice_phase(block=False):
         top = torch.topk(loss_map, len_loss, dim=1).indices
         check(not torch.gather(hard, 1, top).any(), f"step {step}: a forced patch is kept")
         # two forwards (teacher, student) of 17 convs and 22 norms and the
-        # student's dx: 34 on kernel #1, all hopper; 16 on kernel #2, of which
-        # the stem's two (C = 1) on the stem variant; 44 moments
+        # student's dx: 34 on kernel #1, all hopper (fp32: tf32x3); 16 on
+        # kernel #2, of which the stem's two (C = 1) on the stem variant (fp32:
+        # simple); 44 moments
         n = since(before)
-        check(n == STEP_LAUNCHES, f"step {step}: launches {n}, expected {STEP_LAUNCHES}")
+        check(n == want_launches, f"{tag} step {step}: launches {n}, expected {want_launches}")
         n_pad = {k: v - pads[k] for k, v in padding_counts().items()}
         check(n_pad == want_pads, f"{tag} step {step}: launches by padding {n_pad}, "
               f"expected {want_pads}")
@@ -1931,8 +2159,14 @@ def inference_reference_phase():
     return worst
 
 
-def inference_phase():
-    """bench_inference.py's configuration through the Predictor."""
+def inference_phase(dtype=torch.bfloat16, volumes=VOLUMES):
+    """bench_inference.py's configuration through the Predictor, in `dtype`
+    (float32: `predict -compute_dtype float32`, the Predictor built after
+    PyTorch's default TF32 flags are set back; its setup must turn them
+    off), `volumes` volumes, the first a warm-up where there are more."""
+    fp32 = dtype == torch.float32
+    tag = "[fp32 volume]" if fp32 else "[inference]"
+    want_tile = FP32_TILE_LAUNCHES if fp32 else TILE_LAUNCHES
     plans = {"dataset_name": "Dataset000_BraTSLike", "plans_name": "chipSmokePlans",
              "configurations": {"3d_fullres": {
                  "patch_size": list(PATCH), "UNet_class_name": "STUNet-B",
@@ -1942,23 +2176,27 @@ def inference_phase():
     pm = PlansManager(plans)
     cm = pm.get_configuration("3d_fullres")
     net = build_network_from_plans(pm, cm, 1, NUM_CLASSES, deep_supervision=False,
-                                   dtype=torch.bfloat16, device="cuda",
+                                   dtype=dtype, device="cuda",
                                    generator=torch.Generator().manual_seed(0))
+    if fp32:
+        tf32_defaults()
     predictor = Predictor(tile_step_size=0.5, use_mirroring=True, tile_batch_size=1,
-                          dtype=torch.bfloat16, device="cuda")
+                          dtype=dtype, device="cuda")
+    if fp32:
+        check_tf32_off(f"{tag} Predictor(dtype=torch.float32)")
     predictor.manual_initialization(net, pm, cm, [net.state_dict()], dataset_json, (0, 1, 2))
     tiles = math.prod(len(s) for s in compute_steps_for_sliding_window(VOLUME, PATCH, 0.5))
     check(tiles == TILES, f"{tiles} tiles, expected {TILES}")
     n_params = sum(p.numel() for p in net.parameters())
-    print(f"[inference] STUNet-B, {n_params} parameters, volume {VOLUME}, patch {PATCH}, "
-          f"{tiles} tiles, 8-flip TTA, tile batch 1, bf16")
+    print(f"{tag} STUNet-B, {n_params} parameters, volume {VOLUME}, patch {PATCH}, "
+          f"{tiles} tiles, 8-flip TTA, tile batch 1, {str(dtype)[6:]}")
     data = np.random.RandomState(0).rand(1, *VOLUME).astype(np.float32)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times, first = [], None
     # counts from here on belong to the inference path
     zero_counts()
-    for v in range(VOLUMES):
+    for v in range(volumes):
         before = counts()
         t0 = time.perf_counter()
         logits = predictor.predict_sliding_window_return_logits(data)
@@ -1967,19 +2205,19 @@ def inference_phase():
         check(logits.shape == (NUM_CLASSES, *VOLUME), f"volume {v}: logits {logits.shape}")
         check(bool(np.isfinite(logits).all()), f"volume {v}: non-finite logits")
         # a tile: 7 convs on kernel #1, 10 on kernel #2 (the stem on the stem
-        # variant), 22 norms
-        want = {k: TILES * n_tile for k, n_tile in TILE_LAUNCHES.items()}
-        check(n == want, f"volume {v}: launches {n}, expected {want}")
+        # variant; fp32: tf32x3, the stem simple), 22 norms
+        want = {k: TILES * n_tile for k, n_tile in want_tile.items()}
+        check(n == want, f"{tag} volume {v}: launches {n}, expected {want}")
         first = logits if first is None else first
-        print(f"[inference] volume {v}: {times[-1]:.3f} s, launches {n}, logits mean "
+        print(f"{tag} volume {v}: {times[-1]:.3f} s, launches {n}, logits mean "
               f"{float(logits.mean()):.6f}, max |diff| to volume 0 "
               f"{float(np.abs(logits - first).max()):.3e}")
     launches = counts()
-    volume_s = statistics.median(times[1:])
+    volume_s = statistics.median(times[1:] or times)
     peak = torch.cuda.max_memory_allocated()
-    print(f"[inference] {volume_s:.3f} s a volume (median of {VOLUMES - 1}), "
+    print(f"{tag} {volume_s:.3f} s a volume (median of {max(1, volumes - 1)}), "
           f"{1 / volume_s:.4f} volumes/s, {TILES / volume_s:.2f} tiles/s, peak memory "
-          f"{peak / 2**30:.2f} GiB ({peak} bytes), launches in {VOLUMES} volumes {launches}")
+          f"{peak / 2**30:.2f} GiB ({peak} bytes), launches in {volumes} volumes {launches}")
     return launches
 
 
@@ -2051,15 +2289,22 @@ def check_cache_slots(cache):
         check(torch.equal(cache.cache[s].cpu(), want), f"slot {s} does not hold {meta.key}")
 
 
-def trainer_phase(bare_step_ms, keep):
+def trainer_phase(bare_step_ms, keep, fp32_step_ms):
     """PretrainTrainer.run_pretraining at full STUNet-B width: 2 epochs x 5
     iterations with the GPU case cache, then a resume from checkpoint_latest
     for 1 epoch x 2 iterations through the host pipeline, then one for 1
-    epoch x 6 iterations with a case cache that refills. Returns the launch
-    counts of the three runs; the last run's checkpoint_final.pt is copied to
+    epoch x 6 iterations with a case cache that refills; then a float32 run
+    (compute_dtype="float32", `pretrain -compute_dtype float32`) on the same
+    cases, 1 epoch x FP32_TRAINER_ITERS with the case cache, its trainer
+    built after PyTorch's default TF32 flags are set back (its setup must
+    turn them off). Returns the launch counts of the three bf16 runs and of
+    the float32 run; the last bf16 run's checkpoint_final.pt is copied to
     `keep` for the supervised phase."""
     with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
         write_trainer_dataset(root)
+        print(f"[trainer] {TRAINER_CASES} cases of {TRAINER_CASE_SHAPE} written in "
+              f"{time.perf_counter() - t0:.1f} s")
         for which in ("preprocessed", "results"):
             os.environ[f"ATK_{which}"] = os.path.join(root, which)
         cfg = PretrainConfig(method="anatomask", batch_size=BATCH, num_epochs=TRAINER_EPOCHS,
@@ -2115,7 +2360,34 @@ def trainer_phase(bare_step_ms, keep):
               f"{e['fetch_wait']:.3f} s, val {e['val']:.3f} s); losses {history3}; peak memory "
               f"{peak3 / 2**30:.2f} GiB; launches {launches3}")
         shutil.copy(os.path.join(t3.output_folder, "checkpoint_final.pt"), keep)
-    return {k: launches[k] + launches2[k] + launches3[k] for k in COUNT_KEYS}
+        del t3, cache
+        free_memory()
+
+        fp32 = replace(cfg, compute_dtype="float32", num_epochs=1,
+                       iters_per_epoch=FP32_TRAINER_ITERS)
+        tf32_defaults()
+        t0 = time.perf_counter()
+        t4 = PretrainTrainer(TRAINER_DATASET, fp32, device="cuda",
+                             output_folder=os.path.join(root, "fp32"))
+        check_tf32_off("[trainer] PretrainTrainer(compute_dtype='float32')")
+        built = time.perf_counter() - t0
+        t4, history4, launches4, peak4 = trainer_run(fp32, trainer=t4, step=FP32_STEP_LAUNCHES,
+                                                     val=FP32_VAL_LAUNCHES)
+        ran = time.perf_counter() - t0 - built
+        check(t4.dtype == torch.float32 and os.path.isfile(
+            os.path.join(t4.output_folder, "checkpoint_final.pt")),
+              f"float32 run: dtype {t4.dtype}, no checkpoint_final.pt")
+        e = t4.epoch_timings[-1]
+        print(f"[trainer] float32, TF32 off: trainer built in {built:.1f} s, run_pretraining "
+              f"{ran:.1f} s; 1 epoch x {FP32_TRAINER_ITERS} iterations, case "
+              f"cache {t4.device_cache.num_slots} slots of {t4.device_cache.slot_shape} "
+              f"{t4.device_cache.dtype}; {e['total']:.3f} s (train {e['train']:.3f} s, "
+              f"fetch-wait {e['fetch_wait']:.3f} s, val {e['val']:.3f} s, checkpoint "
+              f"{e['ckpt']:.3f} s), {e['train'] / FP32_TRAINER_ITERS * 1e3:.1f} ms a step "
+              f"through the trainer (bare fp32 step {fp32_step_ms:.1f} ms); losses {history4}; "
+              f"peak memory {peak4 / 2**30:.2f} GiB ({peak4} bytes); launches {launches4}")
+        del t4
+    return {k: launches[k] + launches2[k] + launches3[k] for k in COUNT_KEYS}, launches4
 
 
 def plain_unet_plans():
@@ -2560,7 +2832,8 @@ def kernel_group(name):
     """A device kernel's group in a step's split: the port's three kernels
     (the conv's PER_TAP instantiations are kernel #2), the library's
     convolutions and matmuls (cuDNN, cuBLAS), the rest by what it does."""
-    if "conv3x3_wgmma" in name or "conv3x3_kernel" in name:  # PER_TAP: kernel #2
+    if any(k in name for k in ("conv3x3_wgmma", "conv3x3_tf32x3", "conv3x3_kernel")):
+        # PER_TAP: kernel #2
         return "kernel #2" if "Lb1E" in name or "true>" in name else "kernel #1"
     rules = (("moments", "kernel #3"), ("xmma", "cuDNN/cuBLAS conv and matmul"),
              ("gemm", "cuDNN/cuBLAS conv and matmul"), ("conv", "cuDNN/cuBLAS conv and matmul"),
@@ -2576,7 +2849,8 @@ def kernel_group(name):
 def profile_steps(step, n):
     """torch.profiler over n calls of `step` after a synchronize: device ms a
     call by kernel group, the device's busy ms a call (the sum of its
-    kernels), and the host's wall ms a call."""
+    kernels), the host's wall ms a call, and the three largest kernels of
+    the group "other" by name."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2585,15 +2859,20 @@ def profile_steps(step, n):
             step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
-    groups = {}
+    groups, other = {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             g = kernel_group(e.name)
-            groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+            ms = e.time_range.elapsed_us() / 1e3 / n
+            groups[g] = groups.get(g, 0.0) + ms
+            if g == "other":
+                other[e.name[:60]] = other.get(e.name[:60], 0.0) + ms
     busy = sum(groups.values())
     top = sorted(groups.items(), key=lambda kv: -kv[1])
+    named = sorted(other.items(), key=lambda kv: -kv[1])[:3]
     return (f"wall {wall:.1f} ms a step, device busy {busy:.1f} ms ({busy / wall:.0%}); "
-            + ", ".join(f"{g} {ms:.2f}" for g, ms in top))
+            + ", ".join(f"{g} {ms:.2f}" for g, ms in top)
+            + "; other's largest: " + ", ".join(f"{k} {ms:.2f}" for k, ms in named))
 
 
 def sup_run(trainer, **kw):
@@ -4385,11 +4664,20 @@ def main():
                         max(mom_rel, block_errs["moments"][1]))
     block_tot = block_step_totals(k1_step, zc_timed, mom_timed, block_times)
     free_memory()
+    # its own generator: the later phases draw as before
+    fp32_errs, fp32_times, fp32_checked = fp32_gate_phase(
+        torch.Generator(device="cuda").manual_seed(16))
+    fp32_tot = fp32_totals(fp32_times)
+    free_memory()
     mark("kernel phases")
     prep_dir = tempfile.TemporaryDirectory()
     prep = (start_prepare(prep_dir.name), prep_dir.name)
 
+    tf32_defaults()  # PyTorch's own flags: the port's fp32 setup must turn TF32 off
     reference_phase()
+    check_tf32_off("reference_phase (build_spark_model at float32)")
+    print("[slice] PyTorch's default TF32 flags set back before the reference phase: its "
+          "float32 models' setup turned TF32 off for cuDNN and cuBLAS")
     remat_phase()
     inference_reference_phase()
     free_memory()
@@ -4400,10 +4688,16 @@ def main():
     block_launches, _, _ = block_step_phase(bare_step_ms, dense_losses, shapes)
     free_memory()
     mark("slice and block step phases")
+    fp32_pretrain, fp32_step_ms, _, _ = slice_phase(dtype="float32")
+    free_memory()
+    mark("fp32 step phase")
     inference = inference_phase()
     free_memory()
     mark("inference phase")
-    trainer = trainer_phase(bare_step_ms, pretrained)
+    fp32_volume = inference_phase(torch.float32, volumes=1)
+    free_memory()
+    mark("fp32 volume phase")
+    trainer, fp32_trainer = trainer_phase(bare_step_ms, pretrained, fp32_step_ms)
     free_memory()
     mark("trainer phase")
     with tempfile.TemporaryDirectory() as root:
@@ -4430,7 +4724,7 @@ def main():
     free_memory()
     mark("H trainer and transfer phases")
     checked = {k: v | sup_checked[k] | h_checked[k] | block_checked[k]
-               | stem_checked.get(k, set())
+               | stem_checked.get(k, set()) | fp32_checked.get(k, set())
                for k, v in (("conv3x3", conv_checked), ("zslab", zc_checked),
                             ("moments", mom_checked))}
     cli_launches, cli_errs, cli_step, cli_case = cli_phase(prep, gen, checked, shapes)
@@ -4472,7 +4766,8 @@ def main():
             "da5_trainer": da5_trainer, "pretrain_h": h_pretrain,
             "pretrain_h_trainer": h_trainer, "finetune_h": h_finetune, "cli": cli_launches,
             "cascade": casc_launches, "ddp": ddp_launches, "multinode": multinode_launches,
-            "block_step": block_launches}
+            "block_step": block_launches, "fp32_pretrain": fp32_pretrain,
+            "fp32_volume": fp32_volume, "fp32_trainer": fp32_trainer}
     per = ("one pretraining step (B = 4), one inference volume (18 STUNet-B tiles at B = 8), "
            f"one case of the file path ({case_tiles} PlainConvUNet tiles at B = 8), one "
            "STUNet-B finetuning step and one ATKTrainer PlainConvUNet step (B = 2), one "
@@ -4569,8 +4864,41 @@ def main():
         moments_record,
         zslab_record,
     ]
+    # the float32 path's variant of kernels #1 and #2: its launches in the
+    # fp32 runs (the B step's 5, the volumes, the PretrainTrainer run), its
+    # times over one B step and one volume from the fp32 gates
+    fp32_per = ("the tf32x3 variant's launches on the float32 path: one pretraining step (B = "
+                "4: two forwards, the student's dx) and one inference volume (18 STUNet-B tiles "
+                "at B = 8); launches_by_path counts the fp32 step phase's 5 steps, its 2 "
+                "volumes (one a warm-up) and the float32 PretrainTrainer run; simple_ms is the "
+                "simple variant it replaced at the same shapes (its C entry point), pipe_ms the "
+                "products at the FP32 pipe's 67 TFLOP/s, bound_ms three TF32 products a term at "
+                "495 TFLOP/s (or the bytes at 3.35 TB/s); library_ms F.conv3d in fp32 with TF32 "
+                "off")
+    fp32_runs = {"fp32_pretrain": fp32_pretrain, "fp32_volume": fp32_volume,
+                 "fp32_trainer": fp32_trainer}
+    for kernel, name, source, replaces in (
+            ("conv3x3", "conv3d_3x3.tf32x3", "anatomask_torch/csrc/conv3x3.cu",
+             "anatomask_tpu/ops/pallas_conv.py:108"),
+            ("zslab", "conv3d_zslab.tf32x3", "anatomask_torch/csrc/zslab_conv.cu",
+             "anatomask_tpu/ops/pallas_zslab_conv.py:142")):
+        paths = {p: fp32_tot[(p, kernel)] for p in FP32_PATHS}
+        rec = kernel_record(name, source, replaces,
+                            {p: c[f"{kernel}.tf32x3"] for p, c in fp32_runs.items()},
+                            *fp32_errs[kernel], paths, fp32_per,
+                            {v: sum(c[f"{kernel}.{v}"] for c in fp32_runs.values())
+                             for v in VARIANTS})
+        rec["simple_ms"] = sum(t["simple_ms"] for t in paths.values())
+        rec["pipe_ms"] = sum(t["pipe_ms"] for t in paths.values())
+        for p, t in paths.items():
+            rec["by_path"][p].update(simple_ms=t["simple_ms"], pipe_ms=t["pipe_ms"])
+        kernels.append(rec)
     kernels[0]["stem"] = {"launches_by_path": {p: c["conv3x3.stem"] for p, c in runs.items()},
-                          "once_ms_by_shape": {p: r["once_ms"] for p, r in stem_rows.items()}}
+                          "once_ms_by_shape": {p: r["once_ms"] for p, r in stem_rows.items()},
+                          "once_plain_ms_by_shape": {p: r["once_plain_ms"]
+                                                     for p, r in stem_rows.items()},
+                          "library_ms_by_shape": {p: r["library_ms"]
+                                                  for p, r in stem_rows.items()}}
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

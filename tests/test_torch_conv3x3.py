@@ -122,7 +122,7 @@ def _unaligned(shape, dtype):
 
 @pytest.mark.parametrize("case,variant", [
     ("bf16 C=F=32", "hopper"), ("bf16 C=1024 F=512", "hopper"), ("bf16 C=96 F=160", "hopper"),
-    ("fp32 C=F=64", "simple"), ("bf16 C=1 (stem)", "stem"), ("bf16 F=12", "simple"),
+    ("fp32 C=F=64", "tf32x3"), ("bf16 C=1 (stem)", "stem"), ("bf16 F=12", "simple"),
     ("bf16 C=48", "simple"), ("bf16 unaligned x", "simple")])
 def test_igemm_variant(case, variant):
     dtype = torch.float32 if case.startswith("fp32") else torch.bfloat16

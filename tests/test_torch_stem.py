@@ -118,7 +118,8 @@ RULE_CASES = (
     + [((torch.bfloat16, C, F, True), "simple") for C, F in ((STEM_MAX_C + 1, 32), (1, 8),
                                                               (1, 24), (4, STEM_MAX_F + 16),
                                                               (1, 128), (32, 1), (32, 16))]
-    + [((torch.float32, C, F, True), "simple") for C, F in ((1, 32), (4, 32), (32, 32))]
+    + [((torch.float32, C, F, True), "simple") for C, F in ((1, 32), (4, 32))]
+    + [((torch.float32, 32, 32, True), "tf32x3")]
     + [((torch.bfloat16, 32, 32, True), "hopper"), ((torch.bfloat16, 32, 32, False), "simple"),
        ((torch.bfloat16, 64, 96, True), "hopper")])
 

@@ -1,7 +1,10 @@
-"""Where kernel #2 (the per-tap rounded 3x3x3 conv, ops/zslab_conv.py) and its
-plain version part, and why: a second witness for chip_smoke.py's bf16 gate
-(relative max error <= 1e-2 against conv3d_zslab_plain) at the STUNet-H
-192 -> 192 launch shapes.
+"""Where the conv kernels and their plain versions part from a float64
+reference, and why. First kernel #2 (the per-tap rounded 3x3x3 conv,
+ops/zslab_conv.py): a second witness for chip_smoke.py's bf16 gate (relative
+max error <= 1e-2 against conv3d_zslab_plain) at the STUNet-H 192 -> 192
+launch shapes; modes `fp32` and `k1h` (below) hold the float32 path's
+tf32x3 variant of both kernels and kernel #1's bf16 hopper variant to float64
+in the same way.
 
 Each draw holds three implementations of the same function on the same
 input against a float64 reference, y* = bf16(bf16(t0 + t1) + t2) with each
@@ -37,6 +40,14 @@ Modes (on the card; the kernels are built from csrc/ at the first launch):
         # path shapes, one or more for each hopper tile
     python tests/torch_zslab_roundoff.py variants # the hopper variant built at
         # several promotion intervals: accuracy on seed 20 and ms at those shapes
+    python tests/torch_zslab_roundoff.py fp32     # both kernels in float32 at
+        # every tf32x3 launch shape of the B step and of a volume tile: the
+        # tf32x3 variant, the simple variant and the plain version against a
+        # float64 reference of each kernel's function; tf32x3 must stay within
+        # twice the plain version's distance (FP32_LIMIT)
+    python tests/torch_zslab_roundoff.py k1h      # kernel #1's bf16 hopper
+        # variant (one rounding) at the STUNet-H step's kernel #1 shapes
+        # against the float64 sum rounded once to bf16, beside the plain version
 
 Modes run in the order given.
 """
@@ -106,7 +117,7 @@ def ulp_stats(a, ref):
 
 
 def simple(x, w):
-    return cs.zslab_simple(x, w, 1)
+    return cs.simple_forward(x, w, 1)
 
 
 IMPLS = (("hopper", conv3d_zslab_forward), ("simple", simple), ("plain", conv3d_zslab_plain))
@@ -354,6 +365,118 @@ def variants(groups=(1, 2, 3, 4, 6, 9, 1000)):
     cs.conv_mod._entry.cache_clear()
 
 
+def conv64(x, w, first_axis=None):
+    """The float64 conv of x (NDHWC) by w (DHWIO) at padding 1, as NDHWC;
+    with `first_axis` d, that first-axis tap's alone (a (1, 3, 3) conv of
+    the input shifted by d - 1 along the first axis)."""
+    xc = x.permute(0, 4, 1, 2, 3).double()
+    wc = w.permute(4, 3, 0, 1, 2).double()
+    if first_axis is None:
+        y = torch.nn.functional.conv3d(xc, wc, padding=1)
+    else:
+        D = x.shape[1]
+        xp = torch.nn.functional.pad(xc, (0, 0, 0, 0, 1, 1))[:, :, first_axis:first_axis + D]
+        y = torch.nn.functional.conv3d(xp, wc[:, :, first_axis:first_axis + 1], padding=(0, 1, 1))
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def fp32_reference(x, w, per_tap):
+    """Kernel #1's function from float64 (the 27 * C products summed in
+    float64, rounded once to fp32) or, `per_tap`, kernel #2's (each
+    first-axis tap's 9 * C products summed in float64 and rounded to fp32,
+    the three taps added in fp32 in the order 0, 1, 2)."""
+    if not per_tap:
+        return conv64(x, w).float()
+    t = [conv64(x, w, d).float() for d in range(3)]
+    return (t[0] + t[1]) + t[2]
+
+
+def rel_stats(y, ref):
+    """(largest |y - ref| against the largest |ref|, root mean square of y -
+    ref against that of ref)."""
+    d = (y.double() - ref.double())
+    return (d.abs().max() / ref.double().abs().max()).item(), \
+        (d.square().mean().sqrt() / ref.double().square().mean().sqrt()).item()
+
+
+FP32_LIMIT = 2.0  # tf32x3's distance from float64 at most this many times the plain version's
+
+
+def fp32(seed=0):
+    """Both kernels' tf32x3 variant, their simple variant and their plain
+    versions against fp32_reference at every tf32x3 launch shape of the
+    float32 B step and volume tile (chip_smoke.fp32_launches), inputs as
+    chip_smoke.py draws them."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    worst, failed = 0.0, []
+    for path, batch in cs.FP32_PATHS.items():
+        for kernel, C, F, vol in cs.fp32_launches(path):
+            if C < 32:  # the stems: simple in fp32
+                continue
+            per = kernel == "zslab"
+            x, w = cs.conv_inputs(C, F, vol, batch, torch.float32, gen)
+            ref = fp32_reference(x, w, per)
+            fwd, plain = ((conv3d_zslab_forward, conv3d_zslab_plain) if per
+                          else (cs.conv3d_3x3_forward, cs.conv3d_3x3_plain))
+            stats = {"tf32x3": rel_stats(fwd(x, w), ref),
+                     "simple": rel_stats(cs.simple_forward(x, w, 1, per), ref),
+                     "plain": rel_stats(plain(x, w), ref)}
+            ratio = stats["tf32x3"][0] / stats["plain"][0]
+            worst = max(worst, ratio)
+            if ratio > FP32_LIMIT:
+                failed.append((path, kernel, C, F, vol))
+            print(f"[fp32] {path} kernel #{2 if per else 1} B={batch} {C}->{F} @{vol}: "
+                  f"distance from float64 (max, rms relative): "
+                  + ", ".join(f"{k} {m:.3e} {r:.3e}" for k, (m, r) in stats.items())
+                  + f"; tf32x3 / plain {ratio:.3f}", flush=True)
+            del x, w, ref
+            torch.cuda.empty_cache()
+    print(f"[fp32] tf32x3 at most {worst:.3f} x the plain version's distance from float64 "
+          f"(limit {FP32_LIMIT}); shapes over it: {failed}")
+
+
+def k1_h_shapes():
+    """(B, C, F, (X, Y, Z)) of kernel #1's launches in the STUNet-H step
+    (microbatch B = 2): the forwards below MIN_VOLUME voxels and every dx."""
+    out = []
+    for i, (_, C, F, vol) in enumerate(cs.H_SITES):
+        keys = [] if cs.per_tap(vol) else [(C, F)]
+        if i > 0:
+            keys.append((F, C))
+        for c, f in keys:
+            if (cs.H_MICRO, c, f, vol) not in out:
+                out.append((cs.H_MICRO, c, f, vol))
+    return out
+
+
+def k1_reference(x, w):
+    """bf16(the float64 sum of the 27 * C products), rounded once."""
+    return round_bf16_64(conv64(x, w)).to(torch.bfloat16)
+
+
+def k1h(seed=0):
+    """Kernel #1's bf16 hopper variant at k1_h_shapes against k1_reference:
+    the share of elements that round to another bf16 value than the float64
+    sum, and the largest distance in ulps, beside the plain version's (fp32
+    sums on cuBLAS, rounded once). ROADMAP.md section 3's check of kernel #1's
+    chain of 27 * C products on wgmma."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for batch, C, F, vol in k1_h_shapes():
+        x, w = cs.conv_inputs(C, F, vol, batch, torch.bfloat16, gen)
+        ref = k1_reference(x, w)
+        line = []
+        for name, f in (("hopper", cs.conv3d_3x3_forward), ("plain", cs.conv3d_3x3_plain)):
+            y = f(x, w)
+            u, _, n1, n2 = ulp_stats(y, ref)
+            line.append(f"{name} {(n1 + n2) / y.numel():.3e} of {y.numel()} rounded otherwise "
+                        f"(max {u:g} ulp, {n2} at >= 2)")
+            del y
+        print(f"[k1h] B={batch} {C}->{F} @{vol} (K = {27 * C}, "
+              f"{cs.igemm_variant(x, w)}): " + "; ".join(line), flush=True)
+        del x, w, ref
+        torch.cuda.empty_cache()
+
+
 def replay():
     stash = {}
     failures = []
@@ -400,7 +523,7 @@ def main():
     print(f"[device] {cs.gpu_line()}", flush=True)
     for mode in sys.argv[1:] or ["search"]:
         {"search": search, "replay": replay, "taps": taps, "time": time,
-         "variants": variants}[mode]()
+         "variants": variants, "fp32": fp32, "k1h": k1h}[mode]()
     return 0
 
 
