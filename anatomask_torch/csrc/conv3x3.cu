@@ -16,10 +16,10 @@
 // C and F multiples of 32 runs the hopper variant of conv3x3_igemm.cuh (a
 // cp.async ring feeding wgmma, 128 x BN tiles), every fp32 one its tf32x3
 // variant (the same ring, each product as three TF32 ones, summed in fp32
-// every 32 channels of K); the bf16 stems (C <= 8, F a multiple of 16 up to
-// 96), bound by bytes, run the stem variant of conv3x3_stem.cuh; the fp32
-// stems and every other shape the simple variant. The measured gap is recorded
-// in PERF.md.
+// every 32 channels of K); the stems (C <= 8, F a multiple of 16 up to 96),
+// bound by bytes, run the stem variant of conv3x3_stem.cuh (bf16 on wgmma,
+// fp32 on the FP32 pipe); every other shape the simple variant. The measured
+// gap is recorded in PERF.md.
 
 #include "conv3x3_igemm.cuh"
 #include "conv3x3_stem.cuh"
@@ -46,9 +46,10 @@ extern "C" int conv3x3_forward_tf32x3(const void* x, const void* wt, void* y, in
   return conv3x3_igemm::tf32x3::launch<false>(x, wt, y, B, X, Y, Z, C, F, p, bn, stream);
 }
 
-// The stem variant (bf16, 1 <= C <= 8, w = the (3 * KT, F) weight of
-// pack_weight "stem"); see conv3x3_stem::launch for the arguments.
+// The stem variant (1 <= C <= 8, w = the (F, 3 * KT) weight of pack_weight
+// "stem"; dtype 0 = float32 on the FP32 pipe, 1 = bfloat16 on wgmma, as the
+// simple variant's entry takes it); see conv3x3_stem::launch for the arguments.
 extern "C" int conv3x3_forward_stem(const void* x, const void* w, void* y, int B, int X, int Y,
-                                    int Z, int C, int F, int p, void* stream) {
-  return conv3x3_stem::launch<false>(x, w, y, B, X, Y, Z, C, F, p, stream);
+                                    int Z, int C, int F, int p, int dtype, void* stream) {
+  return conv3x3_stem::launch<false>(x, w, y, B, X, Y, Z, C, F, p, dtype, stream);
 }

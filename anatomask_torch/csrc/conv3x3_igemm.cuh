@@ -19,9 +19,9 @@
 // by operations: 989 TFLOP/s bf16 on the tensor cores, reachable only through
 // wgmma. In fp32 the FP32 pipe gives 67 TFLOP/s; the tensor cores' 495 TFLOP/s
 // of TF32 keep 11 significant bits, so a product accurate to fp32 takes three
-// of them (below): 165 TFLOP/s. Three variants here, and the bf16 stems (C <=
-// 8, bound by bytes) in conv3x3_stem.cuh; ops/conv3x3.py `conv_variant` picks
-// one from dtype, shape and alignment alone:
+// of them (below): 165 TFLOP/s. Three variants here, and the stems of both
+// dtypes (C <= 8, bound by bytes) in conv3x3_stem.cuh; ops/conv3x3.py
+// `conv_variant` picks one from dtype, shape and alignment alone:
 //
 // hopper (namespace hopper): bf16 with C % 32 == 0, F % 32 == 0 and 16-byte
 //   aligned pointers, the weight repacked K-major to (F, 27*C). A 256-thread
@@ -38,16 +38,24 @@
 //   in-volume taps are computed once a block, and so are the two wgmma
 //   descriptors; a K step advances a (tap, channel) counter, reads one tap
 //   offset and adds a stage offset to the descriptors (no division).
-//   PER_TAP rounds in registers: once a tap's last products retire (waited
-//   for after the next step's copies are issued), the tap's fp32 sum is
-//   rounded to bf16 and added, in fp32 then rounded, to a running sum held as
-//   packed bf16x2. The tensor cores' fp32 accumulation drifts over a long
-//   chain of products (the taps of a 9C = 1728 chain rounded to the other
-//   bf16 value 4.3x as often as a round-to-nearest fp32 sum, 63% of them
-//   toward zero), and each tap's sum is rounded, so PER_TAP chains PROMOTE K
-//   steps at a time from scale-d = 0 and adds each group to the tap's sum on
-//   the FP32 pipe (tests/torch_zslab_roundoff.py measures both). The
-//   epilogue stores bf16x2 straight from the registers, masked at ragged M.
+//   The tensor cores' fp32 accumulation drifts over a long chain of products
+//   (on an NVIDIA H100 80GB HBM3 at 700 W the taps of a 9C = 1728 chain
+//   rounded to the other bf16 value 4.3x as often as a round-to-nearest fp32
+//   sum, 63% of them toward zero; kernel #1's sums of 27C = 2592 to 41472
+//   products 8-24x as often), so both flags run one K loop that chains a
+//   group of K steps (PROMOTE = 4 per tap, PROMOTE_ONCE = 8 rounded once) at
+//   a time from scale-d = 0 and adds each retired group to an fp32 sum on
+//   the FP32 pipe; a group
+//   ends at its segment's end, and its first step, after issuing its copies,
+//   waits for the group before and folds it (the other steps carry no
+//   branch). PER_TAP = false: the segment is all of K and the sum is rounded
+//   once, in the epilogue. PER_TAP = true: a segment is a tap, whose sum is
+//   rounded in registers to bf16 as it is folded and added, in fp32 then
+//   rounded, to a running sum held as packed bf16x2
+//   (tests/torch_zslab_roundoff.py measures both). The sum's registers would
+//   halve the blocks an SM of the BN <= 64 tiles, so those are held to 128
+//   registers a thread (two blocks). The epilogue stores bf16x2 straight from
+//   the registers, masked at ragged M.
 //
 // tf32x3 (namespace tf32x3): fp32 with C % 32 == 0, F % 32 == 0 and 16-byte
 //   aligned pointers: every fp32 conv of the paths but the stems. It is the
@@ -75,10 +83,10 @@
 //   three fp32 convs (conv3d_zconcat). TMA is not used: it raised an illegal
 //   instruction on this card (PERF.md section 6).
 //
-// simple (the kernel below): the fp32 stems (C = 1, 3, 4) and every shape
-//   that neither the hopper, the tf32x3 nor the stem variant takes. A
-//   128-thread block owns a 64 x 64 tile and walks K in 32-wide steps through
-//   one shared-memory stage: bf16 on nvcuda::wmma 16x16x16 fragments, fp32 by
+// simple (the kernel below): every shape that neither the hopper, the
+//   tf32x3 nor the stem variant takes (no path launches it). A 128-thread
+//   block owns a 64 x 64 tile and walks K in 32-wide steps through one
+//   shared-memory stage: bf16 on nvcuda::wmma 16x16x16 fragments, fp32 by
 //   plain FMA. PER_TAP (bf16) sends the fp32 accumulators through shared
 //   memory at each tap's end (wmma's fragment layout is opaque), rounds them
 //   and adds them to a running bf16 sum kept in shared memory; a tap's
@@ -363,9 +371,18 @@ namespace hopper {
 #ifndef CONV3X3_PROMOTE
 #define CONV3X3_PROMOTE 4
 #endif
-// K steps a group of products chained on the tensor cores (PER_TAP); a
-// compile-time constant, which tests/torch_zslab_roundoff.py `variants` sets
+#ifndef CONV3X3_PROMOTE_ONCE
+#define CONV3X3_PROMOTE_ONCE 8
+#endif
+// K steps a group of products chained on the tensor cores: PROMOTE where each
+// tap is rounded (kernel #2), PROMOTE_ONCE where the sum is rounded once
+// (kernel #1: at the STUNet-H step's shapes it rounds at most 1.32x as many
+// elements otherwise than float64 as the plain version at 8, 0.74x at 4, in
+// 5% less time; NVIDIA H100 80GB HBM3, 700 W, PERF.md). Compile-time
+// constants, which tests/torch_zslab_roundoff.py `variants` and `k1variants`
+// set
 constexpr int PROMOTE = CONV3X3_PROMOTE;
+constexpr int PROMOTE_ONCE = CONV3X3_PROMOTE_ONCE;
 constexpr int BM = 128;       // output voxels per block, 64 per warpgroup
 constexpr int THREADS = 256;  // two warpgroups; all of them copy and multiply
 constexpr int STAGES = 4;     // shared-memory ring depth
@@ -530,8 +547,10 @@ __device__ __forceinline__ float2 unpack_bf16x2(uint32_t v) {
 
 // x: (B, X, Y, Z, C) bf16; wt: (F, 27*C) bf16, K contiguous; y: (M output
 // voxels, F) bf16 at padding P. Grid (ceil(M / 128), F / BN).
+// BN <= 64: at most 128 registers, two blocks an SM (the ring's shared
+// memory allows it; the fp32 sum of the groups would take more)
 template <int BK, int BN, bool PER_TAP>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(THREADS, BN <= 64 ? 2 : 1)
 conv3x3_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ wt, bf16* __restrict__ y,
               int M, int X, int Y, int Z, int C, int F, int P) {
   using T = Tile<BK, BN>;
@@ -658,71 +677,56 @@ conv3x3_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ wt, bf16* __r
     return (uint64_t)((kt % STAGES) * (T::STAGE_BYTES >> 4));
   };
 
-  if constexpr (PER_TAP) {
-    // The tensor cores' fp32 accumulation loses more to round-off over a long
-    // chain than round-to-nearest adds do, and each tap's sum is rounded to
-    // bf16, so a tap's K steps run in groups of PROMOTE: a group's products
-    // chain in `acc` from scale-d = 0, and once it retires the FP32 pipe adds
-    // it to the tap's sum `tot`.
-    float tot[T::NACC];
-    int pos = 0, grp = 0, taps = 0;  // the next step's place in its tap and group
-    bool fresh = true;               // tot holds none of the tap's groups yet
-    auto fold = [&]() {              // the retired group into tot
+  // The tensor cores' fp32 accumulation loses more to round-off over a long
+  // chain than round-to-nearest adds do, so K runs in groups of GROUP steps
+  // that never cross a segment's end: a group's products chain in `acc` from
+  // scale-d = 0, and once they retire the FP32 pipe adds them to the
+  // segment's sum `tot`. A segment is a tap (PER_TAP: its sum is rounded and
+  // added to `run`) or all of K. A group's first step folds the group before
+  // it, after issuing its own copies; its other steps run branch-free.
+  constexpr int GROUP = PER_TAP ? PROMOTE : PROMOTE_ONCE;
+  float tot[T::NACC];
+  bool first = true;  // the group in flight is its segment's first
+  auto step = [&](uint64_t off, int keep) {  // a K step's products, one step kept in flight
+    fence_operand(acc);
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < T::NACC; ++i) tot[i] = fresh ? acc[i] : tot[i] + acc[i];
-      fresh = false;
-    };
+    for (int kk = 0; kk < BK / 16; ++kk)
+      Wgmma<BN>::mma(acc, desc_a + off + 2 * kk, desc_b + off + 2 * kk, kk > 0 || keep);
+    wgmma_commit();
+    wgmma_wait<1>();  // the step before retired: its stage may be refilled
+    fence_operand(acc);
+  };
+  auto fold = [&]() {  // the retired group into tot
+#pragma unroll
+    for (int i = 0; i < T::NACC; ++i) tot[i] = first ? acc[i] : tot[i] + acc[i];
+  };
+  int kt = 0;
 #pragma unroll 1
-    for (int kt = 0; kt < KT; ++kt) {
+  for (int s = 0; s < KT / seg; ++s) {
+#pragma unroll 1
+    for (int g = 0; g < seg; g += GROUP) {
       const uint64_t off = next_stage(kt);
-      if (kt > 0 && grp == 0) {  // step kt - 1 closed a group
+      if (kt > 0) {  // the group before, retired, into tot; the tap it closed into run
         wgmma_wait<0>();
         fence_operand(acc);
         fold();
-        if (pos == 0) {  // and its tap
-          add_tap(tot, taps++ == 0);
-          fresh = true;
+        if constexpr (PER_TAP) {
+          if (g == 0) add_tap(tot, s == 1);
         }
       }
-      const int keep = grp != 0;  // scale-d: a group's first product starts at 0
-      if (++pos == seg) {
-        pos = 0;
-        grp = 0;
-      } else if (++grp == PROMOTE) {
-        grp = 0;
-      }
-      fence_operand(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        Wgmma<BN>::mma(acc, desc_a + off + 2 * kk, desc_b + off + 2 * kk, kk > 0 || keep);
-      wgmma_commit();
-      wgmma_wait<1>();  // step kt - 1 retired: its stage may be refilled
-      fence_operand(acc);
-    }
-    wgmma_wait<0>();
-    fence_operand(acc);
-    fold();
-    add_tap(tot, false);  // the last of the three taps
-  } else {
-    int seg_pos = 0;  // step kt's place in K
+      first = g == 0;
+      step(off, 0);
+      ++kt;
+      const int n = min(GROUP, seg - g);
 #pragma unroll 1
-    for (int kt = 0; kt < KT; ++kt) {
-      const uint64_t off = next_stage(kt);
-      const int keep = seg_pos != 0;  // scale-d: the first product starts at 0
-      if (++seg_pos == seg) seg_pos = 0;
-      fence_operand(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        Wgmma<BN>::mma(acc, desc_a + off + 2 * kk, desc_b + off + 2 * kk, kk > 0 || keep);
-      wgmma_commit();
-      wgmma_wait<1>();  // step kt - 1 retired: its stage may be refilled
-      fence_operand(acc);
+      for (int j = 1; j < n; ++j, ++kt) step(next_stage(kt), 1);
     }
-    wgmma_wait<0>();
-    fence_operand(acc);
   }
+  wgmma_wait<0>();
+  fence_operand(acc);
+  fold();
+  if constexpr (PER_TAP) add_tap(tot, false);  // the last of the three taps
 
   // accumulator (i, i + 1) of thread t: row 16 * warp + lane / 4 + 8 * (i / 2 % 2),
   // columns 8 * (i / 4) + 2 * (lane % 4) + {0, 1} of the warpgroup's 64 x BN tile
@@ -735,7 +739,7 @@ conv3x3_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ wt, bf16* __r
     if (m < M) {
       uint32_t v;
       if constexpr (PER_TAP) v = run[i / 2];
-      else v = pack_bf16x2(acc[i], acc[i + 1]);
+      else v = pack_bf16x2(tot[i], tot[i + 1]);
       *reinterpret_cast<uint32_t*>(y + (long long)m * F + col0 + 8 * (i / 4)) = v;
     }
   }

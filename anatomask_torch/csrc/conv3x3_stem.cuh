@@ -1,18 +1,21 @@
 // The stem variant of the stride-1 3x3x3 convolution for Hopper (sm_90a):
-// bf16 NDHWC x DHWIO with few input channels, shared by csrc/conv3x3.cu (one
-// rounding) and csrc/zslab_conv.cu (each first-axis tap rounded to bf16).
+// NDHWC x DHWIO with few input channels, in bf16 or fp32, shared by
+// csrc/conv3x3.cu (one rounding) and csrc/zslab_conv.cu (each first-axis tap
+// rounded to the output type).
 //
-// Domain: bf16, 1 <= C <= 8, F a multiple of 16 up to 96, padding P in {0, 1,
-// 2} (output voxel o reads input voxels o + t - P), any extents. That is every
-// network's first conv on the paths: C = 1 (CT; STUNet, PlainConvUNet), 3 (the
-// cascade: the image and a 2-label one-hot), 4 (BraTS) -> F = 32, and
-// STUNet-H's 1 -> 96. ops/conv3x3.py `conv_variant` sends these here.
+// Domain: bf16 or fp32, 1 <= C <= 8, F a multiple of 16 up to 96, padding P
+// in {0, 1, 2} (output voxel o reads input voxels o + t - P), any extents.
+// That is every network's first conv on the paths: C = 1 (CT; STUNet,
+// PlainConvUNet), 3 (the cascade: the image and a 2-label one-hot), 4 (BraTS)
+// -> F = 32, and STUNet-H's 1 -> 96. ops/conv3x3.py `conv_variant` sends
+// these here; `launch` picks the kernel by dtype.
 //
-// Function: y = the 27*C-term sum in fp32, rounded once (PER_TAP = false,
-// kernel #1), or per first-axis tap dx the 9*C-term sum in fp32 rounded to
-// bf16, the three added in bf16 in the order 0, +1, +2 (PER_TAP = true,
-// kernel #2, the rounding of the TPU kernel anatomask_tpu/ops/
-// pallas_zslab_conv.py `_fwd_impl`).
+// Function: y = the 27*C-term sum in fp32, rounded once to the output type
+// (PER_TAP = false, kernel #1), or per first-axis tap dx the 9*C-term sum in
+// fp32, rounded to the output type, the three added in that type in the order
+// 0, +1, +2 (PER_TAP = true, kernel #2, the rounding of the TPU kernel
+// anatomask_tpu/ops/pallas_zslab_conv.py `_fwd_impl`; in fp32 the rounding of
+// a tap changes nothing and the three are added in fp32).
 //
 // Bound on the H100: bytes. At C = 4 -> 32 the conv does 2*27*4*32 FLOP per
 // 72 bytes of output and input (96 FLOP/byte, under the card's ~295), and at
@@ -20,9 +23,13 @@
 // = 4: 1.07 GB out, 0.13 GB in, 0.36 ms at 3.35 TB/s). The shared implicit
 // GEMM (conv3x3_igemm.cuh's simple variant) gathers every input element again
 // for each K step and F tile, with a division pair an element, and so runs at
-// a few percent of that bound. This design reads the input once into shared
-// memory, keeps the weight there for the whole kernel, and writes each output
-// byte once:
+// a few percent of that bound. In fp32 the products run on the FP32 pipe (67
+// TFLOP/s), exact, with no TF32 split: at C = 1 their time is below the
+// bytes' (B = 4, 112x112x128, 1 -> 32: 0.166 against 0.253 ms), from C = 2 on
+// above it (C = 4 at B = 8, 128^3: 1.73 against 0.72 ms), where three TF32
+// products a term on wgmma would be the faster form. This design reads the
+// input once into shared memory, keeps the weight there for the whole
+// kernel, and writes each output byte once:
 //
 // - A block owns a brick of 4 x 8 x 16 output voxels (32 z-lines of 16
 //   voxels, z fastest) for all F channels: one warpgroup a 32-channel slice
@@ -30,7 +37,7 @@
 //   walks the bricks. The brick's input window, 6 x 10 lines of 18 voxels,
 //   is loaded into shared memory once, zero outside the volume, with no
 //   padded copy in device memory.
-// - The window is kept as 32-bit words of two bf16, so that a pair of
+// - bf16: the window is kept as 32-bit words of two bf16, so that a pair of
 //   consecutive elements of a line is one aligned shared load: for even C
 //   the line's pairs (plane 0); for odd C also the line one element on
 //   (plane 1), since rows of odd parity start at odd elements.
@@ -62,10 +69,22 @@
 //   otherwise the fp32 sum runs through the three taps.
 // - The epilogue stages a warp's 16 x 32 tile in shared memory and writes it
 //   in 16-byte stores, each voxel's slice of F * 2 bytes once.
+// - fp32 (namespace f32): the same bricks and persistent blocks, the window
+//   copied with 4-byte cp.async (always aligned) into two stages, each line's
+//   channel c as 4 runs of its z residues mod 4, so that a warp's 32 window
+//   loads hit 32 banks. A warp takes items of the brick (an x-plane of 8
+//   z-lines by 16, for 8 of the F channels): each lane 4 consecutive z
+//   voxels of one line. Per (dx, dy, c) it loads the 6 window elements its
+//   voxels' three z-taps read and, per z-tap, the 8 weights as two 16-byte
+//   broadcasts (the weight in shared memory as (F / 8, 27 * C, 8)), then
+//   runs 96 FMA. PER_TAP sums each first-axis tap in fresh registers and
+//   adds it to the running fp32 sum. The epilogue stages a voxel's 32 lanes
+//   x 32 bytes in shared memory, so that each 16-byte store is half of a
+//   voxel's 32-byte piece beside its other half.
 //
 // A non-finite input element can reach the output one voxel further along z
-// than the conv's window: the padding slot of a dy row (odd C) multiplies the
-// next element by a zero weight.
+// than the conv's window in bf16: the padding slot of a dy row (odd C)
+// multiplies the next element by a zero weight.
 
 #pragma once
 
@@ -487,18 +506,220 @@ int launch_c(const void* x, const void* w, void* y, Shape s, cudaStream_t stream
   return (int)cudaGetLastError();
 }
 
-// x: (B, X, Y, Z, C) bf16 contiguous; w: (F, 3 * KT) bf16, the weight as
+// The fp32 stem: the same bricks, the products on the FP32 pipe. A thread
+// owns VZ consecutive z voxels of a z-line for FG output channels, and all
+// 32 lanes of a warp share the channels: a weight is one broadcast read of
+// shared memory that serves VZ voxels, and a window element loaded into a
+// register serves its three z-taps.
+namespace f32 {
+
+constexpr int VZ = 4;                // z voxels a thread
+constexpr int FG = 8;                // output channels a thread
+constexpr int THREADS = 128;         // 4 warps walk the brick's (x-plane, channel group) items
+constexpr int SUB = (LZ + 3) / 4;    // window elements of a line at one z residue mod 4
+constexpr int PLANE = 4 * SUB;       // floats of one channel of a line
+
+template <int C>
+struct Geo {
+  // a line's floats: channel c's elements z at c * PLANE + (z % 4) * SUB + z
+  // / 4, so that the 32 lanes of a warp (8 lines by 4 z-groups of VZ) read 32
+  // banks: the line stride is 4 times an odd number
+  static constexpr int LS = PLANE * C + (C % 2 == 0 ? 4 : 0);
+  static constexpr int WIN = LINES * LS;  // floats of a brick's window, a multiple of 4
+};
+
+// bytes of dynamic shared memory: the weight, two bricks, a staging tile a warp
+template <int C>
+constexpr int smem_bytes(int F) {
+  return (27 * C * F + 2 * Geo<C>::WIN + (THREADS / 32) * 32 * FG) * 4;
+}
+
+// x: (B, X, Y, Z, C) fp32; w: (F, 3 * KT) fp32 (pack_weight "stem"); y: (B,
+// Xo, Yo, Zo, F) fp32, 16-byte aligned
+template <int C, bool PER_TAP>
+__global__ void __launch_bounds__(THREADS, 4)
+stem_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                 float* __restrict__ y, Shape s) {
+  using G = Geo<C>;
+  extern __shared__ float4 smem_f4[];
+  float* const ws = reinterpret_cast<float*>(smem_f4);  // (F / FG, 27 * C, FG)
+  float* const win = ws + 27 * C * s.F;                  // two stages of G::WIN
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  float* const stage = win + 2 * G::WIN + warp * 32 * FG;
+  const int groups = s.F / FG;
+
+  // the weight, once, from the packed (F, 3 * KT) rows: column dx * KT + dy *
+  // R + dz * C + c of row f to ws[f / FG][(dx, dy, dz, c)][f % FG]
+  constexpr int R = 3 * C + C % 2, KT = (3 * R + 15) / 16 * 16;
+  for (int i = tid; i < s.F * 3 * KT; i += blockDim.x) {
+    const int f = i / (3 * KT), col = i % (3 * KT), dx = col / KT, r = col % KT;
+    const int dy = r / R, e = r % R;
+    if (r < 3 * R && e < 3 * C)
+      ws[((f / FG) * 27 * C + (dx * 3 + dy) * 3 * C + e) * FG + f % FG] = w[i];
+  }
+
+  int bb = 0, ox0 = 0, oy0 = 0, oz0 = 0;  // a brick: sample, output origin
+  auto decode = [&](int id) {
+    oz0 = (id % s.nbz) * TZ; id /= s.nbz;
+    oy0 = (id % s.nby) * TY; id /= s.nby;
+    ox0 = (id % s.nbx) * TX; bb = id / s.nbx;
+  };
+  // the brick's window into `dst` by 4-byte copies, zero outside the volume
+  auto fill = [&](float* dst) {
+    const uint32_t base = smem_u32(dst);
+    for (int i = tid; i < LINES * LZ * C; i += blockDim.x) {
+      const int line = i / (LZ * C), e = i % (LZ * C), zl = e / C, c = e % C;
+      const int xi = ox0 + line / LY - s.P, yi = oy0 + line % LY - s.P, zi = oz0 + zl - s.P;
+      const bool in = (unsigned)xi < (unsigned)s.X && (unsigned)yi < (unsigned)s.Y &&
+                      (unsigned)zi < (unsigned)s.Z;
+      const long long o = ((((long long)bb * s.X + xi) * s.Y + yi) * s.Z + zi) * C + c;
+      cp_async4(base + 4 * (line * G::LS + c * PLANE + (zl % 4) * SUB + zl / 4), in ? x + o : x,
+                in ? 4 : 0);
+    }
+  };
+
+  // this lane's z-line (ly) and z-group (zg) of an item's 8 x 16 voxels
+  const int ly = lane / 4, zg = lane % 4;
+  int k = 0;  // bricks done
+  if ((int)blockIdx.x < s.nbricks) {
+    decode(blockIdx.x);
+    fill(win);
+  }
+  cp_async_commit();
+#pragma unroll 1
+  for (int id = blockIdx.x; id < s.nbricks; id += gridDim.x, ++k) {
+    const int st = k & 1;
+    // the next brick into the other stage, which every warp left at the
+    // barrier closing the previous brick; then this brick's copies
+    if (id + (int)gridDim.x < s.nbricks) {
+      decode(id + gridDim.x);
+      fill(win + (st ^ 1) * G::WIN);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    decode(id);
+    const float* const plane = win + st * G::WIN;
+
+    // an item: x-plane lx of the brick, channels fg * FG.. of F
+#pragma unroll 1
+    for (int it = warp; it < TX * groups; it += THREADS / 32) {
+      const int lx = it / groups, fg = it % groups;
+      const float* const wg = ws + fg * 27 * C * FG;
+      float acc[VZ][FG], run[PER_TAP ? VZ : 1][FG];
+#pragma unroll
+      for (int v = 0; v < VZ; ++v)
+#pragma unroll
+        for (int f = 0; f < FG; ++f) acc[v][f] = 0.f;
+#pragma unroll 1
+      for (int dx = 0; dx < 3; ++dx) {
+        const float* const line = plane + ((lx + dx) * LY + ly) * G::LS + zg;
+        const float* const wx = wg + dx * 9 * C * FG;
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            float a[VZ + 2];  // z = 4 zg + j of the line, j = 0 .. VZ + 1
+#pragma unroll
+            for (int j = 0; j < VZ + 2; ++j) a[j] = line[dy * G::LS + c * PLANE + (j % 4) * SUB + j / 4];
+#pragma unroll
+            for (int dz = 0; dz < 3; ++dz) {
+              const float4* const wp =
+                  reinterpret_cast<const float4*>(wx + ((dy * 3 + dz) * C + c) * FG);
+              const float4 w0 = wp[0], w1 = wp[1];
+              const float wv[FG] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+              for (int v = 0; v < VZ; ++v)
+#pragma unroll
+                for (int f = 0; f < FG; ++f) acc[v][f] = fmaf(a[v + dz], wv[f], acc[v][f]);
+            }
+          }
+        if constexpr (PER_TAP) {  // the tap's fp32 sum into the running one, then a fresh tap
+#pragma unroll
+          for (int v = 0; v < VZ; ++v)
+#pragma unroll
+            for (int f = 0; f < FG; ++f) {
+              run[v][f] = dx == 0 ? acc[v][f] : run[v][f] + acc[v][f];
+              acc[v][f] = 0.f;
+            }
+        }
+      }
+
+      // voxel by voxel through the warp's staging tile: lane L's FG channels
+      // at words L * FG (halves swapped where bit 2 of L is set: no bank
+      // conflict either way), then read back so that lanes 2i, 2i + 1 store
+      // voxel i's 32 bytes. Lane l stores for lanes L = l / 2 + 16 r, r = 0,
+      // 1: voxel v of their z-groups, from `dst[r]` on
+      const int h = lane & 1, ox = ox0 + lx;
+      float* dst[2];
+      int zr[2];  // the z-group's first voxel, or past Zo where the line is outside
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int L = lane / 2 + 16 * r, oy = oy0 + L / 4;
+        zr[r] = ox < s.Xo && oy < s.Yo ? oz0 + (L % 4) * VZ : s.Zo;
+        dst[r] = y + ((((long long)bb * s.Xo + ox) * s.Yo + oy) * s.Zo + zr[r]) * s.F +
+                 fg * FG + h * 4;
+      }
+#pragma unroll
+      for (int v = 0; v < VZ; ++v) {
+        float o[FG];
+#pragma unroll
+        for (int f = 0; f < FG; ++f) {
+          if constexpr (PER_TAP) o[f] = run[v][f];
+          else o[f] = acc[v][f];
+        }
+        const int sw = (lane >> 2) & 1;
+        reinterpret_cast<float4*>(stage + lane * FG)[sw] = make_float4(o[0], o[1], o[2], o[3]);
+        reinterpret_cast<float4*>(stage + lane * FG)[sw ^ 1] = make_float4(o[4], o[5], o[6], o[7]);
+        __syncwarp();
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int L = lane / 2 + 16 * r;
+          const float4 val = reinterpret_cast<const float4*>(stage + L * FG)[h ^ ((L >> 2) & 1)];
+          if (zr[r] + v < s.Zo) *reinterpret_cast<float4*>(dst[r] + v * s.F) = val;
+        }
+        __syncwarp();  // the staging tile is rewritten by the next voxel
+      }
+    }
+    __syncthreads();  // every warp is done with this brick's stage
+  }
+}
+
+template <int C, bool PER_TAP>
+int launch_c(const void* x, const void* w, void* y, Shape s, cudaStream_t stream) {
+  auto kernel = stem_fp32_kernel<C, PER_TAP>;
+  const int smem = smem_bytes<C>(s.F);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem_bytes<C>(MAX_F));
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+  const long long grid = s.nbricks < (long long)per_sm * sms ? s.nbricks : (long long)per_sm * sms;
+  kernel<<<(unsigned)grid, THREADS, smem, stream>>>(static_cast<const float*>(x),
+                                                     static_cast<const float*>(w),
+                                                     static_cast<float*>(y), s);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace f32
+
+// x: (B, X, Y, Z, C) contiguous; w: (F, 3 * KT), the weight as
 // pack_weight(w, "stem") lays it out; y: (B, X + 2P - 2, Y + 2P - 2, Z + 2P -
-// 2, F) bf16; w and y 16-byte aligned. 1 <= C <= MAX_C, F a multiple of 16 up
+// 2, F); all of `dtype` (0 = float32, 1 = bfloat16, as the simple variant's
+// launcher); w and y 16-byte aligned. 1 <= C <= MAX_C, F a multiple of 16 up
 // to MAX_F, P in {0, 1, 2}. Launches on `stream`; returns the CUDA error.
 template <bool PER_TAP>
 int launch(const void* x, const void* w, void* y, int B, int X, int Y, int Z, int C, int F,
-           int P, void* stream) {
+           int P, int dtype, void* stream) {
   Shape s;
   s.B = B; s.X = X; s.Y = Y; s.Z = Z; s.F = F; s.P = P;
   s.Xo = X + 2 * P - 2; s.Yo = Y + 2 * P - 2; s.Zo = Z + 2 * P - 2;
   if (P < 0 || P > 2 || B <= 0 || s.Xo <= 0 || s.Yo <= 0 || s.Zo <= 0 || C < 1 || C > MAX_C ||
-      F < 16 || F > MAX_F || F % 16 != 0 ||
+      F < 16 || F > MAX_F || F % 16 != 0 || (dtype != 0 && dtype != 1) ||
       ((reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(y)) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   s.nbx = (s.Xo + TX - 1) / TX; s.nby = (s.Yo + TY - 1) / TY; s.nbz = (s.Zo + TZ - 1) / TZ;
@@ -506,8 +727,9 @@ int launch(const void* x, const void* w, void* y, int B, int X, int Y, int Z, in
   if (nb > 0x7fffffffLL - 0x10000LL) return (int)cudaErrorInvalidValue;
   s.nbricks = (int)nb;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CONV3X3_STEM_CASE(C_) \
-  if (C == C_) return launch_c<C_, PER_TAP>(x, w, y, s, st);
+#define CONV3X3_STEM_CASE(C_)                                              \
+  if (C == C_) return dtype == 1 ? launch_c<C_, PER_TAP>(x, w, y, s, st) \
+                                 : f32::launch_c<C_, PER_TAP>(x, w, y, s, st);
   CONV3X3_STEM_CHANNELS(CONV3X3_STEM_CASE)
 #undef CONV3X3_STEM_CASE
   return (int)cudaErrorInvalidValue;

@@ -25,14 +25,15 @@
 // where its 822 MB of x and y take 0.25 ms at 3.35 TB/s. Both probe shapes run
 // the hopper variant (a cp.async ring feeding wgmma), whose per-tap rounding
 // stays in registers: at a tap's end the accumulators are rounded and added to
-// a running bf16x2 sum, with no shared-memory round trip. The bf16 stems (C
-// <= 8, F a multiple of 16 up to 96) are bound by bytes and run the stem
-// variant (conv3x3_stem.cuh: the input brick in shared memory once, wgmma
-// with A from registers, each tap rounded in registers). fp32 with C and F
-// multiples of 32 runs the tf32x3 variant (each product as three TF32 ones on
-// wgmma, each tap summed in fp32 every 32 channels, the three taps added in
-// fp32); the fp32 stems and every other shape the simple variant, which stages
-// each tap through shared memory. PERF.md keeps the measured times.
+// a running bf16x2 sum, with no shared-memory round trip. The stems (C <= 8,
+// F a multiple of 16 up to 96) are bound by bytes and run the stem variant
+// (conv3x3_stem.cuh: the input brick in shared memory once; bf16 on wgmma
+// with A from registers, each tap rounded in registers; fp32 on the FP32
+// pipe, each tap summed in fp32 and the three added in fp32). fp32 with C and
+// F multiples of 32 runs the tf32x3 variant (each product as three TF32 ones
+// on wgmma, each tap summed in fp32 every 32 channels, the three taps added in
+// fp32); every other shape the simple variant, which stages each tap through
+// shared memory. PERF.md keeps the measured times.
 
 #include "conv3x3_igemm.cuh"
 #include "conv3x3_stem.cuh"
@@ -58,9 +59,10 @@ extern "C" int zslab_forward_tf32x3(const void* x, const void* wt, void* y, int 
   return conv3x3_igemm::tf32x3::launch<true>(x, wt, y, B, X, Y, Z, C, F, p, bn, stream);
 }
 
-// The stem variant (bf16, 1 <= C <= 8, w = the (3 * KT, F) weight of
-// pack_weight "stem"); see conv3x3_stem::launch for the arguments.
+// The stem variant (1 <= C <= 8, w = the (F, 3 * KT) weight of pack_weight
+// "stem"; dtype 0 = float32 on the FP32 pipe, 1 = bfloat16 on wgmma, as the
+// simple variant's entry takes it); see conv3x3_stem::launch for the arguments.
 extern "C" int zslab_forward_stem(const void* x, const void* w, void* y, int B, int X, int Y,
-                                  int Z, int C, int F, int p, void* stream) {
-  return conv3x3_stem::launch<true>(x, w, y, B, X, Y, Z, C, F, p, stream);
+                                  int Z, int C, int F, int p, int dtype, void* stream) {
+  return conv3x3_stem::launch<true>(x, w, y, B, X, Y, Z, C, F, p, dtype, stream);
 }

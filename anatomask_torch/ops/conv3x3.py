@@ -33,7 +33,8 @@ Bound on the H100: the paths' convs (C, F >= 32, volumes of 7x7x8 up to
 (989 TFLOP/s, reachable only through wgmma) bounds them, not the 3.35 TB/s of
 memory, and in fp32 three TF32 products a term at 495 TFLOP/s (the FP32
 pipe's 67 TFLOP/s is slower); the stems (C = 1, 3, 4) do at most 96 FLOP a
-byte and are bound by the bytes they write. There are four variants, and
+byte and are bound by the bytes they write (in fp32 at C = 1 too, on the
+FP32 pipe). There are four variants, and
 `conv_variant` picks one from dtype, C, F and alignment alone (a shape
 dispatch between hand-written kernels; a failed build or launch raises):
 
@@ -43,13 +44,15 @@ dispatch between hand-written kernels; a failed build or launch raises):
   or 32, the largest dividing F), K steps of BK = 64 (C % 64 == 0) or 32, a
   4-stage cp.async ring feeding wgmma, the address math hoisted out of the K
   loop.
-- "stem" (`csrc/conv3x3_stem.cuh`): bf16 with 1 <= C <= STEM_MAX_C and F a
-  multiple of 16 up to STEM_MAX_F, i.e. every network's first conv (C = 1,
-  3, 4 -> 32; STUNet-H's 1 -> 96). A persistent block loads a brick of the
-  input into shared memory once and multiplies it on wgmma (A from
-  registers, the weight in shared memory), per first-axis tap K = (dy, dz,
-  c) zero-padded to a multiple of 16 (`pack_weight`); each output byte is
-  written once.
+- "stem" (`csrc/conv3x3_stem.cuh`): bf16 or fp32 with 1 <= C <=
+  STEM_MAX_C and F a multiple of 16 up to STEM_MAX_F, i.e. every network's
+  first conv (C = 1, 3, 4 -> 32; STUNet-H's 1 -> 96). A persistent block
+  loads a brick of the input into shared memory once and keeps the weight
+  there (`pack_weight`: per first-axis tap K = (dy, dz, c) zero-padded to a
+  multiple of 16, one layout for both dtypes); bf16 multiplies on wgmma (A
+  from registers), fp32 on the FP32 pipe (each thread 4 z voxels by 8
+  channels, the weight read as warp broadcasts). The launcher picks the
+  kernel by dtype; each output byte is written once.
 - "tf32x3" (`csrc/conv3x3_igemm.cuh`): fp32 with C and F multiples of 32
   and 16-byte-aligned data, i.e. every fp32 conv of the paths but the stems.
   The hopper variant's ring on TF32 wgmma, each product as three (a_lo*b_hi
@@ -59,9 +62,9 @@ dispatch between hand-written kernels; a failed build or launch raises):
   in registers (wgmma with A from registers). 128 x BN output tiles (BN = 64
   where it divides F, else 32; `tf32_tile`); every 32 channels of K are
   added to the sum in fp32.
-- "simple" (`csrc/conv3x3_igemm.cuh`): everything else (the fp32 stems,
-  other channel counts): 64 x 64 tiles on wmma fragments (bf16) or FMA
-  (fp32), one shared-memory stage.
+- "simple" (`csrc/conv3x3_igemm.cuh`): everything else (other channel
+  counts, unaligned wide convs; no path launches it): 64 x 64 tiles on wmma
+  fragments (bf16) or FMA (fp32), one shared-memory stage.
 
 Each wrapper counts its launches in total (`launches`), by variant
 (`launches_by_variant`) and by padding (`launches_by_padding`). Their gap to
@@ -142,18 +145,15 @@ def conv_variant(dtype: torch.dtype, C: int, F: int, aligned: bool = True) -> st
     """The variant that runs a conv of C -> F channels in `dtype` (`aligned`:
     x starts on a 16-byte boundary; the weight and the output are fresh
     allocations): "hopper" for bf16 with C and F multiples of 32, aligned;
-    "stem" for bf16 with 1 <= C <= STEM_MAX_C and F a multiple of 16 up to
-    STEM_MAX_F (aligned or not: it copies x by words where x's alignment
-    allows, else two bytes at a time); "tf32x3" for fp32 with C and F
-    multiples of 32, aligned; else "simple"."""
-    wide = C % 32 == 0 and F % 32 == 0 and aligned
-    if dtype == torch.bfloat16:
-        if wide:
-            return "hopper"
-        if 1 <= C <= STEM_MAX_C and F % 16 == 0 and 16 <= F <= STEM_MAX_F:
-            return "stem"
-    elif wide:
-        return "tf32x3"
+    "tf32x3" for fp32 with C and F multiples of 32, aligned; "stem" for
+    either dtype with 1 <= C <= STEM_MAX_C and F a multiple of 16 up to
+    STEM_MAX_F (aligned or not: bf16 copies x by words where x's alignment
+    allows, else two bytes at a time; fp32 by 4-byte words); else
+    "simple"."""
+    if C % 32 == 0 and F % 32 == 0 and aligned:
+        return "hopper" if dtype == torch.bfloat16 else "tf32x3"
+    if 1 <= C <= STEM_MAX_C and F % 16 == 0 and 16 <= F <= STEM_MAX_F:
+        return "stem"
     return "simple"
 
 
@@ -198,9 +198,10 @@ def pack_weight(w: torch.Tensor, variant: str) -> torch.Tensor:
     """The (3, 3, 3, C, F) weight as the variant's kernel reads it: (F, 27*C)
     with K = (tap, c) contiguous for "hopper"; the same split into its TF32
     hi and lo planes (tf32_split), (2, F, 27*C), for "tf32x3"; (27*C, F) for
-    "simple"; and (F, 3 * KT) with K contiguous for "stem": per first-axis tap
-    dx, KT columns (dy, dz, c), column dx * KT + dy * R + dz * C + c, the
-    rest zero (stem_rows)."""
+    "simple"; and (F, 3 * KT) with K contiguous for "stem", in bf16 and fp32
+    alike: per first-axis tap dx, KT columns (dy, dz, c), column dx * KT + dy
+    * R + dz * C + c, the rest zero (stem_rows). The fp32 stem kernel copies
+    its real columns into shared memory by (channel group, tap, c)."""
     C, F = w.shape[3], w.shape[4]
     if variant == "stem":
         R, KT = stem_rows(C)
@@ -249,8 +250,9 @@ def launch_igemm(x: torch.Tensor, w: torch.Tensor, library: str, symbol: str,
                 x.data_ptr(), w2.data_ptr(), y.data_ptr(), B, X, Y, Z, C, F, padding,
                 tf32_tile(F), stream)
         elif variant == "stem":
-            err = _entry(library, f"{symbol}_stem", 7)(
-                x.data_ptr(), w2.data_ptr(), y.data_ptr(), B, X, Y, Z, C, F, padding, stream)
+            err = _entry(library, f"{symbol}_stem", 8)(
+                x.data_ptr(), w2.data_ptr(), y.data_ptr(), B, X, Y, Z, C, F, padding,
+                _DTYPE_CODES[x.dtype], stream)
         else:
             vec = 16 // x.element_size()
             vec_a = C % vec == 0 and x.data_ptr() % 16 == 0

@@ -33,13 +33,14 @@ rounding of the JAX package's bf16 main path at >= 32768 output voxels
 Unlike the TPU kernel (H % 8 == 0, a 12 MB VMEM budget) there is no shape
 gate: any (B, D, H, W, C) with C >= 1, in fp32 or bf16. `conv_variant` of
 `ops/conv3x3.py` sends bf16 with C and F multiples of 32 to the kernel's
-hopper variant and the bf16 stems (C = 1, 3, 4, ... up to 8, F a multiple of
-16 up to 96) to its stem variant, both of which round each tap in registers,
-fp32 with C and F multiples of 32 to its tf32x3 variant (each tap summed in
-fp32 from three TF32 products a term, the three taps added in fp32), and
-everything else (the fp32 stems, other channel counts) to its simple
-variant. `models/layers.py` ConvND reaches all four through
-`conv3d_zconcat`. Bound
+hopper variant, which rounds each tap in registers, fp32 with C and F
+multiples of 32 to its tf32x3 variant (each tap summed in fp32 from three
+TF32 products a term, the three taps added in fp32), the stems of both
+dtypes (C = 1, 3, 4, ... up to 8, F a multiple of 16 up to 96) to its stem
+variant (bf16: each tap rounded in registers; fp32: each tap summed in fp32
+on the FP32 pipe, the three added in fp32), and everything else (other
+channel counts) to its simple variant. `models/layers.py` ConvND reaches
+all four through `conv3d_zconcat`. Bound
 on the H100 and the design: the notes at the top of `csrc/zslab_conv.cu`,
 `csrc/conv3x3_igemm.cuh` and `csrc/conv3x3_stem.cuh`.
 """

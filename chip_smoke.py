@@ -9,11 +9,12 @@ Phases, each of which raises on a failed check:
 2. build: compile csrc/conv3x3.cu, csrc/moments.cu and csrc/zslab_conv.cu
    (the two convs share the kernels of csrc/conv3x3_igemm.cuh, its hopper,
    tf32x3 and simple variants, and of csrc/conv3x3_stem.cuh, the stem
-   variant) for sm_90a from the checkout's sources, one nvcc each, all at
-   once; print each kernel's registers and spills from ptxas's report, and
-   check with cuobjdump's SASS that every hopper, tf32x3 and stem
-   instantiation of both conv libraries holds HGMMA (wgmma) instructions,
-   TF32 ones in the tf32x3 kernels;
+   variant, bf16 on wgmma and fp32 on the FP32 pipe) for sm_90a from the
+   checkout's sources, one nvcc each, all at once; print each kernel's
+   registers and spills from ptxas's report, and check with cuobjdump's
+   SASS that every hopper, tf32x3 and bf16 stem instantiation of both conv
+   libraries holds HGMMA (wgmma) instructions, TF32 ones in the tf32x3
+   kernels, and every fp32 stem instantiation FFMA and no HGMMA;
 3. conv kernel (TPU kernel #1): at every call site of the stride-1 3x3x3
    conv on the main paths (the paths run it for the forwards below
    MIN_VOLUME output voxels and for every dx; the table checks all), the
@@ -27,7 +28,10 @@ Phases, each of which raises on a failed check:
    forward's B = 8 (the 8 mirror flips), <= 1e-2, and the same times. Then
    bf16 shapes off the paths at the hopper variant's edges (ragged M, F = 96
    and 160 with BN = 32, C = 96 and 160 with BK = 32), fwd + dx, <= 1e-2;
-   then kernel #2 at every shape where the paths run it (the per-tap
+   the float64 guard at the B step's longest K (512 -> 512, K = 13824:
+   enc4.conv2 and dec0.conv0): the hopper variant may round at most twice
+   as many elements to another bf16 value than the float64 sum as the plain
+   version (fp32 sums) does (ROADMAP.md section 3, fault 13); then kernel #2 at every shape where the paths run it (the per-tap
    forwards, >= MIN_VOLUME output voxels; models/layers.py ConvND): forward
    and dx through conv3d_zconcat (dx is kernel #1, rounded once) at the
    step's B = 4, forward at inference's B = 8, against the plain versions,
@@ -76,13 +80,16 @@ Phases, each of which raises on a failed check:
    torch.var_mean's;
 5c. the float32 path's launch shapes (`-compute_dtype float32`: the B
    step's forwards at B = 4 and its dx, a volume tile's forwards at B = 8),
-   from a generator of their own: each kernel's forward on the variant the
-   rule picks (tf32x3; the stems simple) against its plain version, rel.
-   max error <= 1e-5; its time beside the simple variant's at the same shape
-   (the kernel it replaced, through its C entry point), the plain version's,
-   F.conv3d's in fp32 with TF32 off and the bound (three TF32 products a
-   term at 495 TFLOP/s, or the bytes; the FP32 pipe's time beside it); the
-   totals of one B step and one volume;
+   from a generator of their own, and three fp32 stems that users reach
+   (FP32_STEM_SHAPES: 4 -> 32 at a B = 8 128^3 tile, 3 -> 32 at B = 16, 1
+   -> 96 at B = 2 on 112x112x128): each kernel's forward on the variant the
+   rule picks (tf32x3; the stems stem, on the FP32 pipe, with kernel #1's
+   once-rounded stem gated and timed beside it) against its plain version,
+   rel. max error <= 1e-5; its time beside the simple variant's at the same
+   shape (the kernel it replaced, through its C entry point), the plain
+   version's, F.conv3d's in fp32 with TF32 off and the bound (three TF32
+   products a term at 495 TFLOP/s, or the bytes; the FP32 pipe's time
+   beside it); the totals of one B step and one volume;
 6. references, with PyTorch's default TF32 flags set back first (the
    float32 SparK's setup, build_spark_model, must turn TF32 off): a tiny
    SparK (also with densify norm "bn", with "ln", in
@@ -113,7 +120,7 @@ Phases, each of which raises on a failed check:
 7c. the float32 pretraining step: 7's 5 steps in fp32 (compute_dtype
    "float32", the model built after PyTorch's default TF32 flags are set
    back, which its setup must turn off) with 7's checks, launches by kernel
-   and variant every conv on tf32x3 but the stem's two (simple); its first
+   and variant every conv on tf32x3 but the stem's two (stem); its first
    step also run on copies of its weights and draws with cuDNN in TF32 and,
    for the spread, with TF32 off again: each copy's loss and gradients
    against the step's; step ms, patches/s, peak memory, a profiler split;
@@ -125,7 +132,7 @@ Phases, each of which raises on a failed check:
    kernel #2 (9 hopper, the stem on the stem variant) and 22 moments launches;
    then 1 volume in fp32 through Predictor(dtype=torch.float32), built
    after PyTorch's default TF32 flags are set back (its setup must turn
-   them off): the same checks, the convs on tf32x3 but the stem (simple);
+   them off): the same checks, the convs on tf32x3 but the stem (stem);
    s a volume, peak memory;
 9. pretraining loop (PretrainTrainer): a synthetic preprocessed dataset
    (8 cases of 1 x 160^3) written with the port's own code into a temporary
@@ -300,8 +307,9 @@ priority (nice 19), started after the kernel phases (3-5b), beside 6-12;
 run after 13, then 15; 15b's nodes start after 15 and run beside 14's
 entries, and are checked after them. The last three lines of standard
 output are the nvidia-smi line, one JSON object {"kernels": [...]} (kernels
-#1, #3 and #2, then the float32 path's tf32x3 variant of #1 and #2), and
-{"ok": true, "device": {...}}."""
+#1, #3 and #2, then the float32 path's tf32x3 variant of #1 and #2 and its
+stem variant of #2), and {"ok": true, "device": {...}}; before them a
+check that no path's run launched the simple variant."""
 import atexit
 import copy
 import gc
@@ -509,7 +517,7 @@ CLI_3D = {"UNet_class_name": "PlainConvUNet", "patch_size": [128, 128, 128], "ba
           "conv_kernel_sizes": [[3, 3, 3]] * 6, "n_conv_per_stage_encoder": [2] * 6,
           "n_conv_per_stage_decoder": [2] * 5, "normalization_schemes": ["CTNormalization"]}
 CLI_2D = {"patch_size": [192, 192], "batch_size": 64}
-CLI_ITERS, CLI_VAL_ITERS, CLI_PRETRAIN_ITERS = 10, 2, 3
+CLI_ITERS, CLI_VAL_ITERS, CLI_PRETRAIN_ITERS = 8, 2, 3
 CLI_TILE_BATCH = 2 * TTA_BATCH  # the Predictor's tile batch 2 x 8 flips
 # the cascade phase: a KiTS-like raw dataset whose cases are large enough for
 # the planner to add 3d_lowres and 3d_cascade_fullres (5 training cases of
@@ -607,6 +615,9 @@ def kernel_label(mangled):
     m = re.search(r"stem_kernelILi(\d+)ELb([01])E", mangled)
     if m:
         return f"stem C={m[1]}{' per-tap' if m[2] == '1' else ''}"
+    m = re.search(r"stem_fp32_kernelILi(\d+)ELb([01])E", mangled)
+    if m:
+        return f"stem fp32 C={m[1]}{' per-tap' if m[2] == '1' else ''}"
     return mangled
 
 
@@ -626,24 +637,33 @@ def build_report(name):
 
 
 def check_hgmma(name):
-    """Every hopper, tf32x3 and stem instantiation of csrc/<name>.cu holds
+    """Every hopper, tf32x3 and bf16 stem instantiation of csrc/<name>.cu holds
     HGMMA instructions in its SASS (cuobjdump, beside nvcc), TF32 ones in the
-    tf32x3 kernels: a build that lost wgmma fails."""
+    tf32x3 kernels: a build that lost wgmma fails. Every fp32 stem
+    instantiation holds FFMA (the FP32 pipe) and no HGMMA."""
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "--dump-sass", str(_build.library_path(name))],
                           capture_output=True, text=True, check=True, timeout=300).stdout
-    counts = {}
+    counts, ffma = {}, {}
     for chunk in sass.split("Function : ")[1:]:
         label = kernel_label(chunk.split(None, 1)[0])
-        if label.startswith(("hopper", "stem", "tf32x3")):
+        lines = chunk.splitlines()
+        if label.startswith("stem fp32"):
+            ffma[label] = (sum("FFMA" in line for line in lines),
+                           sum("HGMMA" in line for line in lines))
+        elif label.startswith(("hopper", "stem", "tf32x3")):
             kind = "TF32" if label.startswith("tf32x3") else ""
-            counts[label] = sum("HGMMA" in line and kind in line for line in chunk.splitlines())
+            counts[label] = sum("HGMMA" in line and kind in line for line in lines)
     check(len(counts) == len(HOPPER_TILES) + len(TF32_TILES) + STEM_MAX_C
           and all(counts.values()),
           f"{name}: HGMMA instructions by hopper, tf32x3 and stem kernel {counts}")
+    check(len(ffma) == STEM_MAX_C and all(f and not h for f, h in ffma.values()),
+          f"{name}: (FFMA, HGMMA) instructions by fp32 stem kernel {ffma}")
     print(f"[build] {name}: HGMMA instructions in each of its {len(counts)} hopper, tf32x3 "
           f"(TF32 HGMMA) and stem kernels: "
-          f"{', '.join(f'{k} {v}' for k, v in sorted(counts.items()))}")
+          f"{', '.join(f'{k} {v}' for k, v in sorted(counts.items()))}; FFMA in each of its "
+          f"{len(ffma)} fp32 stem kernels (no HGMMA): "
+          f"{', '.join(f'{k} {f}' for k, (f, _) in sorted(ffma.items()))}")
 
 
 def zero_counts():
@@ -707,7 +727,7 @@ STEP_PADDINGS = {k: (sum(STEP_LAUNCHES[f"{k[:-3]}.{v}"] for v in VARIANTS)
                      if k.endswith("p1") else 0) for k in BLOCK_STEP_PADDINGS}
 TILE_LAUNCHES = path_launches(INFER_SITES, INFER_NORMS, 1, False)
 # the same in float32 (-compute_dtype float32): tf32x3 for every conv but
-# the stem's (simple)
+# the stem's (stem)
 FP32_STEP_LAUNCHES = path_launches(SITES, PRETRAIN_NORMS, 2, True, dtype=torch.float32)
 FP32_VAL_LAUNCHES = path_launches(SITES, PRETRAIN_NORMS, 1, False, dtype=torch.float32)
 FP32_TILE_LAUNCHES = path_launches(INFER_SITES, INFER_NORMS, 1, False, dtype=torch.float32)
@@ -909,11 +929,58 @@ def print_timed(label, batch, timed):
               f"plain {plain:.3f} ms, F.conv3d {lib:.3f} ms")
 
 
+def round_bf16_64(v):
+    """float64 -> the nearest bf16 value (ties to even), as float32."""
+    m, e = torch.frexp(v)  # |m| in [0.5, 1)
+    return torch.ldexp(torch.round(m * 256.0), e - 8).float()
+
+
+def conv64(x, w):
+    """The float64 conv of x (NDHWC) by w (DHWIO) at padding 1, as NDHWC."""
+    y = fn.conv3d(x.permute(0, 4, 1, 2, 3).double(), w.permute(4, 3, 0, 1, 2).double(),
+                  padding=1)
+    return y.permute(0, 2, 3, 4, 1)
+
+
+# kernel #1's longest chains in the B step (K = 27 * 512 = 13824), where its
+# bf16 hopper variant is held to float64: it may round at most K1_GUARD_LIMIT
+# times as many elements to another bf16 value than the float64 sum as the
+# plain version (fp32 sums) does (ROADMAP.md section 3, fault 13)
+K1_GUARD_SITES = ("enc4.conv2", "dec0.conv0")
+K1_GUARD_LIMIT = 2.0
+
+
+def k1_guard():
+    """The float64 guard of kernel #1's bf16 hopper variant at K1_GUARD_SITES
+    (B = 4, inputs from a generator of their own): the share of elements that
+    the kernel and the plain version each round to another bf16 value than
+    the float64 sum of the 27 * C products rounded once."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    t0 = time.perf_counter()
+    for name, C, F, vol in (site for site in SITES if site[0] in K1_GUARD_SITES):
+        x, w = conv_inputs(C, F, vol, BATCH, torch.bfloat16, gen)
+        check(igemm_variant(x, w) == "hopper", f"[k1 guard] {name}: {igemm_variant(x, w)}")
+        ref = round_bf16_64(conv64(x, w))
+        shares = {k: (f(x, w).float() != ref).float().mean().item()
+                  for k, f in (("hopper", conv3d_3x3_forward), ("plain", conv3d_3x3_plain))}
+        ratio = shares["hopper"] / max(shares["plain"], 1e-12)
+        print(f"[conv] float64 guard {name} B={BATCH} {C}->{F} @{vol} (K = {27 * C}): "
+              f"rounded to another bf16 value than the float64 sum: hopper "
+              f"{shares['hopper']:.3e}, plain {shares['plain']:.3e} ({ratio:.2f}x, limit "
+              f"{K1_GUARD_LIMIT}x)")
+        check(ratio <= K1_GUARD_LIMIT, f"[k1 guard] {name}: kernel #1's hopper variant rounds "
+              f"{shares['hopper']:.3e} of the elements otherwise than float64, {ratio:.2f}x the "
+              f"plain version's {shares['plain']:.3e}")
+        del x, w, ref
+    torch.cuda.empty_cache()
+    print(f"[conv] float64 guard: {time.perf_counter() - t0:.1f} s")
+
+
 def conv_phase(gen):
     """Returns max abs err, max rel err, totals for one pretraining step, for
     one inference volume and for one PlainConvUNet tile, the launch shapes it
     checked, and the timings by shape at the step's and at inference's
-    batch."""
+    batch. Ends with k1_guard."""
     max_abs, max_rel = 0.0, 0.0
     shapes = {}
     for name, C, F, vol in SITES:
@@ -969,6 +1036,7 @@ def conv_phase(gen):
                 add_totals(totals, n, *infer[(C, F, vol)], *bound_ms(C, F, vol, TTA_BATCH))
     print_timed("step", BATCH, timed)
     print_timed("inference", TTA_BATCH, infer)
+    k1_guard()
     checked = ({(BATCH, *vol, C, F) for C, F, vol in shapes}
                | {(TTA_BATCH, *vol, C, F) for C, F, vol in infer})
     return max_abs, max_rel, step, volume, plain_tile, checked, timed, infer
@@ -1510,65 +1578,96 @@ def fp32_launches(path):
 
 
 FP32_PATHS = {"pretrain_step": BATCH, "inference_volume": TTA_BATCH}  # path -> batch
+# fp32 stems that no card path launches yet but that users reach with
+# -compute_dtype float32, gated and timed as the paths' stems: (label, B, C,
+# F, (X, Y, Z)) of predict's tile on BraTS-like data (C = 4), the cascade's
+# tile (C = 3) and STUNet-H's stem (1 -> 96), each kernel #2's (>= MIN_VOLUME
+# voxels a sample)
+FP32_STEM_SHAPES = (("files_tile", TTA_BATCH, PLAIN_IN, 32, (128,) * 3),
+                    ("cascade_tile", CLI_TILE_BATCH, CASCADE_IN, 32, (128,) * 3),
+                    ("pretrain_h_step", H_MICRO, 1, H_DIMS[0], H_RES[0]))
 
 
 def fp32_gate_phase(gen):
     """The float32 path's launch shapes (fp32_launches of the B step and of a
-    volume) on the card: each kernel's forward against its plain version
-    (rel. max error <= 1e-5) on the variant the rule picks (tf32x3; the
-    stems simple), then its time beside the simple variant's at the same
-    shape (its C entry point: the kernel tf32x3 replaced), the plain
-    version's (the gate's call), F.conv3d's in fp32 with TF32 off (a
-    yardstick; each time_ms of single calls) and the bound
-    (bound_ms's 3xTF32 form; the FP32 pipe's time beside it). Returns
-    {kernel: (max abs, max rel)}, the times {(path, kernel, C, F, vol): (ms,
-    plain ms, F.conv3d ms, simple ms)} and the launch shapes checked
-    (LaunchShapes' form)."""
+    volume) and FP32_STEM_SHAPES on the card: each kernel's forward against
+    its plain version (rel. max error <= 1e-5) on the variant the rule picks
+    (tf32x3; the stems stem, where kernel #1's once-rounded stem is gated
+    and timed too), then its time beside the simple variant's at the same
+    shape (its C entry point: the kernel tf32x3 and the stem replaced), the
+    plain version's (the gate's call), F.conv3d's in fp32 with TF32 off (a
+    yardstick; each time_ms of single calls) and the bound (bound_ms's
+    3xTF32 form, or the bytes; the FP32 pipe's time beside it). Returns
+    {kernel: (max abs, max rel)} ("stem": kernel #2's fp32 stem, "stem_once":
+    kernel #1's, apart from the tf32x3 launches'), the times {(path, kernel,
+    C, F, vol): (ms, plain ms, F.conv3d ms, simple ms)}, the stems' rows by
+    path and the launch shapes checked (LaunchShapes' form)."""
     check_tf32_off("the fp32 gates' F.conv3d yardstick")
-    errs = {"conv3x3": (0.0, 0.0), "zslab": (0.0, 0.0)}
+    t0 = time.perf_counter()
+    errs = dict.fromkeys(("conv3x3", "zslab", "stem", "stem_once"), (0.0, 0.0))
     checked = {"conv3x3": set(), "zslab": set()}
-    times = {}
-    for path, batch in FP32_PATHS.items():
-        for kernel, C, F, vol in fp32_launches(path):
-            x, w = conv_inputs(C, F, vol, batch, torch.float32, gen)
-            per = kernel == "zslab"
-            fwd, plain = ((conv3d_zslab_forward, conv3d_zslab_plain) if per
-                          else (conv3d_3x3_forward, conv3d_3x3_plain))
-            variant = igemm_variant(x, w)
-            label = f"{path} kernel #{2 if per else 1} B={batch} {C:>4}->{F:<4} @{vol}"
-            check(variant == conv_variant(torch.float32, C, F)
-                  and variant == ("simple" if C < 32 else "tf32x3"),
-                  f"[fp32] {label}: variant {variant}")
-            y_k = fwd(x, w)
-            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            events[0].record()
-            y_p = plain(x, w)  # the plain version's time: this call's
-            events[1].record()
-            torch.cuda.synchronize()
-            plain_t = events[0].elapsed_time(events[1])
-            r = rel_err(y_k, y_p)
-            a = (y_k - y_p).abs().max().item()
-            del y_k, y_p
-            check(math.isfinite(r) and r <= 1e-5, f"[fp32] {label}: rel error {r} > 1e-5")
-            errs[kernel] = (max(errs[kernel][0], a), max(errs[kernel][1], r))
-            checked[kernel].add((batch, *vol, C, F, "fp32"))
-            xc, wc = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous()
-            ms = time_ms(lambda: fwd(x, w), 1)
-            simple = (ms if variant == "simple"
-                      else time_ms(lambda: simple_forward(x, w, 1, per), 1))
-            lib = time_ms(lambda: fn.conv3d(xc, wc, None, 1, 1), 1)
-            del x, w, xc, wc
-            torch.cuda.empty_cache()
-            times[(path, kernel, C, F, vol)] = (ms, plain_t, lib, simple)
-            flop_ms, byte_ms = bound_ms(C, F, vol, batch, itemsize=4)
-            bound = max(flop_ms, byte_ms)
-            print(f"[fp32] {label} ({variant}): rel err {r:.3e}; {ms:.3f} ms "
-                  f"({conv_flops(C, F, vol, batch) / ms / 1e9:.1f} TFLOP/s), bound "
-                  f"{bound:.3f} ms ({'operations' if flop_ms >= byte_ms else 'bytes'}, 3xTF32), "
-                  f"{bound / ms:.1%} of it, FP32 pipe {fp32_pipe_ms(C, F, vol, batch):.3f} ms; "
-                  f"simple {simple:.3f} ms, plain {plain_t:.3f} ms, F.conv3d (TF32 off) "
-                  f"{lib:.3f} ms")
-    return errs, times, checked
+    times, rows = {}, {}
+    shapes = ([(path, batch, *launch) for path, batch in FP32_PATHS.items()
+               for launch in fp32_launches(path)]
+              + [(label, batch, "zslab", C, F, vol) for label, batch, C, F, vol in FP32_STEM_SHAPES])
+
+    def gate(fwd, plain, x, w, label):
+        """fwd against plain (<= 1e-5): (max abs err, rel err, plain ms)."""
+        y_k = fwd(x, w)
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
+        y_p = plain(x, w)  # the plain version's time: this call's
+        events[1].record()
+        torch.cuda.synchronize()
+        r = rel_err(y_k, y_p)
+        a = (y_k - y_p).abs().max().item()
+        check(math.isfinite(r) and r <= 1e-5, f"[fp32] {label}: rel error {r} > 1e-5")
+        return a, r, events[0].elapsed_time(events[1])
+
+    for path, batch, kernel, C, F, vol in shapes:
+        x, w = conv_inputs(C, F, vol, batch, torch.float32, gen)
+        per = kernel == "zslab"
+        fwd, plain = ((conv3d_zslab_forward, conv3d_zslab_plain) if per
+                      else (conv3d_3x3_forward, conv3d_3x3_plain))
+        variant = igemm_variant(x, w)
+        label = f"{path} kernel #{2 if per else 1} B={batch} {C:>4}->{F:<4} @{vol}"
+        check(variant == conv_variant(torch.float32, C, F)
+              and variant == ("stem" if C <= STEM_MAX_C else "tf32x3"),
+              f"[fp32] {label}: variant {variant}")
+        a, r, plain_t = gate(fwd, plain, x, w, label)
+        key = "stem" if variant == "stem" else kernel
+        errs[key] = (max(errs[key][0], a), max(errs[key][1], r))
+        checked[kernel].add((batch, *vol, C, F, "fp32"))
+        xc, wc = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous()
+        ms = time_ms(lambda: fwd(x, w), 1)
+        simple = time_ms(lambda: simple_forward(x, w, 1, per), 1)
+        lib = time_ms(lambda: fn.conv3d(xc, wc, None, 1, 1), 1)
+        times[(path, kernel, C, F, vol)] = (ms, plain_t, lib, simple)
+        flop_ms, byte_ms = bound_ms(C, F, vol, batch, itemsize=4)
+        bound = max(flop_ms, byte_ms)
+        by = "operations" if flop_ms >= byte_ms else "bytes"
+        pipe = fp32_pipe_ms(C, F, vol, batch)
+        line = (f"[fp32] {label} ({variant}): rel err {r:.3e}; {ms:.3f} ms "
+                f"({conv_flops(C, F, vol, batch) / ms / 1e9:.1f} TFLOP/s), bound {bound:.3f} ms "
+                f"({by}, 3xTF32), {bound / ms:.1%} of it, FP32 pipe {pipe:.3f} ms; simple "
+                f"{simple:.3f} ms, plain {plain_t:.3f} ms, F.conv3d (TF32 off) {lib:.3f} ms")
+        if variant == "stem":  # kernel #1's stem, rounded once, at the same shape
+            a1, r1, plain1 = gate(conv3d_3x3_forward, conv3d_3x3_plain, x, w,
+                                  f"{label} kernel #1")
+            errs["stem_once"] = (max(errs["stem_once"][0], a1), max(errs["stem_once"][1], r1))
+            once = time_ms(lambda: conv3d_3x3_forward(x, w), 1)
+            checked["conv3x3"].add((batch, *vol, C, F, "fp32"))
+            rows[path] = dict(batch=batch, C=C, F=F, vol=list(vol), ms=ms, once_ms=once,
+                              bound_ms=bound, bound_by=by, share=bound / ms, pipe_ms=pipe,
+                              plain_ms=plain_t, once_plain_ms=plain1, library_ms=lib,
+                              simple_ms=simple)
+            line += (f"; kernel #1's stem {once:.3f} ms (rel err {r1:.3e}, plain "
+                     f"{plain1:.3f} ms)")
+        del x, w, xc, wc
+        torch.cuda.empty_cache()
+        print(line)
+    print(f"[fp32] gates: {time.perf_counter() - t0:.1f} s")
+    return errs, times, rows, checked
 
 
 FP32_KEYS = TOTAL_KEYS + ("simple_ms", "pipe_ms")
@@ -1576,13 +1675,13 @@ FP32_KEYS = TOTAL_KEYS + ("simple_ms", "pipe_ms")
 
 def fp32_totals(times):
     """{(path, kernel): FP32_KEYS totals of one B step or one volume} over the
-    launches the tf32x3 variant runs (the stems, simple in fp32 before and
-    after, under (path, "stem")), from fp32_gate_phase's times."""
+    launches the tf32x3 variant runs, and over the stems' (the stem variant,
+    under (path, "stem")), from fp32_gate_phase's times."""
     tot = {}
     for path, batch in FP32_PATHS.items():
         for (kernel, C, F, vol), n in fp32_launches(path).items():
             ms, plain, lib, simple = times[(path, kernel, C, F, vol)]
-            t = tot.setdefault((path, kernel if C >= 32 else "stem"),
+            t = tot.setdefault((path, "stem" if C <= STEM_MAX_C else kernel),
                                dict.fromkeys(FP32_KEYS, 0.0))
             add_totals(t, n, ms, plain, lib, *bound_ms(C, F, vol, batch, itemsize=4))
             t["simple_ms"] += n * simple
@@ -1852,8 +1951,8 @@ def slice_phase(block=False, dtype="bfloat16"):
         check(not torch.gather(hard, 1, top).any(), f"step {step}: a forced patch is kept")
         # two forwards (teacher, student) of 17 convs and 22 norms and the
         # student's dx: 34 on kernel #1, all hopper (fp32: tf32x3); 16 on
-        # kernel #2, of which the stem's two (C = 1) on the stem variant (fp32:
-        # simple); 44 moments
+        # kernel #2, of which the stem's two (C = 1) on the stem variant (in
+        # fp32 too); 44 moments
         n = since(before)
         check(n == want_launches, f"{tag} step {step}: launches {n}, expected {want_launches}")
         n_pad = {k: v - pads[k] for k, v in padding_counts().items()}
@@ -2205,7 +2304,7 @@ def inference_phase(dtype=torch.bfloat16, volumes=VOLUMES):
         check(logits.shape == (NUM_CLASSES, *VOLUME), f"volume {v}: logits {logits.shape}")
         check(bool(np.isfinite(logits).all()), f"volume {v}: non-finite logits")
         # a tile: 7 convs on kernel #1, 10 on kernel #2 (the stem on the stem
-        # variant; fp32: tf32x3, the stem simple), 22 norms
+        # variant, in fp32 too; fp32: the rest tf32x3), 22 norms
         want = {k: TILES * n_tile for k, n_tile in want_tile.items()}
         check(n == want, f"{tag} volume {v}: launches {n}, expected {want}")
         first = logits if first is None else first
@@ -2830,12 +2929,15 @@ PROFILED_STEPS = 3
 
 def kernel_group(name):
     """A device kernel's group in a step's split: the port's three kernels
-    (the conv's PER_TAP instantiations are kernel #2), the library's
-    convolutions and matmuls (cuDNN, cuBLAS), the rest by what it does."""
-    if any(k in name for k in ("conv3x3_wgmma", "conv3x3_tf32x3", "conv3x3_kernel")):
+    (the convs' PER_TAP instantiations, the stems' of both dtypes among them,
+    are kernel #2), the library's convolutions and matmuls (cuDNN, cuBLAS;
+    cuDNN's weight-gradient kernels among them), the rest by what it does."""
+    if any(k in name for k in ("conv3x3_wgmma", "conv3x3_tf32x3", "conv3x3_kernel",
+                               "conv3x3_stem")):
         # PER_TAP: kernel #2
         return "kernel #2" if "Lb1E" in name or "true>" in name else "kernel #1"
     rules = (("moments", "kernel #3"), ("xmma", "cuDNN/cuBLAS conv and matmul"),
+             ("wgrad", "cuDNN/cuBLAS conv and matmul"),
              ("gemm", "cuDNN/cuBLAS conv and matmul"), ("conv", "cuDNN/cuBLAS conv and matmul"),
              ("cutlass", "cuDNN/cuBLAS conv and matmul"), ("index", "gather/scatter (warps)"),
              ("gather", "gather/scatter (warps)"), ("scatter", "gather/scatter (warps)"),
@@ -4665,7 +4767,7 @@ def main():
     block_tot = block_step_totals(k1_step, zc_timed, mom_timed, block_times)
     free_memory()
     # its own generator: the later phases draw as before
-    fp32_errs, fp32_times, fp32_checked = fp32_gate_phase(
+    fp32_errs, fp32_times, fp32_stem_rows, fp32_checked = fp32_gate_phase(
         torch.Generator(device="cuda").manual_seed(16))
     fp32_tot = fp32_totals(fp32_times)
     free_memory()
@@ -4768,6 +4870,10 @@ def main():
             "cascade": casc_launches, "ddp": ddp_launches, "multinode": multinode_launches,
             "block_step": block_launches, "fp32_pretrain": fp32_pretrain,
             "fp32_volume": fp32_volume, "fp32_trainer": fp32_trainer}
+    for path, c in runs.items():
+        check(c["conv3x3.simple"] == 0 and c["zslab.simple"] == 0,
+              f"{path}: the simple variant launched ({c})")
+    print(f"[paths] no path launched the simple variant ({len(runs)} runs)")
     per = ("one pretraining step (B = 4), one inference volume (18 STUNet-B tiles at B = 8), "
            f"one case of the file path ({case_tiles} PlainConvUNet tiles at B = 8), one "
            "STUNet-B finetuning step and one ATKTrainer PlainConvUNet step (B = 2), one "
@@ -4893,6 +4999,25 @@ def main():
         for p, t in paths.items():
             rec["by_path"][p].update(simple_ms=t["simple_ms"], pipe_ms=t["pipe_ms"])
         kernels.append(rec)
+    # the fp32 stem (kernel #2's stem variant in float32, on the FP32 pipe):
+    # its launches in the fp32 runs, its times over one B step and one volume
+    # from the fp32 gates, and its rows at every fp32 stem shape gated
+    paths = {p: fp32_tot[(p, "stem")] for p in FP32_PATHS}
+    rec = kernel_record(
+        "conv3d_zslab.stem_fp32", "anatomask_torch/csrc/conv3x3_stem.cuh",
+        "anatomask_tpu/ops/pallas_zslab_conv.py:142",
+        {p: c["zslab.stem"] for p, c in fp32_runs.items()}, *fp32_errs["stem"], paths,
+        "the fp32 stem's launches on the float32 path (kernel #2's stem variant in fp32: "
+        "1 -> 32, two a pretraining step at B = 4, one a tile at B = 8), launches_by_path as "
+        "the tf32x3 records'; simple_ms the simple variant it replaced (its C entry point), "
+        "pipe_ms the products at the FP32 pipe's 67 TFLOP/s, bound_ms the bytes at 3.35 TB/s "
+        "(or three TF32 products a term at 495 TFLOP/s); library_ms F.conv3d in fp32 with TF32 "
+        "off; by_shape: each fp32 stem shape gated (once_ms: kernel #1's once-rounded stem)")
+    rec["simple_ms"] = sum(t["simple_ms"] for t in paths.values())
+    rec["pipe_ms"] = sum(t["pipe_ms"] for t in paths.values())
+    rec["once_max_abs_err"], rec["once_max_rel_err"] = fp32_errs["stem_once"]
+    rec["by_shape"] = fp32_stem_rows
+    kernels.append(rec)
     kernels[0]["stem"] = {"launches_by_path": {p: c["conv3x3.stem"] for p, c in runs.items()},
                           "once_ms_by_shape": {p: r["once_ms"] for p, r in stem_rows.items()},
                           "once_plain_ms_by_shape": {p: r["once_plain_ms"]

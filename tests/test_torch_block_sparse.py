@@ -19,6 +19,7 @@ import torch.nn.functional as fn
 from anatomask_tpu.ops import block_sparse as jbs
 from anatomask_tpu.ssl import sparse as jsp
 from anatomask_torch import convert
+from anatomask_torch.models import layers
 from anatomask_torch.ops import block_sparse as tbs
 from anatomask_torch.ops.conv3x3 import conv3d_3x3_plain
 from anatomask_torch.ops.zslab_conv import conv3d_zslab_plain
@@ -236,6 +237,7 @@ def _port_encoder(tenc, x, keep, ws):
 _CANCELLED = re.compile(r"conv_blocks_context\.\d+\.\d+\.conv[12]\.bias")
 _GRAD_ATOL = 1e-5
 _GRAD_RTOL = 1.5e-4
+ROUND_OFF = 1e-6  # a gradient of pure round-off (test_torch_multinode.py's floor)
 
 
 def _close_grads(got, want):
@@ -282,6 +284,45 @@ def test_block_route_matches_the_dense_route(monkeypatch):
     for got, want in zip(block_f, dense_f):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
     _close_grads(block_g, dense_g)
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_block_route_matches_the_dense_route_in_float64(monkeypatch, depth):
+    """The witness for the block route's fp32 gaps (every gradient leaf
+    within 1e-5 of the largest entry, but up to 2.36e-5 and 6.72e-5 of its
+    own largest against JAX at depths 1 and 2): the same case in float64,
+    the 3x3x3 convs and norm sums of both routes swapped for float64 library
+    versions of the same functions (tests/torch_ddp_cases.py's, as
+    test_torch_multinode.py's float64 witness swaps them). The block route
+    against the dense route: every feature and every gradient leaf within
+    1e-5 of its own largest entry (a leaf of pure round-off, a conv bias
+    that a norm cancels, of ROUND_OFF times the largest gradient entry). So
+    what parts the fp32 routes is fp32 summation order."""
+    from torch_ddp_cases import _conv3x3_64, _row_moments_64
+    for module, name, f in ((layers, "conv3d_3x3", _conv3x3_64),
+                            (layers, "conv3d_zconcat", _conv3x3_64),
+                            (tbs, "conv3d_zconcat", _conv3x3_64),
+                            (layers, "row_moments", _row_moments_64),
+                            (tsp, "row_moments", _row_moments_64),
+                            (tbs, "row_moments", _row_moments_64)):
+        monkeypatch.setattr(module, name, f)
+    x, keep, _, _, tenc, ws = _encoder_case(depth, False)
+    tenc.double()
+    for m in tenc.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = torch.float64
+    x = x.astype(np.float64)
+    dense_f, dense_g = _port_encoder(tenc, x, keep, ws)
+    assert all(g.dtype == np.float64 for g in dense_g.values())
+    monkeypatch.setenv("ATK_BLOCK_SPARSE", "1")
+    assert tenc._block_stage_count(torch.zeros(1, 1, INPUT, INPUT, INPUT), mask_port(keep)) == 2
+    block_f, block_g = _port_encoder(tenc, x, keep, ws)
+    for got, want in zip(block_f, dense_f):
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    g_max = max(np.abs(v).max() for v in dense_g.values())
+    for name, want in dense_g.items():
+        gap = np.abs(block_g[name] - want).max()
+        assert gap <= 1e-5 * max(np.abs(want).max(), ROUND_OFF * g_max), (name, gap)
 
 
 _STRIDES = {"stunet": None, "first strided": [(2, 2, 2)] * 5,

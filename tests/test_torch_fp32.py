@@ -1,9 +1,9 @@
 """The float32 path of anatomask_torch (`-compute_dtype float32`) on the CPU:
 
 - the variant rule sends fp32 convs with C and F multiples of 32 (16-byte
-  aligned x) to the tf32x3 variant of csrc/conv3x3_igemm.cuh and keeps the
-  fp32 stems and the other shapes on the simple variant; BN is one the C
-  launcher builds;
+  aligned x) to the tf32x3 variant of csrc/conv3x3_igemm.cuh, the fp32 stems
+  to the stem variant (csrc/conv3x3_stem.cuh, on the FP32 pipe) and the
+  other shapes to the simple variant; BN is one the C launcher builds;
 - the weight's TF32 hi and lo planes (pack_weight "tf32x3"): hi is a TF32
   value (its low 13 bits zero), |lo| <= 2^-11 |w|, and hi + lo is w to within
   lo's own rounding (half a TF32 ulp of lo);
@@ -48,8 +48,8 @@ from torch_parity import numpy_params, to_ncdhw
 RULE_CASES = (
     [((torch.float32, C, F, True), "tf32x3") for C, F in ((32, 32), (32, 64), (64, 32),
                                                            (96, 160), (512, 512), (1024, 512))]
-    + [((torch.float32, C, F, True), "simple") for C, F in ((48, 64), (64, 48), (32, 16),
-                                                             (8, 32))]
+    + [((torch.float32, C, F, True), "simple") for C, F in ((48, 64), (64, 48), (32, 16))]
+    + [((torch.float32, 8, 32, True), "stem")]
     + [((torch.float32, 32, 32, False), "simple"), ((torch.bfloat16, 32, 32, True), "hopper"),
        ((torch.bfloat16, 1, 32, True), "stem")])
 
@@ -64,10 +64,12 @@ def test_fp32_variant_rule(case, variant):
 
 def test_fp32_stems_stay_simple():
     """Every fp32 stem the rule could see (C up to STEM_MAX_C, F a multiple
-    of 16 up to 96) keeps the simple variant: no stem variant in fp32."""
+    of 16 up to 96) no longer stays on the simple variant: it takes the stem
+    variant, as in bf16, aligned or not."""
     for C in range(1, STEM_MAX_C + 1):
         for F in range(16, 97, 16):
-            assert conv_variant(torch.float32, C, F) == "simple", (C, F)
+            for aligned in (True, False):
+                assert conv_variant(torch.float32, C, F, aligned) == "stem", (C, F, aligned)
 
 
 def test_tf32_tile_is_one_the_launcher_builds():

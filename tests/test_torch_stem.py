@@ -109,8 +109,11 @@ def test_per_tap_plain_matches_jax_block_conv3(C, F):
     np.testing.assert_allclose(got32.reshape(ref32.shape).numpy(), ref32, rtol=1e-5, atol=1e-5)
 
 
-# (dtype, C, F, 16-byte-aligned x) -> variant: every stem of the paths, the
-# stem domain's edges, and the shapes around it
+# the fp32 stems' grid beyond the two path stems (1 -> 32, 4 -> 32, aligned)
+FP32_STEM_GRID = [(C, F, a) for C in (1, 2, 3, 4, 5, STEM_MAX_C) for F in (16, 32, 48, 96)
+                  for a in (True, False) if (C, F, a) not in ((1, 32, True), (4, 32, True))]
+# (dtype, C, F, 16-byte-aligned x) -> variant: every stem of the paths in
+# both dtypes, the stem domain's edges, and the shapes around it
 RULE_CASES = (
     [((torch.bfloat16, C, F, True), "stem") for C, F in ((1, 32), (3, 32), (4, 32), (1, 96))]
     + [((torch.bfloat16, C, F, a), "stem") for C in (2, 5, STEM_MAX_C) for F in (16, 48)
@@ -118,7 +121,10 @@ RULE_CASES = (
     + [((torch.bfloat16, C, F, True), "simple") for C, F in ((STEM_MAX_C + 1, 32), (1, 8),
                                                               (1, 24), (4, STEM_MAX_F + 16),
                                                               (1, 128), (32, 1), (32, 16))]
-    + [((torch.float32, C, F, True), "simple") for C, F in ((1, 32), (4, 32))]
+    + [((torch.float32, C, F, True), "stem") for C, F in ((1, 32), (4, 32))]
+    + [((torch.float32, C, F, a), "stem") for C, F, a in FP32_STEM_GRID]
+    + [((torch.float32, C, F, True), "simple") for C, F in ((STEM_MAX_C + 1, 32), (1, 8),
+                                                             (1, STEM_MAX_F + 16))]
     + [((torch.float32, 32, 32, True), "tf32x3")]
     + [((torch.bfloat16, 32, 32, True), "hopper"), ((torch.bfloat16, 32, 32, False), "simple"),
        ((torch.bfloat16, 64, 96, True), "hopper")])
@@ -160,9 +166,11 @@ def test_pack_weight_stem_unpacks(C):
 
 def test_stem_launchers_instantiate_every_channel_count():
     """The stem header instantiates exactly the channel counts 1..STEM_MAX_C
-    that conv_variant sends to it, its F limit is STEM_MAX_F, its K layout
-    is stem_rows', and both conv sources expose a _stem launcher with their
-    rounding (kernel #1 once, kernel #2 per tap)."""
+    that conv_variant sends to it, in bf16 and in fp32 (the launcher picks
+    the kernel by the dtype code), its F limit is STEM_MAX_F, its K layout
+    is stem_rows' (the fp32 kernel reads the same packed weight), and both
+    conv sources expose a _stem launcher that passes the dtype on, with
+    their rounding (kernel #1 once, kernel #2 per tap)."""
     header = (_build.CSRC / "conv3x3_stem.cuh").read_text()
     body = header[header.index("#define CONV3X3_STEM_CHANNELS"):].split("\n")[0]
     assert [int(c) for c in re.findall(r"C_\((\d+)\)", body)] == list(range(1, STEM_MAX_C + 1))
@@ -170,14 +178,22 @@ def test_stem_launchers_instantiate_every_channel_count():
     assert re.search(rf"constexpr int MAX_F = {STEM_MAX_F};", header)
     assert "R = 3 * C + (ODD ? 1 : 0)" in header and "KC = (KREAL + 15) / 16" in header
     assert "CONV3X3_STEM_CHANNELS(CONV3X3_STEM_CASE)" in header
+    case = header[header.rindex("#define CONV3X3_STEM_CASE"):].split("CONV3X3_STEM_CHANNELS")[0]
+    assert re.search(r"dtype == 1 \? launch_c<C_, PER_TAP>\(.*\)\s*:\s*f32::launch_c<C_, PER_TAP>",
+                     case.replace("\\\n", " "), re.S)
+    assert "stem_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w" in header
+    assert "R = 3 * C + C % 2, KT = (3 * R + 15) / 16 * 16" in header
     for source, symbol, per_tap in (("conv3x3.cu", "conv3x3_forward_stem", "false"),
                                     ("zslab_conv.cu", "zslab_forward_stem", "true")):
         text = (_build.CSRC / source).read_text()
         assert '#include "conv3x3_stem.cuh"' in text
-        entry = text[text.index(f'extern "C" int {symbol}('):]
-        assert f"conv3x3_stem::launch<{per_tap}>(" in entry.split("}")[0]
+        entry = text[text.index(f'extern "C" int {symbol}('):].split("}")[0]
+        assert "int p, int dtype, void* stream)" in entry
+        assert (f"conv3x3_stem::launch<{per_tap}>(x, w, y, B, X, Y, Z, C, F, p, dtype, stream)"
+                in entry)
     # every (C, F) the rule sends to the stem lies in the launcher's domain
-    for C in range(1, 40):
-        for F in range(1, 200):
-            if conv_variant(torch.bfloat16, C, F) == "stem":
-                assert 1 <= C <= STEM_MAX_C and F % 16 == 0 and 16 <= F <= STEM_MAX_F
+    for dtype in (torch.bfloat16, torch.float32):
+        for C in range(1, 40):
+            for F in range(1, 200):
+                if conv_variant(dtype, C, F) == "stem":
+                    assert 1 <= C <= STEM_MAX_C and F % 16 == 0 and 16 <= F <= STEM_MAX_F

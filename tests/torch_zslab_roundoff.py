@@ -3,8 +3,8 @@ reference, and why. First kernel #2 (the per-tap rounded 3x3x3 conv,
 ops/zslab_conv.py): a second witness for chip_smoke.py's bf16 gate (relative
 max error <= 1e-2 against conv3d_zslab_plain) at the STUNet-H 192 -> 192
 launch shapes; modes `fp32` and `k1h` (below) hold the float32 path's
-tf32x3 variant of both kernels and kernel #1's bf16 hopper variant to float64
-in the same way.
+variants of both kernels (tf32x3 and the fp32 stem) and kernel #1's bf16
+hopper variant to float64 in the same way.
 
 Each draw holds three implementations of the same function on the same
 input against a float64 reference, y* = bf16(bf16(t0 + t1) + t2) with each
@@ -41,13 +41,17 @@ Modes (on the card; the kernels are built from csrc/ at the first launch):
     python tests/torch_zslab_roundoff.py variants # the hopper variant built at
         # several promotion intervals: accuracy on seed 20 and ms at those shapes
     python tests/torch_zslab_roundoff.py fp32     # both kernels in float32 at
-        # every tf32x3 launch shape of the B step and of a volume tile: the
-        # tf32x3 variant, the simple variant and the plain version against a
-        # float64 reference of each kernel's function; tf32x3 must stay within
-        # twice the plain version's distance (FP32_LIMIT)
+        # every launch shape of the B step and of a volume tile and at
+        # chip_smoke.py's gated fp32 stems: the variant the rule picks (tf32x3,
+        # or the stem), the simple variant and the plain version against a
+        # float64 reference of each kernel's function; the variant must stay
+        # within twice the plain version's distance (FP32_LIMIT)
     python tests/torch_zslab_roundoff.py k1h      # kernel #1's bf16 hopper
         # variant (one rounding) at the STUNet-H step's kernel #1 shapes
         # against the float64 sum rounded once to bf16, beside the plain version
+    python tests/torch_zslab_roundoff.py k1variants  # kernel #1's hopper
+        # variant built at several promotion intervals: k1h's shares and its ms
+        # and totals at the B and H steps' kernel #1 shapes
 
 Modes run in the order given.
 """
@@ -66,10 +70,7 @@ from anatomask_torch.ops.zslab_conv import (conv3d_zslab_forward,  # noqa: E402
 CHUNK = 1 << 27  # elements per chunk of the elementwise statistics
 
 
-def round_bf16_64(v):
-    """float64 -> the nearest bf16 value (ties to even), as float32."""
-    m, e = torch.frexp(v)  # |m| in [0.5, 1)
-    return torch.ldexp(torch.round(m * 256.0), e - 8).float()
+round_bf16_64 = cs.round_bf16_64  # float64 -> the nearest bf16 value, as float32
 
 
 def ulp_bf16(r):
@@ -288,6 +289,38 @@ def time():
         torch.cuda.empty_cache()
 
 
+def build_promoted(name, groups, macro="CONV3X3_PROMOTE"):
+    """csrc/<name>.cu built once for each promotion interval in `groups` (the
+    hopper variant's CONV3X3_PROMOTE, or `macro`), in parallel: {g: (library,
+    ptxas report)}, and `use(g)`, which sends the port's launches of that
+    library to build g (`use(None)`: back to the port's own build)."""
+    import ctypes
+    import subprocess
+    from concurrent.futures import ThreadPoolExecutor
+
+    from anatomask_torch.ops import _build
+
+    def build(g):
+        out = _build.BUILD_DIR / f"{name}-promote{g}.so"
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        res = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, f"-D{macro}={g}",
+                              "-o", str(out), str(_build.CSRC / f"{name}.cu")],
+                             capture_output=True, text=True, check=True)
+        return out, res.stdout + res.stderr
+
+    with ThreadPoolExecutor(len(groups)) as pool:
+        built = dict(zip(groups, pool.map(build, groups)))
+    load = _build.load
+    libs = {g: ctypes.CDLL(str(path)) for g, (path, _) in built.items()}
+
+    def use(g):
+        cs.conv_mod._build.load = (load if g is None
+                                   else lambda lib: libs[g] if lib == name else load(lib))
+        cs.conv_mod._entry.cache_clear()
+
+    return built, use
+
+
 def variants(groups=(1, 2, 3, 4, 6, 9, 1000)):
     """csrc/zslab_conv.cu built once for each promotion interval (the hopper
     variant's CONV3X3_PROMOTE: K steps whose products chain on the tensor
@@ -297,27 +330,8 @@ def variants(groups=(1, 2, 3, 4, 6, 9, 1000)):
     at 64^3, B = 2, as `taps`), the gate and distance to y* on that draw, and
     kernel #2's ms at TIMED (its variants timed in turn, twice)."""
     import re
-    import subprocess
-    from concurrent.futures import ThreadPoolExecutor
 
-    from anatomask_torch.ops import _build
-
-    def build(g):
-        out = _build.BUILD_DIR / f"zslab_conv-promote{g}.so"
-        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        res = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, f"-DCONV3X3_PROMOTE={g}",
-                              "-o", str(out), str(_build.CSRC / "zslab_conv.cu")],
-                             capture_output=True, text=True, check=True)
-        return out, res.stdout + res.stderr
-
-    with ThreadPoolExecutor(len(groups)) as pool:
-        built = dict(zip(groups, pool.map(build, groups)))
-    load = _build.load
-    libs = {g: __import__("ctypes").CDLL(str(path)) for g, (path, _) in built.items()}
-
-    def use(g):
-        cs.conv_mod._build.load = lambda name: libs[g] if name == "zslab_conv" else load(name)
-        cs.conv_mod._entry.cache_clear()
+    built, use = build_promoted("zslab_conv", groups)
 
     x, w = cs.conv_inputs(192, 192, (64, 64, 64), 2, torch.bfloat16,
                           torch.Generator(device="cuda").manual_seed(20))
@@ -361,22 +375,20 @@ def variants(groups=(1, 2, 3, 4, 6, 9, 1000)):
               + ", ".join(f"{g}: {min(t):.4f}" for g, t in times.items()), flush=True)
         del x, w
         torch.cuda.empty_cache()
-    cs.conv_mod._build.load = load
-    cs.conv_mod._entry.cache_clear()
+    use(None)
 
 
 def conv64(x, w, first_axis=None):
     """The float64 conv of x (NDHWC) by w (DHWIO) at padding 1, as NDHWC;
     with `first_axis` d, that first-axis tap's alone (a (1, 3, 3) conv of
     the input shifted by d - 1 along the first axis)."""
+    if first_axis is None:
+        return cs.conv64(x, w)
     xc = x.permute(0, 4, 1, 2, 3).double()
     wc = w.permute(4, 3, 0, 1, 2).double()
-    if first_axis is None:
-        y = torch.nn.functional.conv3d(xc, wc, padding=1)
-    else:
-        D = x.shape[1]
-        xp = torch.nn.functional.pad(xc, (0, 0, 0, 0, 1, 1))[:, :, first_axis:first_axis + D]
-        y = torch.nn.functional.conv3d(xp, wc[:, :, first_axis:first_axis + 1], padding=(0, 1, 1))
+    D = x.shape[1]
+    xp = torch.nn.functional.pad(xc, (0, 0, 0, 0, 1, 1))[:, :, first_axis:first_axis + D]
+    y = torch.nn.functional.conv3d(xp, wc[:, :, first_axis:first_axis + 1], padding=(0, 1, 1))
     return y.permute(0, 2, 3, 4, 1)
 
 
@@ -399,40 +411,44 @@ def rel_stats(y, ref):
         (d.square().mean().sqrt() / ref.double().square().mean().sqrt()).item()
 
 
-FP32_LIMIT = 2.0  # tf32x3's distance from float64 at most this many times the plain version's
+FP32_LIMIT = 2.0  # a variant's distance from float64 at most this many times the plain version's
 
 
 def fp32(seed=0):
-    """Both kernels' tf32x3 variant, their simple variant and their plain
-    versions against fp32_reference at every tf32x3 launch shape of the
-    float32 B step and volume tile (chip_smoke.fp32_launches), inputs as
-    chip_smoke.py draws them."""
+    """Both kernels' fp32 variants (tf32x3; the stems' stem variant on the
+    FP32 pipe), their simple variant and their plain versions against
+    fp32_reference at every fp32 launch shape of the float32 B step and
+    volume tile (chip_smoke.fp32_launches) and at chip_smoke.FP32_STEM_SHAPES
+    (kernel #2), inputs as chip_smoke.py draws them."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    worst, failed = 0.0, []
-    for path, batch in cs.FP32_PATHS.items():
-        for kernel, C, F, vol in cs.fp32_launches(path):
-            if C < 32:  # the stems: simple in fp32
-                continue
-            per = kernel == "zslab"
-            x, w = cs.conv_inputs(C, F, vol, batch, torch.float32, gen)
-            ref = fp32_reference(x, w, per)
-            fwd, plain = ((conv3d_zslab_forward, conv3d_zslab_plain) if per
-                          else (cs.conv3d_3x3_forward, cs.conv3d_3x3_plain))
-            stats = {"tf32x3": rel_stats(fwd(x, w), ref),
-                     "simple": rel_stats(cs.simple_forward(x, w, 1, per), ref),
-                     "plain": rel_stats(plain(x, w), ref)}
-            ratio = stats["tf32x3"][0] / stats["plain"][0]
-            worst = max(worst, ratio)
-            if ratio > FP32_LIMIT:
-                failed.append((path, kernel, C, F, vol))
-            print(f"[fp32] {path} kernel #{2 if per else 1} B={batch} {C}->{F} @{vol}: "
-                  f"distance from float64 (max, rms relative): "
-                  + ", ".join(f"{k} {m:.3e} {r:.3e}" for k, (m, r) in stats.items())
-                  + f"; tf32x3 / plain {ratio:.3f}", flush=True)
-            del x, w, ref
-            torch.cuda.empty_cache()
-    print(f"[fp32] tf32x3 at most {worst:.3f} x the plain version's distance from float64 "
-          f"(limit {FP32_LIMIT}); shapes over it: {failed}")
+    worst, failed = {}, []
+    shapes = ([(path, batch, *launch) for path, batch in cs.FP32_PATHS.items()
+               for launch in cs.fp32_launches(path)]
+              + [(label, batch, "zslab", C, F, vol)
+                 for label, batch, C, F, vol in cs.FP32_STEM_SHAPES])
+    for path, batch, kernel, C, F, vol in shapes:
+        per = kernel == "zslab"
+        x, w = cs.conv_inputs(C, F, vol, batch, torch.float32, gen)
+        variant = cs.igemm_variant(x, w)
+        ref = fp32_reference(x, w, per)
+        fwd, plain = ((conv3d_zslab_forward, conv3d_zslab_plain) if per
+                      else (cs.conv3d_3x3_forward, cs.conv3d_3x3_plain))
+        stats = {variant: rel_stats(fwd(x, w), ref),
+                 "simple": rel_stats(cs.simple_forward(x, w, 1, per), ref),
+                 "plain": rel_stats(plain(x, w), ref)}
+        ratio = stats[variant][0] / stats["plain"][0]
+        worst[variant] = max(worst.get(variant, 0.0), ratio)
+        if ratio > FP32_LIMIT:
+            failed.append((path, kernel, C, F, vol))
+        print(f"[fp32] {path} kernel #{2 if per else 1} B={batch} {C}->{F} @{vol}: "
+              f"distance from float64 (max, rms relative): "
+              + ", ".join(f"{k} {m:.3e} {r:.3e}" for k, (m, r) in stats.items())
+              + f"; {variant} / plain {ratio:.3f}", flush=True)
+        del x, w, ref
+        torch.cuda.empty_cache()
+    print("[fp32] at most " + ", ".join(f"{v} {r:.3f}x" for v, r in worst.items())
+          + f" the plain version's distance from float64 (limit {FP32_LIMIT}); shapes over "
+          f"it: {failed}")
 
 
 def k1_h_shapes():
@@ -475,6 +491,76 @@ def k1h(seed=0):
               f"{cs.igemm_variant(x, w)}): " + "; ".join(line), flush=True)
         del x, w, ref
         torch.cuda.empty_cache()
+
+
+def k1_step_counts(sites, micro, forwards):
+    """{(B, C, F, (X, Y, Z)): kernel #1's launches in one step}: `forwards`(name)
+    forwards of each site below MIN_VOLUME voxels and `micro` dx of each but
+    the stem, at the microbatch B = cs.BATCH // micro."""
+    batch, out = cs.BATCH // micro, {}
+    for i, (name, C, F, vol) in enumerate(sites):
+        for key, n in (((batch, C, F, vol), 0 if cs.per_tap(vol) else forwards(name)),
+                       ((batch, F, C, vol), micro if i > 0 else 0)):
+            if n:
+                out[key] = out.get(key, 0) + n
+    return out
+
+
+K1_PROMOTE_LIMIT = 2.0  # kernel #1's share rounded otherwise, at most this x the plain version's
+
+
+def k1variants(groups=(4, 8, 16, 32, 1000)):
+    """csrc/conv3x3.cu (kernel #1 alone) built once for each promotion
+    interval (CONV3X3_PROMOTE_ONCE; 1000 chains all of K at every shape of the
+    paths): at each k1h shape the share of elements that the hopper variant
+    rounds to another bf16 value than k1_reference, against the plain
+    version's (within K1_PROMOTE_LIMIT x it or not), then kernel #1's ms at
+    the B and H steps' kernel #1 shapes, the builds timed in turn, twice,
+    and the two steps' kernel #1 totals for each interval."""
+    built, use = build_promoted("conv3x3", groups, "CONV3X3_PROMOTE_ONCE")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    worst = dict.fromkeys(groups, 0.0)
+    for batch, C, F, vol in k1_h_shapes():
+        x, w = cs.conv_inputs(C, F, vol, batch, torch.bfloat16, gen)
+        ref = k1_reference(x, w)
+        plain = (cs.conv3d_3x3_plain(x, w).float() != ref.float()).float().mean().item()
+        shares = {}
+        for g in groups:
+            use(g)
+            shares[g] = (cs.conv3d_3x3_forward(x, w).float() != ref.float()).float().mean().item()
+            worst[g] = max(worst[g], shares[g] / plain)
+        print(f"[k1variants] B={batch} {C}->{F} @{vol} (K = {27 * C}): rounded otherwise: plain "
+              f"{plain:.3e}; " + ", ".join(f"{g}: {v:.3e} ({v / plain:.2f}x)"
+                                          for g, v in shares.items()), flush=True)
+        del x, w, ref
+        torch.cuda.empty_cache()
+    print("[k1variants] worst share against the plain version's (limit "
+          f"{K1_PROMOTE_LIMIT}x): " + ", ".join(f"{g}: {v:.2f}x" for g, v in worst.items()))
+    steps = {"B step": k1_step_counts(cs.SITES, 1, lambda name: 2),
+             "H step": k1_step_counts(cs.H_SITES, cs.H_CFG.grad_accum_steps,
+                                      lambda name: cs.h_forwards(name, cs.H_CFG.grad_accum_steps))}
+    ms = {}
+    for counts in steps.values():
+        for batch, C, F, vol in counts:
+            if (batch, C, F, vol) in ms:
+                continue
+            x, w = cs.conv_inputs(C, F, vol, batch, torch.bfloat16, gen)
+            times = {g: [] for g in groups}
+            for _ in range(2):
+                for g in groups:
+                    use(g)
+                    times[g].append(cs.time_ms(lambda: cs.conv3d_3x3_forward(x, w), 3))
+            ms[(batch, C, F, vol)] = {g: min(t) for g, t in times.items()}
+            print(f"[k1variants] B={batch} {C}->{F} @{vol} ms: "
+                  + ", ".join(f"{g}: {t:.4f}" for g, t in ms[(batch, C, F, vol)].items()),
+                  flush=True)
+            del x, w
+            torch.cuda.empty_cache()
+    for label, counts in steps.items():
+        print(f"[k1variants] kernel #1 in one {label}: "
+              + ", ".join(f"{g}: {sum(n * ms[k][g] for k, n in counts.items()):.3f} ms"
+                          for g in groups))
+    use(None)
 
 
 def replay():
@@ -523,7 +609,7 @@ def main():
     print(f"[device] {cs.gpu_line()}", flush=True)
     for mode in sys.argv[1:] or ["search"]:
         {"search": search, "replay": replay, "taps": taps, "time": time,
-         "variants": variants, "fp32": fp32, "k1h": k1h}[mode]()
+         "variants": variants, "fp32": fp32, "k1h": k1h, "k1variants": k1variants}[mode]()
     return 0
 
 
