@@ -45,6 +45,7 @@ from anatomask_torch.plans.label_handling import (convert_labelmap_to_one_hot,
                                                   determine_num_input_channels)
 from anatomask_torch.plans.plans_handler import PlansManager, load_json
 from anatomask_torch.training.checkpoint import load_checkpoint
+from anatomask_torch.utils.tracing import span
 
 # volume + logits + weights (fp32) that may live on the device at once; larger
 # volumes stream their tiles from the host
@@ -188,42 +189,45 @@ class Predictor:
         the device-resident path retries at tile batch 1, then the volume
         streams (which itself accumulates in host memory if it has to); the
         rung reached sticks for the remaining folds. Any other error raises."""
-        num_out = self.label_manager.num_segmentation_heads
-        tile_size = self.configuration_manager.patch_size
-        device_resident = self._fits_device_resident(data, num_out, tile_size)
-        tile_batches = sorted({self.tile_batch_size, 1}, reverse=True)
-        kw = dict(tile_step_size=self.tile_step_size, use_gaussian=self.use_gaussian,
-                  device=self.device)
-        logits = None
-        for params in self.list_of_parameters:
-            self.network.load_state_dict(params)
-            pred = None
-            while device_resident:
-                try:
-                    pred = sliding_window_predict_device_resident(
-                        data, self._tile_fn, tile_size, num_out,
-                        tile_batch_size=tile_batches[0], **kw)
-                    break
-                except RuntimeError as e:
-                    if not is_oom_error(e):
-                        raise
-                # the failed attempt's tensors went with its traceback at the
-                # end of the except clause: hand their memory back to the device
-                torch.cuda.empty_cache()
-                if len(tile_batches) > 1:
-                    tile_batches.pop(0)
-                else:
-                    device_resident = False
-                if self.verbose:
-                    print("device-resident sliding window out of memory; "
-                          + (f"retrying with tile_batch_size={tile_batches[0]}"
-                             if device_resident else "streaming the tiles"))
-            if pred is None:
-                pred = sliding_window_predict(data, self._tile_fn, tile_size, num_out,
-                                              tile_batch_size=tile_batches[0],
-                                              verbose=self.verbose, **kw)
-            logits = pred if logits is None else logits + pred
-        return logits / len(self.list_of_parameters)
+        with span("predict.case"):
+            num_out = self.label_manager.num_segmentation_heads
+            tile_size = self.configuration_manager.patch_size
+            device_resident = self._fits_device_resident(data, num_out, tile_size)
+            tile_batches = sorted({self.tile_batch_size, 1}, reverse=True)
+            kw = dict(tile_step_size=self.tile_step_size, use_gaussian=self.use_gaussian,
+                      device=self.device)
+            logits = None
+            for params in self.list_of_parameters:
+                with span("predict.load_weights"):
+                    self.network.load_state_dict(params)
+                pred = None
+                while device_resident:
+                    try:
+                        pred = sliding_window_predict_device_resident(
+                            data, self._tile_fn, tile_size, num_out,
+                            tile_batch_size=tile_batches[0], **kw)
+                        break
+                    except RuntimeError as e:
+                        if not is_oom_error(e):
+                            raise
+                    # the failed attempt's tensors went with its traceback at the
+                    # end of the except clause: hand their memory back to the device
+                    torch.cuda.empty_cache()
+                    if len(tile_batches) > 1:
+                        tile_batches.pop(0)
+                    else:
+                        device_resident = False
+                    if self.verbose:
+                        print("device-resident sliding window out of memory; "
+                              + (f"retrying with tile_batch_size={tile_batches[0]}"
+                                 if device_resident else "streaming the tiles"))
+                if pred is None:
+                    pred = sliding_window_predict(data, self._tile_fn, tile_size, num_out,
+                                                  tile_batch_size=tile_batches[0],
+                                                  verbose=self.verbose, **kw)
+                logits = pred if logits is None else logits + pred
+            with span("predict.download"):
+                return logits / len(self.list_of_parameters)
 
     def predict_single_npy_array(self, input_image: np.ndarray, image_properties: dict,
                                  segmentation_previous_stage: Optional[np.ndarray] = None

@@ -32,6 +32,7 @@ import torch
 
 from anatomask_torch.device import resolve_device
 from anatomask_torch.inference.gaussian import compute_gaussian
+from anatomask_torch.utils.tracing import span
 
 
 # what a CUDA, cuBLAS or cuDNN allocation failure says in a RuntimeError
@@ -96,16 +97,21 @@ def make_tile_predictor(apply_fn: Callable[[torch.Tensor], torch.Tensor],
                        for combo in itertools.combinations(mirror_axes, r)]
 
     def tile_fn(x: torch.Tensor) -> torch.Tensor:
-        if len(flip_combos) == 1:
-            return apply_fn(x).float()
         b = x.shape[0]
-        out = apply_fn(torch.cat([torch.flip(x, axes) if axes else x for axes in flip_combos]))
-        total = None
-        for i, axes in enumerate(flip_combos):
-            part = out[i * b:(i + 1) * b].float()
-            part = torch.flip(part, axes) if axes else part
-            total = part if total is None else total + part
-        return total / len(flip_combos)
+        if len(flip_combos) > 1:
+            with span("predict.tiles"):
+                x = torch.cat([torch.flip(x, axes) if axes else x for axes in flip_combos])
+        with span("predict.forward"):
+            out = apply_fn(x)
+        with span("predict.merge"):
+            if len(flip_combos) == 1:
+                return out.float()
+            total = None
+            for i, axes in enumerate(flip_combos):
+                part = out[i * b:(i + 1) * b].float()
+                part = torch.flip(part, axes) if axes else part
+                total = part if total is None else total + part
+            return total / len(flip_combos)
 
     return tile_fn
 
@@ -123,23 +129,30 @@ def _predict(get_tiles: Callable, spatial: Sequence[int], slicer_to_undo, tile_f
     normalize, and return the un-padded (K, x, y, z) logits on the host."""
     origins = list(itertools.product(*compute_steps_for_sliding_window(spatial, tile_size,
                                                                        tile_step_size)))
-    gauss = (compute_gaussian(tile_size, value_scaling_factor=1000.0) if use_gaussian
-             else np.ones(tile_size, dtype=np.float32))
-    gauss = torch.tensor(gauss, device=acc_device)
-    logits = torch.zeros((*spatial, num_output_channels), dtype=torch.float32, device=acc_device)
-    weights = torch.zeros(tuple(spatial), dtype=torch.float32, device=acc_device)
+    with span("predict.upload"):
+        gauss = (compute_gaussian(tile_size, value_scaling_factor=1000.0) if use_gaussian
+                 else np.ones(tile_size, dtype=np.float32))
+        gauss = torch.tensor(gauss, device=acc_device)
+        logits = torch.zeros((*spatial, num_output_channels), dtype=torch.float32,
+                             device=acc_device)
+        weights = torch.zeros(tuple(spatial), dtype=torch.float32, device=acc_device)
     for start in range(0, len(origins), tile_batch_size):
         batch = origins[start:start + tile_batch_size]
         n_valid = len(batch)
         batch += [batch[-1]] * (tile_batch_size - n_valid)
-        preds = tile_fn(get_tiles(batch))[:n_valid].to(acc_device)  # (b, tx, ty, tz, K) fp32
-        for pred, origin in zip(preds, batch):
-            sl = _tile_slices(origin, tile_size)
-            logits[sl].addcmul_(pred, gauss[..., None])
-            weights[sl].add_(gauss)
-    logits.div_(weights[..., None])
-    out = np.moveaxis(logits.cpu().numpy(), -1, 0)
-    return out[(slice(None), *slicer_to_undo[1:])]
+        with span("predict.tiles"):
+            tiles = get_tiles(batch)
+        preds = tile_fn(tiles)
+        with span("predict.merge"):
+            preds = preds[:n_valid].to(acc_device)  # (b, tx, ty, tz, K) fp32
+            for pred, origin in zip(preds, batch):
+                sl = _tile_slices(origin, tile_size)
+                logits[sl].addcmul_(pred, gauss[..., None])
+                weights[sl].add_(gauss)
+    with span("predict.download"):
+        logits.div_(weights[..., None])
+        out = np.moveaxis(logits.cpu().numpy(), -1, 0)
+        return out[(slice(None), *slicer_to_undo[1:])]
 
 
 def sliding_window_predict_device_resident(
@@ -154,8 +167,9 @@ def sliding_window_predict_device_resident(
         raise ValueError(f"expected (c, x, y, z) data, got shape {data.shape}")
     device = resolve_device(device)
     tile_size = tuple(int(t) for t in tile_size)
-    data_padded, slicer_to_undo = pad_nd_image(data, tile_size)
-    vol = torch.tensor(np.moveaxis(data_padded, 0, -1), dtype=torch.float32, device=device)
+    with span("predict.upload"):
+        data_padded, slicer_to_undo = pad_nd_image(data, tile_size)
+        vol = torch.tensor(np.moveaxis(data_padded, 0, -1), dtype=torch.float32, device=device)
 
     def get_tiles(batch):
         return torch.stack([vol[_tile_slices(o, tile_size)] for o in batch])
@@ -177,7 +191,8 @@ def sliding_window_predict(
         raise ValueError(f"expected (c, x, y, z) data, got shape {data.shape}")
     device = resolve_device(device)
     tile_size = tuple(int(t) for t in tile_size)
-    data_padded, slicer_to_undo = pad_nd_image(data, tile_size)
+    with span("predict.upload"):
+        data_padded, slicer_to_undo = pad_nd_image(data, tile_size)
     spatial = data_padded.shape[1:]
     if verbose:
         n = math.prod(len(s) for s in compute_steps_for_sliding_window(spatial, tile_size,

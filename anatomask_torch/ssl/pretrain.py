@@ -64,6 +64,7 @@ from anatomask_torch.ssl.sparse import SparseSTUNetEncoder
 from anatomask_torch.training import checkpoint as ckpt_lib
 from anatomask_torch.training.schedules import linear_warmup_cosine_schedule
 from anatomask_torch.training.trainer import clip_by_global_norm_, generate_crossval_split
+from anatomask_torch.utils.tracing import span
 
 _STUNET_WIDTHS = {"S": 16, "B": 32, "L": 64, "H": 96}  # the encoder's width multiplier
 _STUNET_DEPTHS = {"S": 1, "B": 1, "L": 2, "H": 3}      # its blocks a stage
@@ -294,29 +295,38 @@ def anatomask_train_step(student: SparK, teacher: SparK, optimizer: torch.optim.
     for the global batch (or `noise` holds them, (2, global B, L)) and the
     rank takes its rows; the losses returned are the global batch's, the
     masks and maps the rank's."""
-    B = x.shape[0]
-    L = math.prod(student.fmap)
-    noise = _rank_noise(noise, (2, B, L), generator, x.device, grad_accum_steps)
-    optimizer.zero_grad(set_to_none=False)
-    losses, hards, maps = [], [], []
-    for sl in _microbatches(B, grad_accum_steps):
-        xb = x[sl]
-        with torch.no_grad():
-            mask1 = random_keep_mask(xb.shape[0], student.fmap, student.len_keep,
-                                     noise=noise[0, sl])
-            inp1, rec1 = teacher(xb, mask1)
-            _, loss_map = spark_loss(inp1, rec1, mask1)
-            hard, _ = generate_guided_mask(loss_map, student.fmap, student.len_keep,
-                                           len_loss, noise=noise[1, sl])
-        inp, rec = student(xb, hard)
-        loss = spark_loss(inp, rec, hard)[0]
-        loss.backward()
-        losses.append(loss.detach())
-        hards.append(hard)
-        maps.append(loss_map)
-    loss = _update(student, optimizer, grad_accum_steps, lr, grad_clip, torch.stack(losses).mean())
-    ema_update(teacher, student, ema_decay)
-    return loss, torch.cat(hards), torch.cat(maps)
+    with span("pretrain.step"):
+        B = x.shape[0]
+        L = math.prod(student.fmap)
+        noise = _rank_noise(noise, (2, B, L), generator, x.device, grad_accum_steps)
+        with span("pretrain.update"):
+            optimizer.zero_grad(set_to_none=False)
+        losses, hards, maps = [], [], []
+        for sl in _microbatches(B, grad_accum_steps):
+            xb = x[sl]
+            with torch.no_grad():
+                with span("pretrain.teacher"):
+                    mask1 = random_keep_mask(xb.shape[0], student.fmap, student.len_keep,
+                                             noise=noise[0, sl])
+                    inp1, rec1 = teacher(xb, mask1)
+                    _, loss_map = spark_loss(inp1, rec1, mask1)
+                with span("pretrain.hard_mask"):
+                    hard, _ = generate_guided_mask(loss_map, student.fmap, student.len_keep,
+                                                   len_loss, noise=noise[1, sl])
+            with span("pretrain.student_forward"):
+                inp, rec = student(xb, hard)
+                loss = spark_loss(inp, rec, hard)[0]
+            with span("pretrain.backward"):
+                loss.backward()
+            losses.append(loss.detach())
+            hards.append(hard)
+            maps.append(loss_map)
+        with span("pretrain.update"):
+            loss = _update(student, optimizer, grad_accum_steps, lr, grad_clip,
+                           torch.stack(losses).mean())
+        with span("pretrain.ema"):
+            ema_update(teacher, student, ema_decay)
+        return loss, torch.cat(hards), torch.cat(maps)
 
 
 def spark_train_step(student: SparK, optimizer: torch.optim.Optimizer, x: torch.Tensor,
@@ -330,19 +340,25 @@ def spark_train_step(student: SparK, optimizer: torch.optim.Optimizer, x: torch.
     mean of the microbatches' losses. Under a process group as
     anatomask_train_step: the noise (global B, L) is the global batch's, the
     loss returned too."""
-    B = x.shape[0]
-    noise = _rank_noise(noise, (B, math.prod(student.fmap)), generator, x.device,
-                        grad_accum_steps)
-    optimizer.zero_grad(set_to_none=False)
-    losses = []
-    for sl in _microbatches(B, grad_accum_steps):
-        active = random_keep_mask(sl.stop - sl.start, student.fmap, student.len_keep,
-                                  noise=noise[sl])
-        inp, rec = student(x[sl], active)
-        loss = spark_loss(inp, rec, active)[0]
-        loss.backward()
-        losses.append(loss.detach())
-    return _update(student, optimizer, grad_accum_steps, lr, grad_clip, torch.stack(losses).mean())
+    with span("pretrain.step"):
+        B = x.shape[0]
+        noise = _rank_noise(noise, (B, math.prod(student.fmap)), generator, x.device,
+                            grad_accum_steps)
+        with span("pretrain.update"):
+            optimizer.zero_grad(set_to_none=False)
+        losses = []
+        for sl in _microbatches(B, grad_accum_steps):
+            with span("pretrain.student_forward"):
+                active = random_keep_mask(sl.stop - sl.start, student.fmap, student.len_keep,
+                                          noise=noise[sl])
+                inp, rec = student(x[sl], active)
+                loss = spark_loss(inp, rec, active)[0]
+            with span("pretrain.backward"):
+                loss.backward()
+            losses.append(loss.detach())
+        with span("pretrain.update"):
+            return _update(student, optimizer, grad_accum_steps, lr, grad_clip,
+                           torch.stack(losses).mean())
 
 
 @torch.no_grad()

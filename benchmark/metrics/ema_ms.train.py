@@ -1,0 +1,8 @@
+"""ema_ms.train: ms a step charged to the program's span `pretrain.ema` (the
+teacher's EMA update): the device time of what it launched and the idle time
+while it was open (`benchmark/spans.py`)."""
+from benchmark import spans
+
+
+def read(ctx):
+    return spans.phase_ms(ctx, "step", "pretrain.ema")

@@ -108,22 +108,21 @@ Phases, each of which raises on a failed check:
    variant (kernel #1 34 hopper, kernel #2 14 hopper and the stem's 2
    stem, 44 moments; `path_launches` counts them from the site tables with
    the port's variant rule, ops/conv3x3.py `conv_variant`) and
-   the EMA law, timing the last 3 steps, and a torch.profiler split of 3
-   more;
+   the EMA law, timing the last 3 steps, then 3 more;
 7b. the block-sparse route: the STUNet-B encoder in fp32 with
    ATK_BLOCK_SPARSE=1 against without it (every feature within 1e-5 of its
    largest entry), two bf16 backward passes through it (bit-equal
    gradients), then 7's 5 steps with it from the same weights and draws,
    checking the launches by kernel and variant (as 7's) and by padding
    (kernel #2 6 at 0, kernel #1 2 at 2), printing step ms, patches/s and
-   peak memory beside 7's dense step, and a profiler split;
+   peak memory beside 7's dense step;
 7c. the float32 pretraining step: 7's 5 steps in fp32 (compute_dtype
    "float32", the model built after PyTorch's default TF32 flags are set
    back, which its setup must turn off) with 7's checks, launches by kernel
    and variant every conv on tf32x3 but the stem's two (stem); its first
    step also run on copies of its weights and draws with cuDNN in TF32 and,
    for the spread, with TF32 off again: each copy's loss and gradients
-   against the step's; step ms, patches/s, peak memory, a profiler split;
+   against the step's; step ms, patches/s, peak memory;
 8. inference: bench_inference.py's configuration at full width through the
    Predictor: STUNet-B (6 stages, 1 input channel, 3 classes), a
    240x240x155 volume, patch 128^3, step 0.5, 18 tiles, 8-flip mirror TTA,
@@ -177,8 +176,8 @@ Phases, each of which raises on a failed check:
    iterations through the GPU case cache, a resume for one epoch through the
    host pipeline, perform_actual_validation (summary.json with a finite
    Dice per class), checkpoint_final.npz through the Predictor against the
-   trainer's network (<= 1e-3), the bare step (median of steps 3-5, with a
-   torch.profiler split of 3 more by kernel group) and a validation step,
+   trainer's network (<= 1e-3), the bare step (median of steps 3-5, then 3
+   more) and a validation step,
    then 3 bare ATKTrainer steps of phase 10's PlainConvUNet (SGD) and 3
    bare ATKTrainerDA5 steps on the same batch (p_rotation 0.4, DA5's extras
    and intensity settings), its augmentation timed alone, and one batch of
@@ -203,8 +202,8 @@ Phases, each of which raises on a failed check:
    timed), with the gates above. Then 5 bare steps (2 warm-up), checking
    finite losses, the hard masks and the launches by kernel and variant
    (per microbatch the teacher's forward, the student's, remat's second
-   forward of every stage and decoder block, and dx), a torch.profiler
-   split, a step at grad_accum_steps=1 and a LAMB step; then
+   forward of every stage and decoder block, and dx), 2 more steps, a step
+   at grad_accum_steps=1 and a LAMB step; then
    PretrainTrainer.run_pretraining at H for 1 epoch x 2 iterations with the
    case cache, validation and checkpoints (an epoch's one ~12.8 GB file
    under all its names, written into a temporary folder after a check that
@@ -807,7 +806,7 @@ H_SUP_NORMS = [(f"{part}{d}.{b}.norm{i}", (r,) * 3, c, False)
                                     ("dec", zip(H_SUP_DIMS[-2::-1], H_SUP_RES[-2::-1])))
                for d, (c, r) in enumerate(levels) for b in range(3) for i in (1, 2)]
 H_SUP_STEP_LAUNCHES = path_launches(H_SUP_SITES, H_SUP_NORMS, 2, True)  # + remat's forward
-H_STEPS, H_PROFILED, H_SUP_STEPS = 5, 2, 2
+H_STEPS, H_EXTRA_STEPS, H_SUP_STEPS = 5, 2, 2
 
 
 def kernel_launches(c, kernel):
@@ -1972,10 +1971,8 @@ def slice_phase(block=False, dtype="bfloat16"):
     print(f"{tag} step {step_ms:.1f} ms (median of {STEPS - WARMUP}), "
           f"{BATCH / step_ms * 1e3:.3f} patches/s, peak memory {peak / 2**30:.2f} GiB "
           f"({peak} bytes), launches in {STEPS} steps {launches}")
-    split = profile_steps(lambda: anatomask_train_step(student, teacher, optimizer, x, len_loss,
-                                                       gen), PROFILED_STEPS)
-    print(f"{tag} profiled ({PROFILED_STEPS} more steps, device ms a step by kernel group): "
-          f"{split}")
+    for _ in range(EXTRA_STEPS):
+        anatomask_train_step(student, teacher, optimizer, x, len_loss, gen)
     return launches, step_ms, peak, losses
 
 
@@ -2924,57 +2921,7 @@ def supervised_plans():
     return plans
 
 
-PROFILED_STEPS = 3
-
-
-def kernel_group(name):
-    """A device kernel's group in a step's split: the port's three kernels
-    (the convs' PER_TAP instantiations, the stems' of both dtypes among them,
-    are kernel #2), the library's convolutions and matmuls (cuDNN, cuBLAS;
-    cuDNN's weight-gradient kernels among them), the rest by what it does."""
-    if any(k in name for k in ("conv3x3_wgmma", "conv3x3_tf32x3", "conv3x3_kernel",
-                               "conv3x3_stem")):
-        # PER_TAP: kernel #2
-        return "kernel #2" if "Lb1E" in name or "true>" in name else "kernel #1"
-    rules = (("moments", "kernel #3"), ("xmma", "cuDNN/cuBLAS conv and matmul"),
-             ("wgrad", "cuDNN/cuBLAS conv and matmul"),
-             ("gemm", "cuDNN/cuBLAS conv and matmul"), ("conv", "cuDNN/cuBLAS conv and matmul"),
-             ("cutlass", "cuDNN/cuBLAS conv and matmul"), ("index", "gather/scatter (warps)"),
-             ("gather", "gather/scatter (warps)"), ("scatter", "gather/scatter (warps)"),
-             ("reduce", "reductions"), ("Reduce", "reductions"), ("copy", "copies"),
-             ("Copy", "copies"), ("cat", "copies"), ("elementwise", "elementwise"),
-             ("Elementwise", "elementwise"), ("foreach", "optimizer (foreach)"),
-             ("multi_tensor", "optimizer (foreach)"))
-    return next((g for key, g in rules if key in name), "other")
-
-
-def profile_steps(step, n):
-    """torch.profiler over n calls of `step` after a synchronize: device ms a
-    call by kernel group, the device's busy ms a call (the sum of its
-    kernels), the host's wall ms a call, and the three largest kernels of
-    the group "other" by name."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / n
-    groups, other = {}, {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            g = kernel_group(e.name)
-            ms = e.time_range.elapsed_us() / 1e3 / n
-            groups[g] = groups.get(g, 0.0) + ms
-            if g == "other":
-                other[e.name[:60]] = other.get(e.name[:60], 0.0) + ms
-    busy = sum(groups.values())
-    top = sorted(groups.items(), key=lambda kv: -kv[1])
-    named = sorted(other.items(), key=lambda kv: -kv[1])[:3]
-    return (f"wall {wall:.1f} ms a step, device busy {busy:.1f} ms ({busy / wall:.0%}); "
-            + ", ".join(f"{g} {ms:.2f}" for g, ms in top)
-            + "; other's largest: " + ", ".join(f"{k} {ms:.2f}" for k, ms in named))
+EXTRA_STEPS = 3  # untimed steps after the timed ones (some phases' launch totals count them)
 
 
 def sup_run(trainer, **kw):
@@ -3153,7 +3100,8 @@ def supervised_phase(root, pretrain_checkpoint):
         n = since(before_n)
         check(math.isfinite(losses[-1]) and n == SUP_STEP_LAUNCHES,
               f"bare step {step}: loss {losses[-1]}, launches {n}, expected {SUP_STEP_LAUNCHES}")
-    split = profile_steps(lambda: t.train_step(data, seg), PROFILED_STEPS)
+    for _ in range(EXTRA_STEPS):
+        t.train_step(data, seg)
     before_n = counts()
     loss, tp, fp, fn_ = t.val_step(vdata, vseg)
     check(math.isfinite(loss.item()), f"val step loss {loss.item()}")
@@ -3169,8 +3117,6 @@ def supervised_phase(root, pretrain_checkpoint):
           f"synchronizations {timed_ms:.1f} ms); peak memory {peak5 / 2**30:.2f} GiB ({peak5} bytes); "
           f"launches a training step {SUP_STEP_LAUNCHES}, a validation step {n_val}; losses "
           f"{losses}")
-    print(f"[supervised] where a bare step's time goes (torch.profiler, {PROFILED_STEPS} steps): "
-          f"{split}")
     del t, t2, cache, data, seg, vdata, vseg
     free_memory()
 
@@ -3304,9 +3250,9 @@ def h_step_phase():
     """The AnatoMask step at STUNet-H, as atk_pretrain -model H runs it: 2
     warm-up and 3 timed steps, checking finite losses, the hard masks and
     the launches by kernel and variant (h_step_launches: per microbatch the
-    teacher's forward, the student's and remat's second one, dx); then a
-    torch.profiler split of H_PROFILED steps, one step at grad_accum_steps=1
-    (B = 4) and one LAMB step, each finite, with their own launches.
+    teacher's forward, the student's and remat's second one, dx); then
+    H_EXTRA_STEPS more, one step at grad_accum_steps=1 (B = 4) and one LAMB
+    step, each finite, with their own launches.
     Returns the phase's launches and the median step ms."""
     cfg = H_CFG
     student = build_spark_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
@@ -3359,8 +3305,8 @@ def h_step_phase():
     print(f"[pretrain-H] step {step_ms:.1f} ms (median of {H_STEPS - WARMUP}), "
           f"{BATCH / step_ms * 1e3:.3f} patches/s, peak memory {peak / 2**30:.2f} GiB ({peak} "
           f"bytes); launches a step {H_STEP_LAUNCHES}")
-    split = profile_steps(lambda: step(optimizer, micro), H_PROFILED)
-    print(f"[pretrain-H] where a step's time goes (torch.profiler, {H_PROFILED} steps): {split}")
+    for _ in range(H_EXTRA_STEPS):
+        step(optimizer, micro)
     torch.cuda.reset_peak_memory_stats()
     before = counts()
     torch.cuda.synchronize()
@@ -3380,7 +3326,7 @@ def h_step_phase():
           f"LAMB step loss {loss_lamb}, grad_accum_steps=1 step loss {loss_one}")
     check(n_one == H_STEP1_LAUNCHES, f"grad_accum_steps=1 launches {n_one}, expected "
           f"{H_STEP1_LAUNCHES}")
-    want = {k: (H_STEPS + H_PROFILED + 1) * H_STEP_LAUNCHES[k] + H_STEP1_LAUNCHES[k]
+    want = {k: (H_STEPS + H_EXTRA_STEPS + 1) * H_STEP_LAUNCHES[k] + H_STEP1_LAUNCHES[k]
             for k in COUNT_KEYS}
     check(launches == want, f"pretrain-H launches {launches}, expected {want}")
     print(f"[pretrain-H] a step at grad_accum_steps=1 (B = {BATCH} at once): loss "

@@ -2,11 +2,11 @@
 float32) on the CPU: its plain versions, both roundings, against the JAX
 package in fp32 at C = 1, 3, 4 and F = 32, 96 at padding 1 (the z-slab
 Pallas conv in interpret mode), 0 (the block-sparse route's block_conv3) and
-2 (its dx, through jax.vjp); the fp32 weight layout; and chip_smoke.py's
-tables for it: its fp32 stem shapes take the stem variant, and its profiler
-split files the port's stem kernels and cuDNN's weight-gradient kernels in
-their groups. The CUDA kernel itself is held against the plain versions on
-the card by chip_smoke.py's fp32 gates."""
+2 (its dx, through jax.vjp); the fp32 weight layout; chip_smoke.py's
+tables for it: its fp32 stem shapes take the stem variant; and the
+benchmark's trace (benchmark/trace.py) files the port's stem kernels and
+cuDNN's weight-gradient kernels in their groups. The CUDA kernel itself is
+held against the plain versions on the card by chip_smoke.py's fp32 gates."""
 import functools
 
 import jax
@@ -107,28 +107,27 @@ def test_chip_smoke_fp32_stem_shapes():
 
 @pytest.mark.parametrize("name,group", [
     ("void conv3x3_stem::stem_kernel<1, true>(unsigned short const*, uint4 const*, "
-     "__nv_bfloat16*, conv3x3_stem::Shape)", "kernel #2"),
+     "__nv_bfloat16*, conv3x3_stem::Shape)", "conv"),
     ("void conv3x3_stem::stem_kernel<4, false>(unsigned short const*, uint4 const*, "
-     "__nv_bfloat16*, conv3x3_stem::Shape)", "kernel #1"),
+     "__nv_bfloat16*, conv3x3_stem::Shape)", "conv"),
     ("void conv3x3_stem::f32::stem_fp32_kernel<1, true>(float const*, float const*, float*, "
-     "conv3x3_stem::Shape)", "kernel #2"),
+     "conv3x3_stem::Shape)", "conv"),
     ("void conv3x3_stem::f32::stem_fp32_kernel<3, false>(float const*, float const*, float*, "
-     "conv3x3_stem::Shape)", "kernel #1"),
+     "conv3x3_stem::Shape)", "conv"),
     ("_ZN12conv3x3_stem11stem_kernelILi1ELb1EEEvPKtPK5uint4P13__nv_bfloat16NS_5ShapeE",
-     "kernel #2"),
+     "conv"),
     ("void conv3x3_igemm::hopper::conv3x3_wgmma<64, 128, false>(__nv_bfloat16 const*, "
-     "__nv_bfloat16 const*, __nv_bfloat16*, int, int, int, int, int, int, int)", "kernel #1"),
+     "__nv_bfloat16 const*, __nv_bfloat16*, int, int, int, int, int, int, int)", "conv"),
     ("void cudnn::cnn::wgrad_alg1_nd_float_engine<float, 3, 1, 0, 2, 0, false>(int, int, int, "
      "float const*, int, float*, float const*, kernel_grad_params, unsigned long long, int, "
-     "float, int)", "cuDNN/cuBLAS conv and matmul"),
+     "float, int)", "library"),
     ("void cudnn::cnn::wgrad2d_grouped_direct_kernel<false, true, float, float, float>"
      "(cudnn::cnn::WgradGroupedDirectParams, float const*, float const*, float*, float, float)",
-     "cuDNN/cuBLAS conv and matmul"),
-    ("void row_moments_kernel<__nv_bfloat16>(...)", "kernel #3")])
+     "library"),
+    ("void row_moments_kernel<__nv_bfloat16>(...)", "moments")])
 def test_kernel_group_files_stems_and_cudnn_wgrad(name, group):
-    """chip_smoke.py's profiler split files the stem kernels of both dtypes
-    under kernel #1 or #2 by their PER_TAP, not under the library's convs,
-    and cuDNN's weight-gradient kernels under the library's convs, not
-    under "other"."""
-    import chip_smoke as cs
-    assert cs.kernel_group(name) == group
+    """The benchmark's trace files the stem kernels of both dtypes, mangled
+    or not, under the port's convs, not under the library's, and cuDNN's
+    weight-gradient kernels under the library's, not under "other"."""
+    from benchmark import trace
+    assert trace.kernel_group(name) == group
