@@ -1,11 +1,16 @@
 // Per-row fp32 moments of an NDHWC activation for Hopper (sm_90a):
 //
-//   s[b, c]  = sum_v m[b, v] * x[b, v, c]
-//   ss[b, c] = sum_v m[b, v] * sq(x[b, v, c])
+//   s[b, c]  = sum_v m[b, v] * e[b, v, c]
+//   ss[b, c] = sum_v m[b, v] * sq(e[b, v, c])
 //
 // over the V = X*Y*Z voxels of sample b, with m the optional visibility mask
-// (absent = every voxel counts). These are the statistics of every instance
-// norm of the port, masked (SparseInstanceNorm) and plain (InstanceNorm).
+// (absent = every voxel counts) and e = x, or with the optional per-channel
+// bias e = x + bias[c] rounded to x's dtype (the bias itself rounded to it
+// first), as the model's conv adds its bias before the norm reads it. These
+// are the statistics of every instance norm of the port, masked
+// (SparseInstanceNorm) and plain (InstanceNorm); the bias serves the no-grad
+// forward, whose conv leaves its bias to the norm (ops/norm_act.py), so the
+// biased conv output is never written to device memory.
 //
 // Replaces the TPU kernel probes/probe_rowstats.py `pallas_moments` (body
 // `_kern`): fp32 sums of x and x*x over H of an (N, H, W*C) view, finished by
@@ -64,6 +69,13 @@ using bf16 = __nv_bfloat16;
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
 
+// v rounded to T and widened back
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (std::is_same<T, bf16>::value) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
+
 template <bool ROUND_SQ>
 __device__ __forceinline__ float square(float e) {
   if constexpr (ROUND_SQ) return __bfloat162float(__float2bfloat16_rn(e * e));
@@ -112,12 +124,12 @@ Plan make_plan(long long B, long long V, int C, int vec, int resident_blocks) {
   return p;
 }
 
-template <typename T, int VEC, bool ROUND_SQ>
+template <typename T, int VEC, bool ROUND_SQ, bool BIAS>
 __global__ void __launch_bounds__(THREADS)
 moments_kernel(const T* __restrict__ x, const unsigned char* __restrict__ mask,
-               float* __restrict__ out, float* __restrict__ partials,
-               unsigned* __restrict__ tickets, long long B, long long V, int C, int ncols,
-               int gt, int parts, long long ngroups) {
+               const float* __restrict__ bias, float* __restrict__ out,
+               float* __restrict__ partials, unsigned* __restrict__ tickets, long long B,
+               long long V, int C, int ncols, int gt, int parts, long long ngroups) {
   using LV = Vec<T, VEC>;
   __shared__ float red_s[THREADS * MAX_VEC];
   __shared__ float red_ss[THREADS * MAX_VEC];
@@ -129,10 +141,15 @@ moments_kernel(const T* __restrict__ x, const unsigned char* __restrict__ mask,
   const int rowlen = gt * VEC;                     // floats a row of red_*
   const int width = tcols * VEC;                   // channels of this tile
 
-  float s[VEC], ss[VEC];
+  float s[VEC], ss[VEC], bv[VEC];
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) s[i] = ss[i] = 0.f;
+  for (int i = 0; i < VEC; ++i) s[i] = ss[i] = bv[i] = 0.f;
   if (r < R && g < tcols) {
+    if constexpr (BIAS) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        bv[i] = round_to<T>(__ldg(bias + (tile * gt + g) * VEC + i));
+    }
     const T* xb = x + (long long)b * V * C + (long long)(tile * gt + g) * VEC;
     const unsigned char* mb = mask == nullptr ? nullptr : mask + (long long)b * V;
     const long long full = V / ((long long)R * U);  // groups without a ragged end
@@ -161,7 +178,8 @@ moments_kernel(const T* __restrict__ x, const unsigned char* __restrict__ mask,
         if (!vis[u]) continue;
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
-          const float e = LV::get(raw[u], i);
+          float e = LV::get(raw[u], i);
+          if constexpr (BIAS) e = round_to<T>(__fadd_rn(e, bv[i]));
           s[i] += e;
           ss[i] += square<ROUND_SQ>(e);
         }
@@ -237,17 +255,19 @@ moments_kernel(const T* __restrict__ x, const unsigned char* __restrict__ mask,
 using KernelFn = const void*;
 
 template <typename T, int VEC, bool ROUND_SQ>
-KernelFn kernel_of() {
-  return reinterpret_cast<const void*>(&moments_kernel<T, VEC, ROUND_SQ>);
+KernelFn kernel_of(int bias) {
+  return bias ? reinterpret_cast<const void*>(&moments_kernel<T, VEC, ROUND_SQ, true>)
+              : reinterpret_cast<const void*>(&moments_kernel<T, VEC, ROUND_SQ, false>);
 }
 
-// The kernel instantiation for (dtype, vec width, rounding): 0 = float32, 1 = bfloat16.
-KernelFn pick(int dtype, int vec, int round_sq) {
+// The kernel instantiation for (dtype, vec width, rounding, bias): 0 = float32, 1 = bfloat16.
+KernelFn pick(int dtype, int vec, int round_sq, int bias) {
   if (dtype == 1) {
-    if (vec == 8) return round_sq ? kernel_of<bf16, 8, true>() : kernel_of<bf16, 8, false>();
-    return round_sq ? kernel_of<bf16, 1, true>() : kernel_of<bf16, 1, false>();
+    if (vec == 8)
+      return round_sq ? kernel_of<bf16, 8, true>(bias) : kernel_of<bf16, 8, false>(bias);
+    return round_sq ? kernel_of<bf16, 1, true>(bias) : kernel_of<bf16, 1, false>(bias);
   }
-  return vec == 4 ? kernel_of<float, 4, false>() : kernel_of<float, 1, false>();
+  return vec == 4 ? kernel_of<float, 4, false>(bias) : kernel_of<float, 1, false>(bias);
 }
 
 int vec_width(int dtype, int vec) { return vec ? (dtype == 1 ? 8 : 4) : 1; }
@@ -272,14 +292,20 @@ int slot_of(int dtype, int vec, int round_sq) {
   return dtype * 4 + (vec > 1 ? 2 : 0) + (round_sq ? 1 : 0);
 }
 
-bool plan_for(long long B, long long V, int C, int dtype, int vec, int round_sq, Plan* plan,
-              KernelFn* k) {
+bool plan_for(long long B, long long V, int C, int dtype, int vec, int round_sq, int bias,
+              Plan* plan, KernelFn* k) {
   if (B <= 0 || V <= 0 || C <= 0 || B > 65535 || (dtype != 0 && dtype != 1)) return false;
   const int w = vec_width(dtype, vec);
   if (C % w != 0) return false;
   round_sq = dtype == 1 && round_sq;
-  *k = pick(dtype, w, round_sq);
-  const int resident = resident_blocks(*k, slot_of(dtype, w, round_sq));
+  bias = bias != 0;
+  *k = pick(dtype, w, round_sq, bias);
+  // the grid of the bias-free instantiation, whatever the bias: the same
+  // partials in the same order, so a bias changes no bit of a sum taken over
+  // x + bias against one over that tensor written out (the blocks never wait
+  // on each other, so any grid runs)
+  const int resident = resident_blocks(pick(dtype, w, round_sq, 0),
+                                       slot_of(dtype, w, round_sq));
   if (resident <= 0) return false;
   *plan = make_plan(B, V, C, w, resident);
   return plan->ntiles <= 65535;
@@ -288,33 +314,38 @@ bool plan_for(long long B, long long V, int C, int dtype, int vec, int round_sq,
 }  // namespace
 
 // Scratch that row_moments_forward needs for this shape on the current
-// device: sizes[0] fp32 partials, sizes[1] int32 tickets (zeroed once; each
-// call leaves them at 0). Returns 0 or a CUDA error code.
+// device, with or without a bias: sizes[0] fp32 partials, sizes[1] int32
+// tickets (zeroed once; each call leaves them at 0). Returns 0 or a CUDA
+// error code.
 extern "C" int row_moments_scratch(long long B, long long V, int C, int dtype, int vec,
                                    int square_in_dtype, long long* sizes) {
   Plan p;
   KernelFn k;
-  if (!plan_for(B, V, C, dtype, vec, square_in_dtype, &p, &k)) return (int)cudaErrorInvalidValue;
+  if (!plan_for(B, V, C, dtype, vec, square_in_dtype, 0, &p, &k))
+    return (int)cudaErrorInvalidValue;
   sizes[0] = B * p.ntiles * (long long)p.parts * 2 * p.gt * p.vec;
   sizes[1] = B * p.ntiles;
   return 0;
 }
 
 // x: (B, V, C) contiguous, dtype 0 = float32, 1 = bfloat16; mask: (B, V) bytes
-// of 0/1 or NULL; out: (2, B, C) float32, s then ss; vec: 1 when C is a
-// multiple of 16 bytes' worth of elements and x is 16-byte aligned (16-byte
-// loads), else 0 (element loads); square_in_dtype: round x*x to bf16 before
-// it is added (bf16 only). One launch on `stream`; returns cudaGetLastError().
-extern "C" int row_moments_forward(const void* x, const void* mask, void* out, void* partials,
-                                   void* tickets, long long B, long long V, int C, int dtype,
-                                   int vec, int square_in_dtype, void* stream) {
+// of 0/1 or NULL; bias: (C) float32 or NULL; out: (2, B, C) float32, s then
+// ss; vec: 1 when C is a multiple of 16 bytes' worth of elements and x is
+// 16-byte aligned (16-byte loads), else 0 (element loads); square_in_dtype:
+// round x*x to bf16 before it is added (bf16 only). One launch on `stream`;
+// returns cudaGetLastError().
+extern "C" int row_moments_forward(const void* x, const void* mask, const void* bias, void* out,
+                                   void* partials, void* tickets, long long B, long long V,
+                                   int C, int dtype, int vec, int square_in_dtype,
+                                   void* stream) {
   Plan p;
   KernelFn k;
-  if (!plan_for(B, V, C, dtype, vec, square_in_dtype, &p, &k)) return (int)cudaErrorInvalidValue;
+  if (!plan_for(B, V, C, dtype, vec, square_in_dtype, bias != nullptr, &p, &k))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)p.parts, (unsigned)p.ntiles, (unsigned)B);
   // one pointer to each kernel parameter, in order and of its type
-  void* args[] = {(void*)&x, (void*)&mask, (void*)&out, (void*)&partials, (void*)&tickets,
-                  (void*)&B, (void*)&V, (void*)&C, (void*)&p.ncols, (void*)&p.gt,
+  void* args[] = {(void*)&x, (void*)&mask, (void*)&bias, (void*)&out, (void*)&partials,
+                  (void*)&tickets, (void*)&B, (void*)&V, (void*)&C, (void*)&p.ncols, (void*)&p.gt,
                   (void*)&p.parts, (void*)&p.ngroups};
   cudaLaunchKernel(k, grid, dim3(THREADS), args, 0, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();

@@ -14,6 +14,13 @@ axis, as the JAX package's `conv3d_zconcat` (stride 1) and `conv3d_z2d`
 anisotropic kernels are rounded once from fp32, as `lax` rounds them. Norm
 statistics are fp32 sums of x and of x*x squared in the compute dtype; the
 affine is applied in the compute dtype. No autocast.
+
+Where autograd records nothing (prediction, the AnatoMask teacher,
+validation), a norm's epilogue runs as one pass of `ops/norm_act.py`: the
+conv before it leaves its bias to the norm (`ConvND.without_bias`), whose
+moments add it on the fly, and the affine, the residual with its bias and
+LeakyReLU follow in the same pass (`InstanceNorm.epilogue`, `fused`).
+Each step rounds as the op sequence does, so both routes give the same bits.
 """
 from __future__ import annotations
 
@@ -26,7 +33,8 @@ import torch.nn.functional as fn
 import torch.utils.checkpoint
 
 from anatomask_torch.ops.conv3x3 import conv3d_3x3
-from anatomask_torch.ops.moments import row_moments
+from anatomask_torch.ops.moments import row_moments, row_moments_forward
+from anatomask_torch.ops.norm_act import norm_act
 from anatomask_torch.ops.zslab_conv import conv3d_zconcat
 from anatomask_torch.parallel import mesh
 
@@ -34,6 +42,18 @@ CL3D = torch.channels_last_3d
 # output voxels a sample from which a 3x3x3 conv is rounded per tap
 # (anatomask_tpu/ops/conv_lowering.py _MIN_VOLUME)
 MIN_VOLUME = 32768
+# compute dtypes of the one-pass norm epilogue (ops/norm_act.py)
+FUSED_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def fused(module: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> bool:
+    """Whether `module`'s norm epilogue on input x runs as one pass
+    (`InstanceNorm.epilogue`): autograd records nothing there (no grad mode,
+    or neither x nor a parameter requires grad) and the compute dtype is
+    bf16 or fp32. Elsewhere the op sequence runs, with its autograd."""
+    return dtype in FUSED_DTYPES and not (
+        torch.is_grad_enabled()
+        and (x.requires_grad or any(p.requires_grad for p in module.parameters())))
 
 
 def _triple(v: Union[int, Sequence[int]]) -> Tuple[int, int, int]:
@@ -102,6 +122,13 @@ class ConvND(nn.Module):
             (he_normal_ if init == "he" else trunc_normal_)(self.weight, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.without_bias(x)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype).view(1, -1, 1, 1, 1)
+        return y
+
+    def without_bias(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv of x in the compute dtype, its bias not added."""
         x = x.to(self.dtype).contiguous(memory_format=CL3D)
         w = self.weight.to(self.dtype)
         out = math.prod((n - 1) // s + 1 for n, s in zip(x.shape[2:], self.stride))
@@ -115,8 +142,6 @@ class ConvND(nn.Module):
         else:
             y = fn.conv3d(x, w, None, self.stride, tuple(k // 2 for k in self.kernel_size),
                           groups=self.groups)
-        if self.bias is not None:
-            y = y + self.bias.to(self.dtype).view(1, -1, 1, 1, 1)
         return y
 
 
@@ -132,20 +157,47 @@ class InstanceNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def sums(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, float]:
-        """fp32 (sum x, sum x^2), each (B, C), and the voxels each sums over."""
-        s, ss = row_moments(x.permute(0, 2, 3, 4, 1), square_in_dtype=True)
+    def sums(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor, float]:
+        """fp32 (sum v, sum v^2), each (B, C), of v = x, or with an fp32
+        (C,) `bias` (forward only) v = x + bias in x's dtype, and the voxels
+        each sums over."""
+        xn = x.permute(0, 2, 3, 4, 1)
+        s, ss = (row_moments(xn, square_in_dtype=True) if bias is None
+                 else row_moments_forward(xn, square_in_dtype=True, bias=bias))
         return s, ss, float(math.prod(x.shape[2:]))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.contiguous(memory_format=CL3D)
-        s, ss, cnt = self.sums(x)
+    def affine(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """fp32 (a, b), each (B or 1, C): the norm of v (`sums`) is a * v + b."""
+        s, ss, cnt = self.sums(x, bias)
         mean = s / cnt
         var = (ss / cnt - mean.square()).clamp_min(0.0)
         a = torch.rsqrt(var + self.eps) * self.weight.float()
-        b = self.bias.float() - mean * a
+        return a, self.bias.float() - mean * a
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.contiguous(memory_format=CL3D)
+        if x.dtype == self.dtype and fused(self, x, self.dtype):
+            return self.epilogue(x)
+        a, b = self.affine(x)
         dt = self.dtype
         return x.to(dt) * a.to(dt)[:, :, None, None, None] + b.to(dt)[:, :, None, None, None]
+
+    def epilogue(self, y: torch.Tensor, bias: Optional[torch.Tensor] = None, act: bool = False,
+                 skip: Optional[torch.Tensor] = None,
+                 skip_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Forward only, y in the compute dtype: act(norm(y + bias) + skip +
+        skip_bias), act LeakyReLU, each step rounded to the compute dtype as
+        the op sequence rounds it: the moments add the bias on the fly, the
+        rest is one pass of `ops/norm_act.py`."""
+        y = y.contiguous(memory_format=CL3D)
+        bias, skip_bias = (None if t is None else t.float() for t in (bias, skip_bias))
+        a, b = self.affine(y, bias)
+        if skip is not None:
+            skip = skip.contiguous(memory_format=CL3D).permute(0, 2, 3, 4, 1)
+        out = norm_act(y.permute(0, 2, 3, 4, 1), a, b, bias, act, skip, skip_bias)
+        return out.permute(0, 4, 1, 2, 3)
 
 
 class BatchNorm(InstanceNorm):
@@ -160,8 +212,9 @@ class BatchNorm(InstanceNorm):
 
     cross_rank = True
 
-    def sums(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, float]:
-        s, ss, cnt = super().sums(x)
+    def sums(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor, float]:
+        s, ss, cnt = super().sums(x, bias)
         s, ss, cnt = s.sum(0, keepdim=True), ss.sum(0, keepdim=True), cnt * x.shape[0]
         if self.cross_rank and mesh.distributed():
             s, ss = mesh.all_reduce_sum(torch.cat([s, ss], 1)).chunk(2, 1)

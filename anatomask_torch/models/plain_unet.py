@@ -34,7 +34,7 @@ import torch
 import torch.nn as nn
 
 from anatomask_torch.models.layers import (BatchNorm, ConvND, InstanceNorm,
-                                           SubpixelConvTranspose, leaky_relu, run_remat)
+                                           SubpixelConvTranspose, fused, leaky_relu, run_remat)
 from anatomask_torch.models.stunet import BasicResBlock
 
 
@@ -48,6 +48,8 @@ class ConvNormAct(nn.Module):
         self.norm = (BatchNorm if norm == "batch" else InstanceNorm)(cout, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if fused(self, x, self.norm.dtype):  # one pass of ops/norm_act.py (layers.py)
+            return self.norm.epilogue(self.conv.without_bias(x), self.conv.bias, act=True)
         return leaky_relu(self.norm(self.conv(x)))
 
 

@@ -26,7 +26,7 @@ import torch
 import torch.nn as nn
 
 from anatomask_torch.device import resolve_device
-from anatomask_torch.models.layers import (ConvND, InstanceNorm, leaky_relu, run_remat,
+from anatomask_torch.models.layers import (ConvND, InstanceNorm, fused, leaky_relu, run_remat,
                                            upsample_nearest)
 
 
@@ -47,6 +47,14 @@ class BasicResBlock(nn.Module):
         self.conv3 = ConvND(cin, cout, 1, stride, **dd) if use_1x1conv else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if fused(self, x, self.norm2.dtype) and (self.conv3 is not None
+                                                  or x.dtype == self.norm2.dtype):
+            # two passes of ops/norm_act.py in place of ten (layers.py)
+            y = self.norm1.epilogue(self.conv1.without_bias(x), self.conv1.bias, act=True)
+            y = self.conv2.without_bias(y)
+            skip, skip_bias = ((x, None) if self.conv3 is None
+                               else (self.conv3.without_bias(x), self.conv3.bias))
+            return self.norm2.epilogue(y, self.conv2.bias, True, skip, skip_bias)
         y = leaky_relu(self.norm1(self.conv1(x)))
         y = self.norm2(self.conv2(y))
         if self.conv3 is not None:

@@ -11,10 +11,15 @@ Replaces the TPU kernel `probes/probe_rowstats.py` `pallas_moments` (body
   float32 or bfloat16, contiguous; mask (B, X, Y, Z) bool or None. Returns
   fp32 (s, ss), each (B, C). Differentiable in x: the backward is
   elementwise PyTorch, as the JAX package has no backward kernel.
-- `row_moments_plain(x, mask=None, square_in_dtype=False)`: the same sums in
-  plain PyTorch. A CPU tensor goes through it; a CUDA tensor always launches
-  the kernel (`csrc/moments.cu`), and anything the kernel does not take
-  raises.
+- `row_moments_forward(x, mask=None, square_in_dtype=False, bias=None)`:
+  forward only; with a float32 (C,) `bias` the sums are those of x + bias,
+  rounded to x's dtype (the bias rounded to it first), without writing that
+  tensor: the no-grad forward's norms, whose conv leaves its bias to them
+  (`models/layers.py` InstanceNorm.epilogue).
+- `row_moments_plain(x, mask=None, square_in_dtype=False, bias=None)`: the
+  same sums in plain PyTorch. A CPU tensor goes through it; a CUDA tensor
+  always launches the kernel (`csrc/moments.cu`), and anything the kernel
+  does not take raises.
 
 x*x: by default x is widened to fp32 before it is squared, as the TPU kernel
 does. With `square_in_dtype=True` x*x is rounded to x's dtype first and then
@@ -49,13 +54,18 @@ from anatomask_torch.ops import _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _check(x: torch.Tensor, mask: Optional[torch.Tensor]) -> None:
+def _check(x: torch.Tensor, mask: Optional[torch.Tensor],
+           bias: Optional[torch.Tensor]) -> None:
     if x.dim() != 5:
         raise ValueError(f"row_moments expects NDHWC input, got shape {tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"row_moments takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("row_moments expects a contiguous NDHWC input")
+    if bias is not None and (bias.dtype != torch.float32 or tuple(bias.shape) != (x.shape[-1],)
+                             or bias.device != x.device or not bias.is_contiguous()):
+        raise ValueError(f"row_moments expects a contiguous float32 ({x.shape[-1]},) bias on "
+                         f"{x.device}, got {tuple(bias.shape)} {bias.dtype} on {bias.device}")
     if mask is None:
         return
     if mask.dtype != torch.bool or tuple(mask.shape) != tuple(x.shape[:4]):
@@ -68,9 +78,13 @@ def _check(x: torch.Tensor, mask: Optional[torch.Tensor]) -> None:
 
 
 def row_moments_plain(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                      square_in_dtype: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                      square_in_dtype: bool = False,
+                      bias: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, X, Y, Z, C), mask (B, X, Y, Z) or None -> fp32 (sum m*x, sum m*x^2),
-    each (B, C); x*x in fp32, or rounded to x's dtype with square_in_dtype."""
+    each (B, C); x*x in fp32, or rounded to x's dtype with square_in_dtype.
+    With a (C,) bias, x is first x + bias in x's dtype."""
+    if bias is not None:
+        x = x + bias.to(x.dtype)
     xf = x.float()
     sq = (x * x).float() if square_in_dtype else xf * xf
     if mask is not None:
@@ -85,7 +99,7 @@ def _kernel():
     lib.row_moments_scratch.argtypes = ([ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
                                         + [ctypes.POINTER(ctypes.c_longlong)])
     lib.row_moments_scratch.restype = ctypes.c_int
-    lib.row_moments_forward.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
+    lib.row_moments_forward.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
                                         + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     lib.row_moments_forward.restype = ctypes.c_int
     return lib
@@ -119,8 +133,8 @@ def _scratch(device: torch.device, stream: int, partials: int,
     return have
 
 
-def _launch(x: torch.Tensor, mask: Optional[torch.Tensor],
-            square_in_dtype: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch(x: torch.Tensor, mask: Optional[torch.Tensor], square_in_dtype: bool,
+            bias: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of the kernel on the current stream of x's device."""
     B, C = x.shape[0], x.shape[-1]
     device = x.device
@@ -138,24 +152,28 @@ def _launch(x: torch.Tensor, mask: Optional[torch.Tensor],
         partials, tickets = _scratch(device, stream,
                                      *_scratch_sizes(dev, B, V, C, code, vec, square))
         err = _kernel().row_moments_forward(
-            x.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr(),
+            x.data_ptr(), None if mask is None else mask.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
             partials.data_ptr(), tickets.data_ptr(), B, V, C, code, vec, square, stream)
     if err != 0:
         raise RuntimeError(f"moments kernel launch failed with CUDA error {err} "
-                           f"(x {tuple(x.shape)}, {x.dtype}, mask {mask is not None})")
+                           f"(x {tuple(x.shape)}, {x.dtype}, mask {mask is not None}, "
+                           f"bias {bias is not None})")
     row_moments.launches += 1
     return out.unbind(0)
 
 
 def row_moments_forward(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                        square_in_dtype: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                        square_in_dtype: bool = False,
+                        bias: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward only: the kernel for a CUDA tensor, the plain version for a CPU
-    tensor, an error for anything else."""
-    _check(x, mask)
+    tensor, an error for anything else. A float32 (C,) `bias` is added to x,
+    in x's dtype, before the sums."""
+    _check(x, mask, bias)
     if x.device.type == "cuda":
-        return _launch(x, mask, square_in_dtype)
+        return _launch(x, mask, square_in_dtype, bias)
     if x.device.type == "cpu":
-        return row_moments_plain(x, mask, square_in_dtype)
+        return row_moments_plain(x, mask, square_in_dtype, bias)
     raise ValueError(f"row_moments runs on cuda (kernel) or cpu (plain), not {x.device}")
 
 

@@ -6,8 +6,8 @@
 Phases, each of which raises on a failed check:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: compile csrc/conv3x3.cu, csrc/moments.cu and csrc/zslab_conv.cu
-   (the two convs share the kernels of csrc/conv3x3_igemm.cuh, its hopper,
+2. build: compile csrc/conv3x3.cu, csrc/moments.cu, csrc/zslab_conv.cu and
+   csrc/norm_act.cu (the two convs share the kernels of csrc/conv3x3_igemm.cuh, its hopper,
    tf32x3 and simple variants, and of csrc/conv3x3_stem.cuh, the stem
    variant, bf16 on wgmma and fp32 on the FP32 pipe) for sm_90a from the
    checkout's sources, one nvcc each, all at once; print each kernel's
@@ -57,6 +57,14 @@ Phases, each of which raises on a failed check:
    only), with GB/s, and that a call allocates its output alone (the scratch
    is kept); then the same checks on four shapes off the main paths that
    take the kernel's other code paths;
+4b. norm epilogue kernel (csrc/norm_act.cu, no TPU kernel): at every plain
+   norm shape of a tile (B = 8; a block's norm1 and norm2) and of the
+   step's teacher decoder (B = 4, bare), bf16 and fp32, the kernel against
+   its plain version, the op sequence it replaces, bit for bit with a (B,
+   C) and a (1, C) affine, and the moments kernel with the conv's bias
+   against it on the biased tensor, bit for bit; in bf16 the kernel's time
+   beside its byte bound and the op sequence's, and the moments' with and
+   without the bias; then four shapes off the paths in every mode;
 5. zslab kernel (TPU kernel #2), at the shapes of probes/probe_pallas_v4.py
    (dec3: C = F = 64, enc0: C = F = 32, 112x112x128, B = 4, bf16): forward
    and dx through the autograd Function against the plain version (rel. max
@@ -107,8 +115,8 @@ Phases, each of which raises on a failed check:
    steps, checking finite losses, the hard masks, the launches by kernel and
    variant (kernel #1 34 hopper, kernel #2 14 hopper and the stem's 2
    stem, 44 moments; `path_launches` counts them from the site tables with
-   the port's variant rule, ops/conv3x3.py `conv_variant`) and
-   the EMA law, timing the last 3 steps, then 3 more;
+   the port's variant rule, ops/conv3x3.py `conv_variant`), the norm
+   epilogue's 8 (the teacher's decoder) and the EMA law, timing the last 3 steps, then 3 more;
 7b. the block-sparse route: the STUNet-B encoder in fp32 with
    ATK_BLOCK_SPARSE=1 against without it (every feature within 1e-5 of its
    largest entry), two bf16 backward passes through it (bit-equal
@@ -128,7 +136,8 @@ Phases, each of which raises on a failed check:
    240x240x155 volume, patch 128^3, step 0.5, 18 tiles, 8-flip mirror TTA,
    tile batch 1, bf16; 3 volumes, the first a warm-up, checking finite
    logits of shape (3, 240, 240, 155) and, a tile, 7 kernel #1 (hopper), 10
-   kernel #2 (9 hopper, the stem on the stem variant) and 22 moments launches;
+   kernel #2 (9 hopper, the stem on the stem variant), 22 moments and 22
+   norm epilogue launches;
    then 1 volume in fp32 through Predictor(dtype=torch.float32), built
    after PyTorch's default TF32 flags are set back (its setup must turn
    them off): the same checks, the convs on tf32x3 but the stem (stem);
@@ -359,6 +368,7 @@ from anatomask_torch.ops.conv3x3 import (HOPPER_TILES, STEM_MAX_C, TF32_TILES, V
                                          conv_variant, flip_weight, igemm_variant, out_extents,
                                          pack_weight, zero_launch_counts)
 from anatomask_torch.ops.moments import row_moments, row_moments_forward, row_moments_plain
+from anatomask_torch.ops.norm_act import norm_act, norm_act_plain
 from anatomask_torch.ops.zslab_conv import (conv3d_zconcat, conv3d_zslab, conv3d_zslab_forward,
                                             conv3d_zslab_plain)
 from anatomask_torch.parallel import mesh
@@ -670,6 +680,7 @@ def zero_counts():
     zero_launch_counts(conv3d_3x3)
     zero_launch_counts(conv3d_zslab)
     row_moments.launches = 0
+    norm_act.launches = 0
 
 
 COUNT_KEYS = tuple(f"{k}.{v}" for k in ("conv3x3", "zslab") for v in VARIANTS) + ("moments",)
@@ -717,6 +728,13 @@ def path_launches(sites, norms, forwards, backward, stem=True, dtype=torch.bfloa
     return want
 
 
+def norm_act_launches(norms, forwards=1):
+    """The one-pass norm epilogue's launches in `forwards` forwards that
+    autograd does not record, over `norms`: one a plain norm (the masked
+    ones, SparseInstanceNorm, keep the op sequence)."""
+    return forwards * sum(not masked for *_, masked in norms)
+
+
 # a pretraining step (two forwards and the student's backward), a validation
 # step and a tile forward
 STEP_LAUNCHES = path_launches(SITES, PRETRAIN_NORMS, 2, True)
@@ -725,6 +743,11 @@ VAL_LAUNCHES = path_launches(SITES, PRETRAIN_NORMS, 1, False)
 STEP_PADDINGS = {k: (sum(STEP_LAUNCHES[f"{k[:-3]}.{v}"] for v in VARIANTS)
                      if k.endswith("p1") else 0) for k in BLOCK_STEP_PADDINGS}
 TILE_LAUNCHES = path_launches(INFER_SITES, INFER_NORMS, 1, False)
+# the norm epilogue's launches: a tile forward's 22 norms; a pretraining
+# step's teacher, whose LightDecoder's 8 norms are plain (the student's
+# forward runs under autograd)
+TILE_NORM_ACT = norm_act_launches(INFER_NORMS)
+STEP_NORM_ACT = norm_act_launches(PRETRAIN_NORMS)
 # the same in float32 (-compute_dtype float32): tf32x3 for every conv but
 # the stem's (stem)
 FP32_STEP_LAUNCHES = path_launches(SITES, PRETRAIN_NORMS, 2, True, dtype=torch.float32)
@@ -1308,6 +1331,125 @@ def moments_phase(gen):
             (plain_tile, plain_tile_dev), checked, timed)
 
 
+def norm_act_bound_ms(batch, vol, C, skip, itemsize=2):
+    """The norm epilogue's bytes over 3.35 TB/s: y (and the skip) read once,
+    the output written once (its few flops an element are far below)."""
+    return (3 if skip else 2) * batch * math.prod(vol) * C * itemsize / PEAK_BYTES * 1e3
+
+
+def norm_act_inputs(batch, vol, C, dtype, gen):
+    """y and a skip (B, X, Y, Z, C) in dtype, fp32 (B, C) a and b, fp32 (C,)
+    conv and skip biases."""
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    y, skip = (2 * draw((batch, *vol, C))).to(dtype), draw((batch, *vol, C)).to(dtype)
+    a = torch.rand((batch, C), generator=gen, device="cuda") + 0.5
+    return y, skip, a, draw((batch, C)), draw((C,)), draw((C,))
+
+
+def same_bits(got, want):
+    return got.shape == want.shape and torch.equal(
+        got.view(torch.int16 if got.element_size() == 2 else torch.int32),
+        want.view(torch.int16 if want.element_size() == 2 else torch.int32))
+
+
+# the epilogue's modes on the paths: a block's norm1 (conv1's bias,
+# LeakyReLU), its norm2 (conv2's bias, the 1x1 skip conv's output and bias,
+# LeakyReLU), the LightDecoder's bare norm (no bias, no activation)
+NORM_ACT_MODES = {"norm1": (True, True, False), "norm2": (True, True, True),
+                  "bare": (False, False, False)}
+
+
+def norm_act_args(mode, y, skip, bias, skip_bias):
+    """(bias, act, skip, skip_bias) of norm_act in `mode`."""
+    has_bias, act, has_skip = NORM_ACT_MODES[mode]
+    return ((bias if has_bias else None), act, (skip if has_skip else None),
+            (skip_bias if has_skip else None))
+
+
+def norm_act_phase(gen):
+    """The one-pass norm epilogue at every norm shape of a volume's tile (B =
+    8; norm1 and norm2 of a block) and of the pretraining step's teacher
+    decoder (B = 4, bare), in bf16 and fp32: the kernel against its plain
+    version, the op sequence it replaces, bit for bit with a (B, C) and a (1,
+    C) affine; the moments kernel with the conv's bias against it on the
+    biased tensor, bit for bit; then off the paths' shapes. In bf16 the
+    kernel's time (CUDA events) beside its bound and the op sequence's time,
+    and the moments kernel's with and without the bias. Returns the totals
+    (TOTAL_KEYS) of a tile's 22 calls and of a step's 8."""
+    shapes = {}
+    for batch, norms in ((TTA_BATCH, INFER_NORMS), (BATCH, PRETRAIN_NORMS)):
+        for name, vol, C, masked in norms:
+            if not masked:
+                mode = "bare" if batch == BATCH else name[-5:]
+                shapes.setdefault((batch, vol, C), {}).setdefault(mode, []).append(name)
+    timed = {}
+    for (batch, vol, C), modes in shapes.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            y, skip, a, b, bias, skip_bias = norm_act_inputs(batch, vol, C, dtype, gen)
+            for mode in modes:
+                args = norm_act_args(mode, y, skip, bias, skip_bias)
+                for rows in (batch, 1):
+                    got = norm_act(y, a[:rows], b[:rows], *args)
+                    check(same_bits(got, norm_act_plain(y, a[:rows], b[:rows], *args)),
+                          f"norm_act kernel vs plain B={batch} {vol} C={C} {dtype} {mode} "
+                          f"affine rows {rows}: bits differ")
+                    del got
+            if NORM_ACT_MODES[next(iter(modes))][0]:
+                with_bias = row_moments_forward(y, None, True, bias)
+                biased = row_moments_forward(y + bias.to(dtype), None, True)
+                check(all(same_bits(g, w) for g, w in zip(with_bias, biased)),
+                      f"moments with the bias vs moments of the biased tensor B={batch} {vol} "
+                      f"C={C} {dtype}: bits differ")
+            if dtype == torch.bfloat16:
+                for mode in modes:
+                    args = norm_act_args(mode, y, skip, bias, skip_bias)
+                    ms = time_ms(lambda: norm_act(y, a, b, *args), 20)
+                    plain = time_ms(lambda: norm_act_plain(y, a, b, *args), 3)
+                    bound = norm_act_bound_ms(batch, vol, C, args[2] is not None)
+                    timed[(batch, vol, C, mode)] = (ms, plain, bound)
+                    print(f"[norm_act] bf16 B={batch} {vol} C={C:<3} {mode}: {ms:.4f} ms "
+                          f"({bound / ms * 100:.1f}% of the bound {bound:.4f} ms), op sequence "
+                          f"{plain:.4f} ms, bit-equal in bf16 and fp32 "
+                          f"({','.join(modes[mode])})")
+                mom = [time_ms(lambda bi=bi: row_moments_forward(y, None, True, bi), 20)
+                       for bi in (None, bias)]
+                print(f"[norm_act] moments B={batch} {vol} C={C:<3}: {mom[0]:.4f} ms, with the "
+                      f"conv's bias {mom[1]:.4f} ms")
+            del y, skip
+            torch.cuda.empty_cache()
+    # off the paths: a ragged last chunk, element loads (C not a multiple of
+    # 16 bytes), more columns than a block's 256 threads, STUNet-H's widths
+    for batch, vol, C in ((3, (7, 9, 11), 96), (2, (5, 6, 7), 12), (1, (4, 4, 5), 2048),
+                          (2, (3, 3, 3), 1536)):
+        for dtype in (torch.bfloat16, torch.float32):
+            y, skip, a, b, bias, skip_bias = norm_act_inputs(batch, vol, C, dtype, gen)
+            for mode in NORM_ACT_MODES:
+                args = norm_act_args(mode, y, skip, bias, skip_bias)
+                for rows in (batch, 1):
+                    check(same_bits(norm_act(y, a[:rows], b[:rows], *args),
+                                    norm_act_plain(y, a[:rows], b[:rows], *args)),
+                          f"norm_act kernel vs plain B={batch} {vol} C={C} {dtype} {mode}: "
+                          f"bits differ")
+        print(f"[norm_act] B={batch} {vol} C={C}: bit-equal in bf16 and fp32, every mode "
+              f"(edge case)")
+
+    def totals(batch, norms):
+        t = dict.fromkeys(TOTAL_KEYS, 0.0)
+        for name, vol, C, masked in norms:
+            if not masked:
+                ms, plain, bound = timed[(batch, vol, C, "bare" if batch == BATCH
+                                          else name[-5:])]
+                add_totals(t, 1, ms, plain, plain, 0.0, bound)
+        return t
+
+    tile, step = totals(TTA_BATCH, INFER_NORMS), totals(BATCH, PRETRAIN_NORMS)
+    for label, n, t in (("tile", TILE_NORM_ACT, tile), ("step's teacher", STEP_NORM_ACT, step)):
+        print(f"[norm_act] a {label} ({n} calls): {t['ms']:.3f} ms, bound {t['bound_ms']:.3f} "
+              f"ms ({t['bound_ms'] / t['ms'] * 100:.1f}%), the op sequence {t['plain_ms']:.3f} ms")
+    return tile, step
+
+
 def zconcat_site(C, F, vol, batch, gen, dx, timed=True):
     """Kernel #2's forward at one path shape, and with `dx` the dx through
     conv3d_zconcat (kernel #1, rounded once), against the plain versions:
@@ -1545,10 +1687,10 @@ class LaunchShapes:
                 self.zslab.add(key(x, w, padding))
             return zslab_launch(x, w, padding)
 
-        def moments(x, mask, square_in_dtype):
+        def moments(x, mask, square_in_dtype, bias=None):
             if self.on:
                 self.moments.add((*x.shape, mask is not None, square_in_dtype))
-            return moments_launch(x, mask, square_in_dtype)
+            return moments_launch(x, mask, square_in_dtype, bias)
 
         conv_mod._launch, zslab_mod._launch, moments_mod._launch = conv, zslab, moments
 
@@ -1931,7 +2073,7 @@ def slice_phase(block=False, dtype="bfloat16"):
     # counts from here on belong to the pretraining path
     zero_counts()
     for step in range(STEPS):
-        before, pads = counts(), padding_counts()
+        before, pads, act_before = counts(), padding_counts(), norm_act.launches
         old = [p.detach().clone() for p in teacher.parameters()]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1954,6 +2096,9 @@ def slice_phase(block=False, dtype="bfloat16"):
         # fp32 too); 44 moments
         n = since(before)
         check(n == want_launches, f"{tag} step {step}: launches {n}, expected {want_launches}")
+        n_act = norm_act.launches - act_before
+        check(n_act == STEP_NORM_ACT, f"{tag} step {step}: {n_act} norm epilogue launches, "
+              f"expected {STEP_NORM_ACT} (the teacher's decoder)")
         n_pad = {k: v - pads[k] for k, v in padding_counts().items()}
         check(n_pad == want_pads, f"{tag} step {step}: launches by padding {n_pad}, "
               f"expected {want_pads}")
@@ -2293,11 +2438,14 @@ def inference_phase(dtype=torch.bfloat16, volumes=VOLUMES):
     # counts from here on belong to the inference path
     zero_counts()
     for v in range(volumes):
-        before = counts()
+        before, act_before = counts(), norm_act.launches
         t0 = time.perf_counter()
         logits = predictor.predict_sliding_window_return_logits(data)
         times.append(time.perf_counter() - t0)
         n = since(before)
+        n_act = norm_act.launches - act_before
+        check(n_act == TILES * TILE_NORM_ACT, f"{tag} volume {v}: {n_act} norm epilogue "
+              f"launches, expected {TILES * TILE_NORM_ACT} ({TILE_NORM_ACT} a tile)")
         check(logits.shape == (NUM_CLASSES, *VOLUME), f"volume {v}: logits {logits.shape}")
         check(bool(np.isfinite(logits).all()), f"volume {v}: non-finite logits")
         # a tile: 7 convs on kernel #1, 10 on kernel #2 (the stem on the stem
@@ -2305,8 +2453,8 @@ def inference_phase(dtype=torch.bfloat16, volumes=VOLUMES):
         want = {k: TILES * n_tile for k, n_tile in want_tile.items()}
         check(n == want, f"{tag} volume {v}: launches {n}, expected {want}")
         first = logits if first is None else first
-        print(f"{tag} volume {v}: {times[-1]:.3f} s, launches {n}, logits mean "
-              f"{float(logits.mean()):.6f}, max |diff| to volume 0 "
+        print(f"{tag} volume {v}: {times[-1]:.3f} s, launches {n}, norm epilogue {n_act}, "
+              f"logits mean {float(logits.mean()):.6f}, max |diff| to volume 0 "
               f"{float(np.abs(logits - first).max()):.3e}")
     launches = counts()
     volume_s = statistics.median(times[1:] or times)
@@ -4657,7 +4805,7 @@ def main():
           f"| CUDA {torch.version.cuda} | devices {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    names = ("conv3x3", "moments", "zslab_conv")
+    names = ("conv3x3", "moments", "zslab_conv", "norm_act")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc a source, all at once
         for lib in pool.map(_build.build, names):
             print(f"[build] {lib.name}")
@@ -4688,6 +4836,8 @@ def main():
     free_memory()
     (mom_err, mom_rel, mom_step, mom_volume, mom_tile, mom_checked,
      mom_timed) = moments_phase(gen)
+    free_memory()
+    na_tile, na_step = norm_act_phase(gen)
     free_memory()
     zs_err, zs_rel, zs_probe, zs_variants = zslab_phase(gen)
     zc_err, zc_rel = max(zc_err, zs_err), max(zc_rel, zs_rel)
@@ -4915,6 +5065,17 @@ def main():
                       by_variant("conv3x3")),
         moments_record,
         zslab_record,
+        kernel_record(
+            "norm_act", "anatomask_torch/csrc/norm_act.cu", None,
+            {"inference_volume": VOLUMES * TILES * TILE_NORM_ACT,
+             "pretrain_step": STEPS * STEP_NORM_ACT}, 0.0, 0.0,
+            {"inference_volume": {k: TILES * v for k, v in na_tile.items()},
+             "pretrain_step": na_step},
+            "the one-pass norm epilogue, bit-equal to its plain version: ms the kernel (CUDA "
+            "events), plain_ms and library_ms the op sequence it replaces (no one PyTorch call "
+            "computes it), bound_ms its bytes over 3.35 TB/s; a volume's 18 tiles of 22 calls "
+            "at B = 8 (a block's norm1 and norm2), a pretraining step's teacher decoder's 8 "
+            "bare calls at B = 4"),
     ]
     # the float32 path's variant of kernels #1 and #2: its launches in the
     # fp32 runs (the B step's 5, the volumes, the PretrainTrainer run), its
