@@ -102,10 +102,14 @@ class ConvND(nn.Module):
       (kernel #1, rounded once);
     - 3x3x3 strided along the first axis, at >= MIN_VOLUME output voxels:
       `conv3d_z2d` (three `F.conv3d`, per tap);
-    - everything else (smaller strided convs, 1x1x1, grouped convs such as
-      the depthwise 7x7x7 ones, anisotropic kernels, and 3x3x3 strided on the
-      last two axes only, which no model here has): one `F.conv3d`, as plain
-      convs the JAX package leaves to XLA.
+    - grouped convs (MedNeXt's depthwise 7x7x7 ones): `GroupedConv`, one
+      `F.conv3d` of an NCDHW-contiguous copy of x, so that PyTorch runs its
+      depthwise kernels (`conv_depthwise3d_*`); a channels_last_3d x would go
+      to cuDNN, which runs these convs as a loop of kernels over the groups
+      (2.4 times the MedNeXt step's time on the H100);
+    - everything else (smaller strided convs, 1x1x1, anisotropic kernels, and
+      3x3x3 strided on the last two axes only, which no model here has): one
+      `F.conv3d`, as plain convs the JAX package leaves to XLA.
 
     Parameters `weight` (O, I / groups, *k) and `bias` as in torch's Conv3d."""
 
@@ -129,10 +133,13 @@ class ConvND(nn.Module):
 
     def without_bias(self, x: torch.Tensor) -> torch.Tensor:
         """The conv of x in the compute dtype, its bias not added."""
-        x = x.to(self.dtype).contiguous(memory_format=CL3D)
         w = self.weight.to(self.dtype)
+        if self.groups != 1:
+            return GroupedConv.apply(x.to(self.dtype), w, self.stride,
+                                     tuple(k // 2 for k in self.kernel_size), self.groups)
+        x = x.to(self.dtype).contiguous(memory_format=CL3D)
         out = math.prod((n - 1) // s + 1 for n, s in zip(x.shape[2:], self.stride))
-        k3 = self.kernel_size == (3, 3, 3) and self.groups == 1
+        k3 = self.kernel_size == (3, 3, 3)
         per_tap = k3 and out >= MIN_VOLUME
         if k3 and self.stride == (1, 1, 1):
             conv = conv3d_zconcat if per_tap else conv3d_3x3
@@ -140,9 +147,31 @@ class ConvND(nn.Module):
         elif per_tap and self.stride[0] > 1:
             y = conv3d_z2d(x, w, self.stride)
         else:
-            y = fn.conv3d(x, w, None, self.stride, tuple(k // 2 for k in self.kernel_size),
-                          groups=self.groups)
+            y = fn.conv3d(x, w, None, self.stride, tuple(k // 2 for k in self.kernel_size))
         return y
+
+
+class GroupedConv(torch.autograd.Function):
+    """A grouped conv, `F.conv3d` of an NCDHW-contiguous copy of x, that
+    saves x as it came: PyTorch runs its depthwise kernels
+    (`conv_depthwise3d_*`) on a contiguous input. The backward makes the
+    copy again, so that a MedNeXt down block, whose residual conv saves the
+    same channels_last_3d x, holds it once and not twice."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, groups):
+        ctx.save_for_backward(x, w)
+        ctx.args = (stride, padding, groups)
+        return fn.conv3d(x.contiguous(), w, None, stride, padding, groups=groups)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        stride, padding, groups = ctx.args
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            dy, x.contiguous(), w, None, stride, padding, (1, 1, 1), False, (0, 0, 0), groups,
+            (ctx.needs_input_grad[0], ctx.needs_input_grad[1], False))
+        return dx, dw, None, None, None
 
 
 class InstanceNorm(nn.Module):

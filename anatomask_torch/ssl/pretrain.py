@@ -568,6 +568,7 @@ class PretrainTrainer:
         self.aug_generator = torch.Generator().manual_seed(cfg.seed + 999)
         self.mask_generator = torch.Generator(self.device).manual_seed(cfg.seed + 999)
         self.step_counter = 0
+        self.fetch_wait_s = 0.0  # waiting for the loader or the case cache (next_batch)
 
     def epoch_settings(self, epoch: int) -> Tuple[float, float, int]:
         """(teacher EMA decay, guided keep ratio, len_loss) of an epoch:
@@ -696,6 +697,41 @@ class PretrainTrainer:
             return self.device_cache.extract(slots, origins)
         return next(train_iter)["data"]
 
+    def stop_data(self):
+        """Stop the loaders' workers and the case caches' refills."""
+        self.loader_train.stop()
+        self.loader_val.stop()
+        for cache in (self.device_cache, self.device_cache_val):
+            if cache is not None:
+                cache.stop()
+
+    def next_batch(self, train_iter=None) -> torch.Tensor:
+        """The next training batch as a step takes it, under the span
+        `pretrain.data`: a sample of the case cache, else `train_iter`'s next,
+        augmented, in the model's dtype and layout. The wait for the cache or
+        the loader adds to `fetch_wait_s`."""
+        with span("pretrain.data"):
+            f0 = time.time()
+            data = self._train_batch(train_iter)
+            self.fetch_wait_s += time.time() - f0
+            return self._prep(data)
+
+    def train_step(self, x: torch.Tensor, len_loss: int, ema_decay: float):
+        """One step of cfg.method on the batch x at the schedule's LR (the
+        optimizer's count). Returns (loss, hard mask, teacher's loss map):
+        anatomask_train_step's, or the SparK step's loss and two Nones."""
+        cfg = self.cfg
+        kw = dict(lr=self.lr_schedule(self._optimizer_count()), grad_clip=cfg.grad_clip,
+                  grad_accum_steps=self.grad_accum_steps)
+        if cfg.method == "spark":
+            out = (spark_train_step(self.model, self.optimizer, x, self.mask_generator, **kw),
+                   None, None)
+        else:
+            out = anatomask_train_step(self.model, self.teacher, self.optimizer, x, len_loss,
+                                       self.mask_generator, ema_decay=ema_decay, **kw)
+        self.step_counter += 1
+        return out
+
     def _val_losses(self, n_val: int, val_iter) -> List[torch.Tensor]:
         if self.device_cache_val is None:
             return [val_step(self.model, self._to_model(next(val_iter)["data"]),
@@ -734,24 +770,10 @@ class PretrainTrainer:
                 t0 = time.time()
                 ema_decay, keep_ratio, len_loss = self.epoch_settings(epoch)
 
-                losses = []
-                t_fetch = 0.0
-                for _ in range(self.iters_per_epoch):
-                    f0 = time.time()
-                    data = self._train_batch(train_iter)
-                    t_fetch += time.time() - f0
-                    x = self._prep(data)
-                    kw = dict(lr=self.lr_schedule(self._optimizer_count()),
-                              grad_clip=cfg.grad_clip, grad_accum_steps=self.grad_accum_steps)
-                    if cfg.method == "spark":
-                        loss = spark_train_step(self.model, self.optimizer, x,
-                                                self.mask_generator, **kw)
-                    else:
-                        loss, _, _ = anatomask_train_step(
-                            self.model, self.teacher, self.optimizer, x, len_loss,
-                            self.mask_generator, ema_decay=ema_decay, **kw)
-                    self.step_counter += 1
-                    losses.append(loss)
+                fetch0 = self.fetch_wait_s
+                losses = [self.train_step(self.next_batch(train_iter), len_loss, ema_decay)[0]
+                          for _ in range(self.iters_per_epoch)]
+                t_fetch = self.fetch_wait_s - fetch0
                 train_loss = torch.stack(losses).float().mean().item()
                 t_train = time.time() - t0
                 if not np.isfinite(train_loss):
@@ -800,12 +822,7 @@ class PretrainTrainer:
                     f"val {t_val:.1f}s ckpt {t_ckpt:.1f}s)")
         finally:
             self._join_ckpt_writer()
-            self.loader_train.stop()
-            self.loader_val.stop()
-            if self.device_cache is not None:
-                self.device_cache.stop()
-            if self.device_cache_val is not None:
-                self.device_cache_val.stop()
+            self.stop_data()
         if mesh.rank() != 0:
             return history
         if last_saved is not None and last_saved[1] == self.step_counter:

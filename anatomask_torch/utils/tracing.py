@@ -17,6 +17,8 @@ import torch
 # every span the port opens; the benchmark's per-phase readers read them by name
 SPANS = (
     "pretrain.step",            # one a step (anatomask_train_step, spark_train_step)
+    "pretrain.data",            # beside a step: PretrainTrainer.next_batch (cache or loader,
+                                # augmentation, the model's layout and dtype)
     "pretrain.teacher",         # a microbatch: random mask, teacher forward, per-patch loss
     "pretrain.hard_mask",       # a microbatch: generate_guided_mask
     "pretrain.student_forward",  # a microbatch: the student's forward and loss

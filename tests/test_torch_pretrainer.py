@@ -160,6 +160,48 @@ def test_snapshot_is_a_copy(anatomask_run):
             p.sub_(1.0)
 
 
+def _started(prepared, cfg, name):
+    t = _trainer(prepared, cfg, name)
+    t.get_dataloaders()
+    t.initialize()
+    return t
+
+
+def test_an_iteration_is_next_batch_then_train_step(prepared):
+    """run_pretraining's iteration is `next_batch` then `train_step`: a
+    trainer driven through them alone reaches the weights that
+    run_pretraining reaches over one epoch (validation moves no weight), and
+    counts its wait for the batches."""
+    cfg = _cfg("anatomask", num_epochs=1)
+    run = _trainer(prepared, cfg, "iteration_run")
+    run.run_pretraining()
+    t = _started(prepared, cfg, "iteration_steps")
+    decay, _, len_loss = t.epoch_settings(0)
+    try:
+        for _ in range(t.iters_per_epoch):
+            t.train_step(t.next_batch(), len_loss, decay)
+    finally:
+        t.stop_data()
+    assert t.step_counter == run.step_counter == t.iters_per_epoch and t.fetch_wait_s > 0
+    for (name, p), q in zip(run.model.named_parameters(), t.model.parameters()):
+        assert torch.equal(p, q), name
+
+
+def test_next_batch_opens_the_data_span_beside_the_step(prepared):
+    from torch.profiler import ProfilerActivity, profile
+    t = _started(prepared, _cfg("anatomask"), "data_span")
+    decay, _, len_loss = t.epoch_settings(0)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            t.train_step(t.next_batch(), len_loss, decay)
+    finally:
+        t.stop_data()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.name in ("pretrain.data", "pretrain.step"))
+    assert [n for _, _, n in spans] == ["pretrain.data", "pretrain.step"]
+    assert spans[0][1] <= spans[1][0]
+
+
 def test_spark_run(prepared):
     t = _trainer(prepared, _cfg("spark", device_cache=False), "spark")
     history = t.run_pretraining()
